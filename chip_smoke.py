@@ -16,10 +16,13 @@ non-zero (printing no result) on any failed check:
    device times (CUDA events, median over 25 runs, L2 flushed before each
    run) beside each kernel's bound.
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
-   with FB15k's Table 4 shape, through ``ServingEngine.submit``; every result
+   with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
+   window, then five timed closed-loop windows of fresh requests (QPS, p50
+   and p99 over all of them, and the spread between windows). Every result
    has top-k finite scores, every recorded micro-batch replays identically
    through ``serve_batch``, the first batch agrees with the plain path on the
-   CPU, and the kernels' launch counts show the path went through them.
+   CPU, and the kernels' launch counts (zeroed just before the timed windows)
+   show the path went through them.
 5. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
    serving path gave it most often.
 6. The last line: ``{"ok": true, "device": {...}}``.
@@ -43,7 +46,9 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 FB15K = (14_951, 1_345, 483_142)  # Table 4: entities, relations, train triples
-REQUESTS_PER_PATTERN = 8
+WARMUP_PER_PATTERN = 8     # warm-up window: requests of each of the 14 patterns
+WINDOWS = 5                # timed closed-loop windows, fresh requests in each
+WINDOW_PER_PATTERN = 32    # requests of each pattern in one timed window
 TOP_K = 10
 
 
@@ -92,7 +97,8 @@ def main() -> None:
     from repro_torch.models.base import glorot
     from repro_torch.sampling import OnlineSampler
     from repro_torch.serving import (ServingConfig, ServingEngine,
-                                     check_against_offline, run_closed_loop)
+                                     check_against_offline, latency_summary,
+                                     run_closed_loop)
 
     # ------------------------------------------------------------ 1. device
     dev = torch.device("cuda")
@@ -131,8 +137,9 @@ def main() -> None:
         got = kops.scoring(q, e, gamma=12.0, mode=mode)
         want = kops.scoring_ref(q, e, gamma=12.0, mode=mode)
         torch.cuda.synchronize()
-        tol = 1e-4 if dtype == "float32" else 5e-2
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol * d)
+        # Both sides take the same (bf16-rounded) inputs and sum in fp32, so
+        # bf16 is held to the fp32 tolerance too.
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
         if mode == "dot":
             library = lambda: 12.0 + q @ e.T  # noqa: E731
         elif dtype == "float32":
@@ -203,12 +210,19 @@ def main() -> None:
     t0 = time.perf_counter()
     kg = generate_synthetic_kg(E, R, T, seed=0, name="FB15k-shaped")
     sampler = OnlineSampler(kg, seed=0)
-    workload = [sampler.sample(p).query for p in TEMPLATES
-                for _ in range(REQUESTS_PER_PATTERN)]
-    workload = [workload[i] for i in np.random.default_rng(0).permutation(len(workload))]
+    order = np.random.default_rng(0)
+
+    def mixed(per_pattern: int) -> list:
+        qs = [sampler.sample(p).query for p in TEMPLATES for _ in range(per_pattern)]
+        return [qs[i] for i in order.permutation(len(qs))]
+
+    warmup = mixed(WARMUP_PER_PATTERN)
+    windows = [mixed(WINDOW_PER_PATTERN) for _ in range(WINDOWS)]
+    n_timed = sum(map(len, windows))
     print(f"graph: {kg.n_entities} entities, {kg.n_relations} relations, "
-          f"{len(kg)} triples; {len(workload)} requests over "
-          f"{len(TEMPLATES)} patterns ({time.perf_counter() - t0:.1f} s)")
+          f"{len(kg)} triples; {len(warmup)} warm-up and {WINDOWS} x "
+          f"{len(windows[0])} timed requests over {len(TEMPLATES)} patterns "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     cfg = ModelConfig()
     main_path = {}   # kernel name -> (launches, Counter of shapes)
@@ -221,16 +235,17 @@ def main() -> None:
             model, params, executor=executor, device=dev,
             cfg=ServingConfig(max_batch=16, top_k=TOP_K, record_batches=True))
         with engine:
+            run_closed_loop(engine, warmup, concurrency=32)
+            engine.reset_counters()
             kops.scoring.launches = 0
             kops.intersect.launches = 0
-            run_closed_loop(engine, workload, concurrency=32)   # warmup
-            engine.reset_counters()
-            report = run_closed_loop(engine, workload, concurrency=32)
+            reports = [run_closed_loop(engine, w, concurrency=32) for w in windows]
             torch.cuda.synchronize()
             launches = {"scoring": kops.scoring.launches,
                         "intersect": kops.intersect.launches}
         st = engine.stats()
-        for res in report.results:
+        results = [res for rep in reports for res in rep.results]
+        for res in results:
             s = np.asarray(res["scores"])
             if len(res["top_entities"]) != TOP_K or not np.isfinite(s).all():
                 fail(f"{family}: a result lacks {TOP_K} finite scores: {res}")
@@ -271,9 +286,13 @@ def main() -> None:
                         shapes[(pn, card)] += 1
             else:
                 shapes[len(rec.queries)] += 1
-        l = report.latency_ms
-        print(f"serve {family}: {len(workload)} requests, {report.qps:.1f} q/s, "
-              f"p50 {l['p50']:.2f} ms, p99 {l['p99']:.2f} ms | "
+        l = latency_summary([res["latency_ms"] for res in results])
+        wall = sum(rep.wall_s for rep in reports)
+        per_window = ", ".join(f"{rep.qps:.1f} q/s p50 {rep.latency_ms['p50']:.2f} "
+                               f"p99 {rep.latency_ms['p99']:.2f}" for rep in reports)
+        print(f"serve {family}: {n_timed} requests in {wall:.3f} s, "
+              f"{n_timed / wall:.1f} q/s, p50 {l['p50']:.2f} ms, p99 "
+              f"{l['p99']:.2f} ms | windows: {per_window} | "
               f"{st['batches']} micro-batches, {st['retraces']} retraces, "
               f"launches {launches}, "
               f"{checked} replayed identically through serve_batch, max "
@@ -282,6 +301,11 @@ def main() -> None:
         need = "intersect" if family == "betae" else "scoring"
         if launches[need] == 0:
             fail(f"{family}: the {need} kernel was never launched")
+        # One launch per intersect/union op (BetaE) or per micro-batch's
+        # score_all (GQE, ComplEx) of the timed windows, and no other.
+        if launches[need] != sum(shapes.values()):
+            fail(f"{family}: {launches[need]} {need} launches for "
+                 f"{sum(shapes.values())} calls in the recorded batches")
         key = "intersect" if family == "betae" else f"scoring[{model.score_mode}]"
         main_path[key] = (launches[need], shapes)
         del engine, executor, model, params

@@ -1,21 +1,21 @@
 """Where one serving micro-batch spends its time on the GPU.
 
-Serves a warm micro-batch through ``serve_batch``'s phases (pooled encode,
-all-entity scoring, host top-k) at full width on the dataset's Table 4 shape,
-and prints:
+For BetaE, GQE and ComplEx at full width on FB15k's Table 4 shape, serves
+warm micro-batches of 16 (the engine's ``max_batch``) through
+``serve_batch``'s phases (pooled encode, all-entity scoring, host top-k) and
+prints, per family:
 
 * the wall time of each phase (host clock, ``torch.cuda.synchronize()`` at
-  each phase boundary), median over ``--reps`` batches;
+  each phase boundary), median over 10 batches;
 * the card's busy time per batch (sum of kernel and copy times from a
   ``torch.profiler`` trace of the same batches) and its share of the wall
   time — how far the host holds the card back;
 * the kernels that take the most device time.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile --model betae
+    PYTHONPATH=src python -m repro_torch.launch.profile
 """
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import time
@@ -25,8 +25,13 @@ import torch
 from repro_torch.core import PooledExecutor
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
-from repro_torch.models import ModelConfig, make_model, model_names
+from repro_torch.models import ModelConfig, make_model
 from repro_torch.serving import make_workload, scorer_for, topk_desc
+
+FAMILIES = ("betae", "gqe", "complex")
+BATCH = 16     # queries per micro-batch
+REPS = 10      # batches timed, then traced
+TOP = 12       # kernels listed by device time
 
 
 def _device_us(evt) -> float:
@@ -41,26 +46,13 @@ def _on_device(evt) -> bool:
     return evt.device_type != torch.autograd.DeviceType.CPU
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="betae", choices=model_names())
-    ap.add_argument("--dataset", default="FB15k")
-    ap.add_argument("--batch", type=int, default=16,
-                    help="queries per micro-batch (the engine's max_batch)")
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--top", type=int, default=12,
-                    help="kernels listed by device time")
-    args = ap.parse_args(argv)
-
-    device = resolve_device(None)
-    kg, _, _ = load_dataset(args.dataset, reduced=False, seed=0)
-    model = make_model(args.model, ModelConfig(), device=device)
+def profile_family(family: str, kg, device) -> dict:
+    model = make_model(family, ModelConfig(), device=device)
     params = model.init_params(torch.Generator(device=device).manual_seed(1),
                                kg.n_entities, kg.n_relations)
     executor = PooledExecutor(model, b_max=256, device=device)
     scorer = scorer_for(model)
-    batches = [make_workload(kg, args.batch, seed=100 + i)
-               for i in range(args.reps)]
+    batches = [make_workload(kg, BATCH, seed=100 + i) for i in range(REPS)]
 
     def serve(queries, phases=None):
         t0 = time.perf_counter()
@@ -87,21 +79,26 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages() if _on_device(e)]
     device_ms = sum(_device_us(e) for e in events) / 1e3 / len(batches)
     wall_ms = statistics.median(walls)
-    print(f"{args.model} on {torch.cuda.get_device_name(device)}: "
-          f"{args.batch} queries per batch, {len(batches)} batches")
+    print(f"{family} on {torch.cuda.get_device_name(device)}: "
+          f"{BATCH} queries per batch, {len(batches)} batches")
     for name, i in (("encode", 0), ("score", 1), ("top-k (host)", 2)):
         print(f"  {name:13s} wall {statistics.median(p[i] for p in phases) * 1e3:8.3f} ms")
     print(f"  device busy {device_ms:.3f} ms of {wall_ms:.3f} ms wall per batch "
           f"({device_ms / wall_ms:.1%})")
-    top = sorted(events, key=_device_us, reverse=True)[: args.top]
-    for e in top:
+    for e in sorted(events, key=_device_us, reverse=True)[:TOP]:
         if _device_us(e) > 0:
             print(f"    {_device_us(e) / 1e3 / len(batches):8.4f} ms/batch "
                   f"{e.count // len(batches):5d} calls/batch  {e.key[:80]}")
-    print(json.dumps({"model": args.model, "batch": args.batch,
-                      "wall_ms_per_batch": wall_ms,
-                      "device_ms_per_batch": device_ms,
-                      "device_busy": device_ms / wall_ms}))
+    return {"model": family, "batch": BATCH, "wall_ms_per_batch": wall_ms,
+            "device_ms_per_batch": device_ms, "device_busy": device_ms / wall_ms}
+
+
+def main() -> None:
+    device = resolve_device(None)
+    kg, _, _ = load_dataset("FB15k", reduced=False, seed=0)
+    for family in FAMILIES:
+        print(json.dumps(profile_family(family, kg, device)))
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,10 +17,6 @@ SCORING_SHAPES = [(8, 64, 32), (70, 333, 96), (128, 256, 128)]
 INTERSECT_SHAPES = [(16, 2, 32, 64), (100, 3, 64, 128), (64, 4, 128, 128)]
 
 
-def _tol(dtype, fp32_tol):
-    return fp32_tol if dtype == "float32" else 5e-2
-
-
 def _pair(a: np.ndarray, dtype: str):
     """The same values as a JAX array and a torch tensor of ``dtype``."""
     if dtype == "float32":
@@ -50,8 +46,9 @@ def test_scoring_matches_pallas(B, N, d, dtype, mode):
     got = tops.scoring(tq, te, gamma=1.5, mode=mode)
     assert tops.scoring.launches == before  # CPU tensors: plain version
     assert got.dtype == torch.float32 and got.shape == (B, N)
-    tol = _tol(dtype, 1e-4)
-    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol * d)
+    # The Pallas kernel and the port both upcast the same (bf16-rounded)
+    # inputs and sum in fp32, so bf16 is held to the fp32 tolerance too.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * d)
 
 
 @pytest.mark.parametrize("n,k,d,hd", INTERSECT_SHAPES)
@@ -66,7 +63,7 @@ def test_intersect_matches_pallas(n, k, d, hd, dtype):
     got = tops.intersect(tx, *map(torch.from_numpy, (w1, b1, w2, b2)))
     assert tops.intersect.launches == before
     assert got.dtype == tx.dtype and got.shape == (n, d)
-    tol = _tol(dtype, 1e-5)
+    tol = 1e-5 if dtype == "float32" else 5e-2
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
