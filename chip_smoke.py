@@ -14,7 +14,9 @@ non-zero (printing no result) on any failed check:
    the serving shapes and one ragged shape, in fp32 and bf16, with the
    tolerances of the JAX package's kernel tests; kernel, plain and library
    device times (CUDA events, median over 25 runs, L2 flushed before each
-   run) beside each kernel's bound.
+   run) beside each kernel's bound. ``gather_fuse`` also shows that rows
+   fused from the resident table and from a staged hot set are bitwise
+   equal.
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
    with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
    window, then five timed closed-loop windows of fresh requests (QPS, p50
@@ -23,6 +25,16 @@ non-zero (printing no result) on any failed check:
    through ``serve_batch``, the first batch agrees with the plain path on the
    CPU, and the kernels' launch counts (zeroed just before the timed windows)
    show the path went through them.
+4b. Semantic serving: builds H_sem for the graph with the stub PTE
+   (PTEConfig(): d_l 1024) into a temporary fp32 store, then serves GQE at
+   ModelConfig(semantic_dim=1024) from two layouts with phase 4's windows —
+   resident (the whole table on the card) and out-of-core (a 2,048-row hot
+   set staged per micro-batch, all-entity scoring streamed from the store in
+   4,096-row chunks). Each layout replays identically through
+   ``serve_batch`` (out-of-core with a fresh cache), the first resident batch
+   agrees with the CPU plain path, the first out-of-core batch agrees with
+   the resident layout within 1e-5, and the ``gather_fuse`` and ``scoring``
+   launches equal what the recorded batches call for.
 5. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
    serving path gave it most often.
 6. The last line: ``{"ok": true, "device": {...}}``.
@@ -31,9 +43,11 @@ from __future__ import annotations
 
 import collections
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,6 +64,9 @@ WARMUP_PER_PATTERN = 8     # warm-up window: requests of each of the 14 patterns
 WINDOWS = 5                # timed closed-loop windows, fresh requests in each
 WINDOW_PER_PATTERN = 32    # requests of each pattern in one timed window
 TOP_K = 10
+SEM_DIM = 1024             # PTEConfig().d_l: Qwen3-Embedding-0.6B's width
+SEM_BUDGET = 2048          # out-of-core hot-set rows
+CHUNK = 4096               # score_all_chunked's default chunk
 
 
 def fail(msg: str) -> None:
@@ -96,6 +113,8 @@ def main() -> None:
     from repro_torch.models import ModelConfig, make_model, params_from_numpy
     from repro_torch.models.base import glorot
     from repro_torch.sampling import OnlineSampler
+    from repro_torch.semantic import (PTEConfig, SemanticCache, StubPTE,
+                                      precompute_semantic_table_to_store)
     from repro_torch.serving import (ServingConfig, ServingEngine,
                                      check_against_offline, latency_summary,
                                      run_closed_loop)
@@ -188,6 +207,72 @@ def main() -> None:
             "shape": {"n": n, "k": k, "d": d, "hd": hd}, "dtype": dtype,
         }
 
+    def measure_gather_fuse(n: int, d: int, dl: int, dp: int, dtype: str,
+                            layout: str, E: int) -> dict:
+        """Fusion of n rows out of an E-row graph, as the serving path calls
+        it: ``resident`` (ids into the full table), ``chunk`` (a streamed
+        n-row slice of H_sem with local sem_ids) or ``cache`` (ids through
+        the slots of a SEM_BUDGET-row hot set)."""
+        h_str = (torch.randn((E, d), generator=gen, device=dev) / d ** 0.5).to(fp[dtype])
+        table = torch.nn.functional.normalize(
+            torch.randn((E, dl), generator=gen, device=dev), dim=1)
+        wp, wf = glorot((dl, dp), gen, dev), glorot((d + dp, d), gen, dev)
+        bp = 0.1 * torch.randn((dp,), generator=gen, device=dev)
+        bf = 0.1 * torch.randn((d,), generator=gen, device=dev)
+        sem_ids = None
+        if layout == "resident":
+            ids = (torch.arange(E, device=dev) if n == E else
+                   torch.randint(0, E, (n,), generator=gen, device=dev))
+            h_sem = table
+        elif layout == "chunk":
+            lo = E - n
+            ids = torch.arange(lo, E, device=dev)
+            h_sem = table[lo:].clone()
+            sem_ids = torch.arange(n, device=dev)
+        else:
+            ids = torch.randperm(E, generator=gen, device=dev)[:n]
+            sem_ids = torch.randperm(SEM_BUDGET, generator=gen, device=dev)[:n]
+            h_sem = torch.zeros((SEM_BUDGET, dl), device=dev)
+            h_sem[sem_ids] = table[ids]
+        h_sem = h_sem.to(fp[dtype])
+        args = (ids, h_str, h_sem, wp, bp, wf, bf)
+        got = kops.gather_fuse(*args, sem_ids=sem_ids)
+        want = kops.gather_fuse_ref(*args, sem_ids=sem_ids)
+        torch.cuda.synchronize()
+        # fp32: tests/test_kernels.py:51. bf16 tables: one bf16 step of an
+        # output in [-1, 1] (both sides sum the same inputs in fp32).
+        tol = 1e-5 if dtype == "float32" else 1e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if layout == "resident" and n == E:
+            # The same rows through a staged hot set are bitwise equal.
+            some = torch.randperm(E, generator=gen, device=dev)[:48]
+            cache = SemanticCache(table.to(fp[dtype]).float().cpu().numpy(),
+                                  budget_rows=SEM_BUDGET, device=dev)
+            staged = {"sem_cache": cache.buffer, "sem_slot": cache.slot_map}
+            cache.apply_to(staged, cache.plan(some.cpu().numpy()))
+            via_cache = kops.gather_fuse(some, h_str, cache.buffer.to(fp[dtype]),
+                                         wp, bp, wf, bf, sem_ids=cache.slot_map[some])
+            torch.cuda.synchronize()
+            if not torch.equal(via_cache, got[some]):
+                fail(f"gather_fuse {dtype}: rows fused from a staged hot set "
+                     f"differ from the resident table's by "
+                     f"{(via_cache.float() - got[some].float()).abs().max():.3g}")
+        eh, ez = fp[dtype].itemsize, h_sem.element_size()
+        nbytes = (2 * n * d * eh + n * dl * ez + n * 8 * (1 if sem_ids is None else 2)
+                  + (dl * dp + dp + (d + dp) * d + d) * 4)
+        # Both products and the bias adds; the sigmoid epilogue's ~4 ops.
+        flops = n * (2 * dl * dp + dp + 2 * (d + dp) * d + d + 4 * d)
+        b_ms, b_by = bound(nbytes, flops, "float32")  # fp32 FMAs, CUDA cores
+        return {
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": time_ms(torch, lambda: kops.gather_fuse(*args, sem_ids=sem_ids), flush),
+            "plain_ms": time_ms(torch, lambda: kops.gather_fuse_ref(*args, sem_ids=sem_ids), flush),
+            "library_ms": None,  # no single PyTorch call computes Eq. 11 + 12
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"n": n, "E": E, "d": d, "dl": dl, "dp": dp, "layout": layout},
+            "dtype": dtype,
+        }
+
     def show(name: str, r: dict) -> None:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} {r['shape']} {r['dtype']}: max_abs_err "
@@ -205,6 +290,11 @@ def main() -> None:
                             (256, 2, 800, 800), (256, 3, 800, 800),
                             (100, 3, 64, 128)):
             show("intersect", measure_intersect(n, k, d, hd, dtype))
+        for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
+                                           (min(CHUNK, E), 400, SEM_DIM, 64, "chunk", E),
+                                           (48, 400, SEM_DIM, 64, "cache", E),
+                                           (33, 64, 128, 32, "resident", 100)):
+            show("gather_fuse", measure_gather_fuse(n, d, dl, dp, dtype, layout, rows))
 
     # ------------------------------------------------------------- 4. serve
     t0 = time.perf_counter()
@@ -311,11 +401,178 @@ def main() -> None:
         del engine, executor, model, params
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- 4b. semantic serving
+    def serve_semantic(store):
+        """GQE with H_sem served from both layouts, with phase 4's windows.
+        Returns the ``gather_fuse`` launches of both timed runs and a Counter
+        of the (layout, n) they were made at."""
+        sem_cfg = ModelConfig(semantic_dim=SEM_DIM)
+        n_chunks = -(-E // CHUNK)
+        total, calls, resident = 0, collections.Counter(), None
+        for layout in ("resident", "out-of-core"):
+            model = make_model("gqe", sem_cfg, device=dev)
+            executor = PooledExecutor(model, b_max=256, device=dev)
+            scfg = ServingConfig(max_batch=16, top_k=TOP_K, record_batches=True)
+            seeded = lambda: torch.Generator(device=dev).manual_seed(1)  # noqa: E731
+            if layout == "resident":
+                table = np.concatenate([rows for _, rows in store.iter_shards()])
+                params = model.init_params(seeded(), E, R, semantic_table=table)
+                del table
+                cache, per_batch = None, 1
+                engine = ServingEngine(model, params, executor=executor,
+                                       device=dev, cfg=scfg)
+            else:
+                cache, per_batch = SemanticCache(store, SEM_BUDGET, device=dev), n_chunks
+                params = model.init_params(seeded(), E, R, semantic_cache=cache)
+                engine = ServingEngine(model, params, executor=executor,
+                                       device=dev, cfg=scfg, sem_cache=cache,
+                                       sem_rows_fn=store.read_rows)
+            with engine:
+                run_closed_loop(engine, warmup, concurrency=32)
+                engine.reset_counters()
+                kops.scoring.launches = kops.intersect.launches = 0
+                kops.gather_fuse.launches = 0
+                reports = [run_closed_loop(engine, w, concurrency=32) for w in windows]
+                torch.cuda.synchronize()
+                launches = {"gather_fuse": kops.gather_fuse.launches,
+                            "scoring": kops.scoring.launches}
+            st = engine.stats()
+            log = engine.batch_log
+            results = [res for rep in reports for res in rep.results]
+            for res in results:
+                if (len(res["top_entities"]) != TOP_K
+                        or not np.isfinite(np.asarray(res["scores"])).all()):
+                    fail(f"semantic {layout}: a result lacks {TOP_K} finite scores")
+            if st["failures"]:
+                fail(f"semantic {layout}: {st['failures']} requests failed")
+
+            # Launches: one per EMBED op, plus the all-entity fusion (one
+            # resident launch, or one per streamed chunk) of every batch.
+            embeds = 0
+            for rec in log:
+                for op, _card, pn in executor.prepare(rec.queries).meta:
+                    if op == int(OpType.EMBED):
+                        embeds += 1
+                        calls[("resident" if cache is None else "cache", pn)] += 1
+                if cache is None:
+                    calls[("resident", E)] += 1
+                else:
+                    for lo in range(0, E, CHUNK):
+                        calls[("chunk", min(CHUNK, E - lo))] += 1
+            want = embeds + per_batch * len(log)
+            if launches["gather_fuse"] == 0 or launches["gather_fuse"] != want:
+                fail(f"semantic {layout}: {launches['gather_fuse']} gather_fuse "
+                     f"launches for {embeds} EMBED ops and {len(log)} batches "
+                     f"({want} expected)")
+            if launches["scoring"] != per_batch * len(log):
+                fail(f"semantic {layout}: {launches['scoring']} scoring launches "
+                     f"for {len(log)} batches")
+            total += launches["gather_fuse"]
+
+            # Replay: resident through serve_batch; out-of-core through
+            # serve_batch with a fresh cache and params and the chunked scorer.
+            if cache is None:
+                oracle = lambda qs: serve_batch(  # noqa: E731
+                    model, params, executor, qs, top_k=TOP_K, device=dev)[0]
+            else:
+                cache2 = SemanticCache(store, SEM_BUDGET, device=dev)
+                params2 = model.init_params(seeded(), E, R, semantic_cache=cache2)
+                ex2 = PooledExecutor(model, b_max=256, device=dev)
+                chunked = lambda p, q: model.score_all_chunked(p, q, store.read_rows)  # noqa: E731
+                oracle = lambda qs: serve_batch(  # noqa: E731
+                    model, params2, ex2, qs, top_k=TOP_K, device=dev,
+                    score_all_fn=chunked, sem_cache=cache2)[0]
+            checked = check_against_offline(log, oracle)
+            if checked == 0 or checked != sum(r.n_real for r in log):
+                fail(f"semantic {layout}: {checked} rows replayed of the "
+                     f"recorded batches")
+
+            rec = log[0]
+            if cache is None:
+                # The first batch against the plain path on the CPU.
+                cpu_model = make_model("gqe", sem_cfg, device="cpu")
+                cpu_params = params_from_numpy(
+                    cpu_model, {k: v.cpu().numpy() for k, v in params.items()})
+                cpu_ex = PooledExecutor(cpu_model, b_max=256, device="cpu")
+                with torch.no_grad():
+                    ref = cpu_model.score_all(
+                        cpu_params, cpu_ex.encode(cpu_params, rec.queries)).numpy()
+                worst = 0.0
+                for i, res in enumerate(rec.results[: rec.n_real]):
+                    r_i = ref[i, res["top_entities"]]
+                    err = np.abs(r_i - np.asarray(res["scores"]))
+                    if (err > 2e-3 + 1e-4 * np.abs(r_i) + 5e-4).any():
+                        fail(f"semantic resident: served scores differ from the "
+                             f"CPU plain path by {err.max():.3g}")
+                    worst = max(worst, float(err.max()))
+                agree = f"max |GPU - CPU plain| at top-{TOP_K} {worst:.3g}"
+                resident = (model, params, executor)
+            else:
+                # The first batch's unrounded scores against the resident layout.
+                cache3 = SemanticCache(store, SEM_BUDGET, device=dev)
+                params3 = model.init_params(seeded(), E, R, semantic_cache=cache3)
+                ex3 = PooledExecutor(model, b_max=256, device=dev)
+                cache3.apply_to(params3, cache3.plan(
+                    np.concatenate([q.anchors for q in rec.queries])))
+                ooc = model.score_all_chunked(
+                    params3, ex3.encode(params3, rec.queries), store.read_rows)
+                r_model, r_params, r_ex = resident
+                with torch.no_grad():
+                    dense = r_model.score_all(
+                        r_params, r_ex.encode(r_params, rec.queries)).cpu().numpy()
+                worst = 0.0
+                for i, res in enumerate(rec.results[: rec.n_real]):
+                    ids = res["top_entities"]
+                    err = float(np.abs(ooc[i, ids] - dense[i, ids]).max())
+                    if err > 1e-5:
+                        fail(f"semantic out-of-core: top-{TOP_K} scores differ "
+                             f"from the resident layout's by {err:.3g}")
+                    worst = max(worst, err)
+                agree = f"max |out-of-core - resident| at top-{TOP_K} {worst:.3g}"
+            l = latency_summary([res["latency_ms"] for res in results])
+            wall = sum(rep.wall_s for rep in reports)
+            per_window = ", ".join(
+                f"{rep.qps:.1f} q/s p50 {rep.latency_ms['p50']:.2f} p99 "
+                f"{rep.latency_ms['p99']:.2f}" for rep in reports)
+            cs = st.get("sem_cache")
+            hot = ("hot set n/a" if cs is None else
+                   f"hot set hit rate {cs['hit_rate']:.2%}, "
+                   f"{cs['rows_staged']} rows staged, {cs['evictions']} evictions")
+            print(f"serve gqe+semantic [{layout}]: {n_timed} requests in "
+                  f"{wall:.3f} s, {n_timed / wall:.1f} q/s, p50 {l['p50']:.2f} ms, "
+                  f"p99 {l['p99']:.2f} ms | windows: {per_window} | "
+                  f"{st['batches']} micro-batches, {embeds} EMBED ops, launches "
+                  f"{launches} | {hot} | {checked} replayed identically through "
+                  f"serve_batch, {agree}")
+            del engine
+        del resident
+        torch.cuda.empty_cache()
+        return total, calls
+
+    sem_dir = tempfile.mkdtemp(prefix="chip_smoke_semstore_")
+    try:
+        t0 = time.perf_counter()
+        store = precompute_semantic_table_to_store(
+            kg, sem_dir, StubPTE(PTEConfig(), device=dev))
+        print(f"semantic store: {store.n_rows} x {store.dim} {store.quant} in "
+              f"{len(list(store.iter_shards()))} shard(s), "
+              f"{store.disk_nbytes / 1e6:.1f} MB, built in "
+              f"{time.perf_counter() - t0:.1f} s (stub PTE on the card, "
+              f"normalisation and neighbour smoothing on the host)")
+        main_path["gather_fuse"] = serve_semantic(store)
+    finally:
+        shutil.rmtree(sem_dir, ignore_errors=True)
+
     # ------------------------------------------------- 5. the kernels line
     entries = []
     for key, (launches, shapes) in main_path.items():
         shape = shapes.most_common(1)[0][0]
-        if key == "intersect":
+        if key == "gather_fuse":
+            layout, n = shape
+            r = measure_gather_fuse(n, cfg.dim, SEM_DIM, cfg.semantic_proj_dim,
+                                    "float32", layout, E)
+            src, replaces = "gather_fuse.cu", "src/repro/kernels/gather_fuse.py:77"
+        elif key == "intersect":
             n, k = shape
             r = measure_intersect(n, k, 2 * cfg.dim, cfg.dim * cfg.hidden_mult,
                                   "float32")

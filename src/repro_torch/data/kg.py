@@ -135,6 +135,14 @@ class KnowledgeGraph:
         return deg
 
     @cached_property
+    def relations_by_head(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """CSR (indptr, relations, tails) grouped by head for random walks."""
+        order = np.argsort(self.triples[:, 0], kind="stable")
+        heads = self.triples[order, 0]
+        indptr = np.searchsorted(heads, np.arange(self.n_entities + 1))
+        return indptr, self.triples[order, 1], self.triples[order, 2]
+
+    @cached_property
     def incoming_by_tail(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """CSR (indptr, relations, heads) grouped by tail — used by the online
         sampler's backward ground-truth instantiation (App. F)."""

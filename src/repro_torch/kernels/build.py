@@ -105,6 +105,9 @@ def load_library() -> ctypes.CDLL:
             lib.repro_scoring.restype = i
             lib.repro_intersect.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_intersect.restype = i
+            ll = ctypes.c_longlong
+            lib.repro_gather_fuse.argtypes = [p] * 9 + [i, ll, ll, i, i, i, i, p]
+            lib.repro_gather_fuse.restype = i
             lib.repro_intersect_tiles.argtypes = [i]
             lib.repro_intersect_tiles.restype = i
             lib.repro_error_string.argtypes = [i]

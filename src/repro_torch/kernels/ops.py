@@ -1,7 +1,10 @@
 """Public entry to the port's kernels: the wrappers the models call, and the
 plain PyTorch versions beside them. Each wrapper takes its plain version for
 CPU tensors and launches its hand-written CUDA kernel for CUDA tensors."""
+from repro_torch.kernels.gather_fuse import (gather_fuse, gather_fuse_params,
+                                             gather_fuse_ref)
 from repro_torch.kernels.intersect import intersect, intersect_ref
 from repro_torch.kernels.scoring import scoring, scoring_ref
 
-__all__ = ["intersect", "intersect_ref", "scoring", "scoring_ref"]
+__all__ = ["gather_fuse", "gather_fuse_params", "gather_fuse_ref",
+           "intersect", "intersect_ref", "scoring", "scoring_ref"]

@@ -1,31 +1,40 @@
 """Where one serving micro-batch spends its time on the GPU.
 
-For BetaE, GQE and ComplEx at full width on FB15k's Table 4 shape, serves
-warm micro-batches of 16 (the engine's ``max_batch``) through
-``serve_batch``'s phases (pooled encode, all-entity scoring, host top-k) and
-prints, per family:
+For BetaE, GQE and ComplEx at full width on FB15k's Table 4 shape, and for
+GQE with H_sem (d_l 1024, built by the stub PTE into a temporary store) in
+its resident and out-of-core layouts, serves warm micro-batches of 16 (the
+engine's ``max_batch``) through ``serve_batch``'s phases (hot-set staging,
+pooled encode, all-entity scoring, host top-k) and prints, per model:
 
 * the wall time of each phase (host clock, ``torch.cuda.synchronize()`` at
   each phase boundary), median over 10 batches;
 * the card's busy time per batch (sum of kernel and copy times from a
   ``torch.profiler`` trace of the same batches) and its share of the wall
   time — how far the host holds the card back;
-* the kernels that take the most device time.
+* the kernels that take the most device time;
+* out of core, what the chunked scorer's host side costs alone: reading
+  every row from the store, and copying them to the card from pageable
+  memory.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import PooledExecutor
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, make_model
+from repro_torch.semantic import (SemanticCache, StubPTE,
+                                  precompute_semantic_table_to_store)
 from repro_torch.serving import make_workload, scorer_for, topk_desc
 
 FAMILIES = ("betae", "gqe", "complex")
@@ -46,25 +55,50 @@ def _on_device(evt) -> bool:
     return evt.device_type != torch.autograd.DeviceType.CPU
 
 
-def profile_family(family: str, kg, device) -> dict:
-    model = make_model(family, ModelConfig(), device=device)
-    params = model.init_params(torch.Generator(device=device).manual_seed(1),
-                               kg.n_entities, kg.n_relations)
+def profile_family(family: str, kg, device, store=None,
+                   layout: str = "") -> dict:
+    """One model's warm micro-batches. With ``store``, GQE carries H_sem
+    ``resident`` on the card or ``out-of-core`` behind a 2,048-row hot set."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    E, R = kg.n_entities, kg.n_relations
+    cache = None
+    if store is None:
+        model = make_model(family, ModelConfig(), device=device)
+        params = model.init_params(gen, E, R)
+    else:
+        model = make_model(family, ModelConfig(semantic_dim=store.dim),
+                           device=device)
+        if layout == "resident":
+            table = np.concatenate([rows for _, rows in store.iter_shards()])
+            params = model.init_params(gen, E, R, semantic_table=table)
+        else:
+            cache = SemanticCache(store, budget_rows=2048, device=device)
+            params = model.init_params(gen, E, R, semantic_cache=cache)
+        family = f"{family}+semantic [{layout}]"
     executor = PooledExecutor(model, b_max=256, device=device)
     scorer = scorer_for(model)
     batches = [make_workload(kg, BATCH, seed=100 + i) for i in range(REPS)]
 
     def serve(queries, phases=None):
         t0 = time.perf_counter()
+        if cache is not None:
+            stage = cache.plan(np.concatenate([q.anchors for q in queries]))
+            if stage is not None:
+                cache.apply_to(params, stage)
+            torch.cuda.synchronize()
+        ts = time.perf_counter()
         states = executor.encode(params, queries)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        scores = scorer(params, states).cpu().numpy()
+        if cache is not None:
+            scores = model.score_all_chunked(params, states, store.read_rows)
+        else:
+            scores = scorer(params, states).cpu().numpy()
         t2 = time.perf_counter()
         topk_desc(scores, 10)
         t3 = time.perf_counter()
         if phases is not None:
-            phases.append((t1 - t0, t2 - t1, t3 - t2))
+            phases.append((ts - t0, t1 - ts, t2 - t1, t3 - t2))
 
     for q in batches:   # warm: plans, closures, kernel library, allocator
         serve(q)
@@ -81,8 +115,25 @@ def profile_family(family: str, kg, device) -> dict:
     wall_ms = statistics.median(walls)
     print(f"{family} on {torch.cuda.get_device_name(device)}: "
           f"{BATCH} queries per batch, {len(batches)} batches")
-    for name, i in (("encode", 0), ("score", 1), ("top-k (host)", 2)):
+    for name, i in (("stage", 0), ("encode", 1), ("score", 2), ("top-k (host)", 3)):
         print(f"  {name:13s} wall {statistics.median(p[i] for p in phases) * 1e3:8.3f} ms")
+    out = {}
+    if cache is not None:
+        reads, copies = [], []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            rows = store.read_rows(np.arange(E))
+            t1 = time.perf_counter()
+            torch.from_numpy(rows).to(device)
+            torch.cuda.synchronize()
+            copies.append(time.perf_counter() - t1)
+            reads.append(t1 - t0)
+        out = {"store_read_ms": statistics.median(reads) * 1e3,
+               "h2d_copy_ms": statistics.median(copies) * 1e3,
+               "h2d_bytes": rows.nbytes}
+        print(f"  of the score phase: store read of all {E} rows "
+              f"{out['store_read_ms']:.3f} ms, host->device copy of "
+              f"{rows.nbytes / 1e6:.1f} MB (pageable) {out['h2d_copy_ms']:.3f} ms")
     print(f"  device busy {device_ms:.3f} ms of {wall_ms:.3f} ms wall per batch "
           f"({device_ms / wall_ms:.1%})")
     for e in sorted(events, key=_device_us, reverse=True)[:TOP]:
@@ -90,7 +141,8 @@ def profile_family(family: str, kg, device) -> dict:
             print(f"    {_device_us(e) / 1e3 / len(batches):8.4f} ms/batch "
                   f"{e.count // len(batches):5d} calls/batch  {e.key[:80]}")
     return {"model": family, "batch": BATCH, "wall_ms_per_batch": wall_ms,
-            "device_ms_per_batch": device_ms, "device_busy": device_ms / wall_ms}
+            "device_ms_per_batch": device_ms, "device_busy": device_ms / wall_ms,
+            **out}
 
 
 def main() -> None:
@@ -99,6 +151,15 @@ def main() -> None:
     for family in FAMILIES:
         print(json.dumps(profile_family(family, kg, device)))
         torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="profile_semstore_")
+    try:
+        store = precompute_semantic_table_to_store(kg, directory,
+                                                   StubPTE(device=device))
+        for layout in ("resident", "out-of-core"):
+            print(json.dumps(profile_family("gqe", kg, device, store, layout)))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 if __name__ == "__main__":

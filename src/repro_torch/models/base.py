@@ -32,6 +32,7 @@ class ModelConfig:
     gamma: float = 12.0            # margin (Table 5)
     hidden_mult: int = 2           # operator MLP width multiplier
     semantic_dim: int = 0          # d_l of the PTE manifold; 0 = structural-only
+    semantic_proj_dim: int = 64    # F: R^{d_l} -> R^{proj} before concat (Eq. 12)
     # Pad entity-table rows to a multiple of this; padded rows are masked out
     # of score_all.
     entity_pad: int = 1
@@ -60,7 +61,8 @@ def mlp_apply(p: Params, prefix: str, x: torch.Tensor, n_layers: int) -> torch.T
 
 
 class QueryEncoder(nn.Module):
-    """Base class. Subclasses implement the geometry."""
+    """Base class. Subclasses implement the geometry; the fused-entity path
+    (structural ⊕ semantic, Eq. 12) is shared here."""
 
     name: str = "base"
     # "dot" | "l1" when the geometry's score is gamma ± <q, e>, which the
@@ -69,9 +71,6 @@ class QueryEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
-        if cfg.semantic_dim > 0:
-            raise NotImplementedError(
-                "semantic augmentation (semantic_dim > 0) is not ported yet")
         self.cfg = cfg
         self.device = device
 
@@ -109,33 +108,108 @@ class QueryEncoder(nn.Module):
         m = self.cfg.entity_pad
         return ((n_entities + m - 1) // m) * m
 
+    def frozen_param_names(self):
+        """The H_sem buffer in either layout (full-resident table, or hot-set
+        cache + its int32 indirection): never trained. They are registered
+        as buffers, the rest as parameters."""
+        return ("sem_table", "sem_cache", "sem_slot")
+
     def _set_params(self, tensors: Mapping[str, torch.Tensor],
                     n_entities: int) -> Dict[str, torch.Tensor]:
+        # A new parameter set replaces the old one whole (a resident table
+        # must not linger beside a later hot-set layout).
+        self._parameters.clear()
+        self._buffers.clear()
+        frozen = self.frozen_param_names()
         for k, v in tensors.items():
-            self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            if k in frozen:
+                self.register_buffer(k, v)
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
         self.n_entities = n_entities  # real count; tables may be padded
         return self.params()
 
     def params(self) -> Dict[str, torch.Tensor]:
-        """The model's parameters by name, as the operators take them."""
-        return {k: p.detach() for k, p in self.named_parameters()}
+        """Every tensor the operators read, by name: the parameters and the
+        frozen semantic buffers. The buffers are the module's own tensors, so
+        the hot-set cache's in-place staging reaches them."""
+        out = {k: p.detach() for k, p in self.named_parameters()}
+        out.update(self.named_buffers())
+        return out
 
     def init_params(self, generator: torch.Generator, n_entities: int,
-                    n_relations: int) -> Dict[str, torch.Tensor]:
+                    n_relations: int, semantic_table=None,
+                    semantic_cache=None) -> Dict[str, torch.Tensor]:
         """Random parameters at the reference's shapes and distributions,
-        drawn from ``generator`` (on the model's device)."""
+        drawn from ``generator`` (on the model's device). With
+        ``semantic_dim > 0`` the semantic layout is decided by which buffer
+        is supplied:
+
+        * ``semantic_table`` — full-resident frozen ``sem_table`` [E, d_l]
+          (numpy or tensor), zero-padded to the padded row count;
+        * ``semantic_cache`` — a ``semantic.store.SemanticCache``: the params
+          carry its bounded ``sem_cache`` hot set and the ``sem_slot``
+          entity-id -> slot indirection instead of the table. Gathers must be
+          preceded by ``cache.plan``/``apply_to``.
+        """
         d = self.cfg.dim
         rows = self.padded_entities(n_entities)
+        dev = self.device
         p = {"entity": torch.randn((rows, d), generator=generator,
-                                   device=self.device) / math.sqrt(d)}
+                                   device=dev) / math.sqrt(d)}
         p.update(self.init_geometry(generator, n_entities, n_relations))
+        if self.cfg.semantic_dim > 0:
+            if semantic_cache is not None:
+                width = semantic_cache.dim
+                covered = semantic_cache.n_rows >= n_entities
+            else:
+                width = None if semantic_table is None else semantic_table.shape[1]
+                covered = True
+            if width != self.cfg.semantic_dim or not covered:
+                raise ValueError(
+                    f"semantic_dim={self.cfg.semantic_dim} needs a semantic_table "
+                    f"[{n_entities}, {self.cfg.semantic_dim}] or a semantic_cache "
+                    f"of that width covering {n_entities} entities")
+            if semantic_cache is not None:
+                p["sem_cache"] = semantic_cache.buffer   # [budget, d_l] hot set
+                p["sem_slot"] = semantic_cache.slot_map  # [E] id -> slot
+            else:
+                st = torch.as_tensor(semantic_table).to(dev, torch.float32)
+                if st.shape[0] < rows:
+                    st = torch.cat([st, st.new_zeros((rows - st.shape[0],
+                                                      st.shape[1]))])
+                p["sem_table"] = st
+            dp = self.cfg.semantic_proj_dim
+            p["sem_proj_w"] = glorot((self.cfg.semantic_dim, dp), generator, dev)
+            p["sem_proj_b"] = torch.zeros((dp,), device=dev)
+            p["fuse_w"] = glorot((d + dp, d), generator, dev)
+            p["fuse_b"] = torch.zeros((d,), device=dev)
         return self._set_params(p, n_entities)
 
-    # --- entities and scoring -------------------------------------------------
+    # --- shared fused-entity path (Eq. 11 + 12) --------------------------------
+    def semantic_rows(self, params: Params, ent_ids) -> torch.Tensor:
+        """Gather(H_sem, I) — Eq. 11, in whichever layout the params carry:
+        the resident ``sem_table`` or the hot-set cache via ``sem_slot``
+        (ids must have been staged by the cache)."""
+        if "sem_slot" in params:
+            return params["sem_cache"][params["sem_slot"][ent_ids]]
+        return params["sem_table"][ent_ids]
+
+    def fuse_semantic(self, params: Params, h, z) -> torch.Tensor:
+        """Eq. 12 on already-gathered rows in plain PyTorch: h [.., d]
+        structural, z [.., d_l] semantic -> fused [.., d]."""
+        z = z @ params["sem_proj_w"] + params["sem_proj_b"]   # F: d_l -> dp
+        x = torch.cat([h, z], dim=-1)
+        return torch.sigmoid(x @ params["fuse_w"] + params["fuse_b"]) * 2.0 - 1.0
+
     def fused_entity_vec(self, params: Params, ent_ids) -> torch.Tensor:
-        """Entity vectors (structural only: the semantic half of Eq. 12 comes
-        with the semantic slice)."""
-        return params["entity"][ent_ids]
+        """x_i = sigma(W [h_str ⊕ F(h_sem)] + b) — Eq. 12, through the
+        ``gather_fuse`` kernel (its plain version for CPU tensors)."""
+        if self.cfg.semantic_dim == 0:
+            return params["entity"][ent_ids]
+        ids = torch.as_tensor(ent_ids, device=params["entity"].device)
+        out = kops.gather_fuse_params(params, ids.reshape(-1).contiguous())
+        return out.reshape(*ids.shape, out.shape[-1])
 
     def embed(self, params: Params, ent_ids) -> torch.Tensor:
         return self.entity_state(params, self.fused_entity_vec(params, ent_ids))
@@ -145,23 +219,73 @@ class QueryEncoder(nn.Module):
         ev = self.fused_entity_vec(params, ent_ids)           # [B, M, dim]
         return self.cfg.gamma - self.distance(params, q[:, None, :], ev)
 
+    def _score(self, params: Params, q, ev) -> torch.Tensor:
+        """gamma - d(q, e) for q [B, sd] against entity vectors ev [N, dim]:
+        the scoring kernel where the geometry has one."""
+        if self.score_mode:
+            return kops.scoring(q, ev, gamma=self.cfg.gamma, mode=self.score_mode)
+        return self.cfg.gamma - self.distance(params, q[:, None, :], ev[None, :, :])
+
     def score_all(self, params: Params, q) -> torch.Tensor:
         """Logits against EVERY entity (vectorized logit formulation, Eq. 6).
-        Padded table rows are masked to -1e30."""
+        Padded table rows are masked to -1e30. With a resident semantic
+        table every entity is fused first, in one ``gather_fuse`` launch."""
+        if "sem_slot" in params:
+            raise RuntimeError(
+                "score_all needs every entity's semantic row, but these "
+                "params carry the bounded hot-set cache; use "
+                "score_all_chunked(params, q, store.read_rows) to stream "
+                "over the on-disk store instead")
         ev = params["entity"]                                  # [E, dim]
         rows = ev.shape[0]
-        if self.score_mode:
-            scores = kops.scoring(q, ev, gamma=self.cfg.gamma,
-                                  mode=self.score_mode)
-        else:
-            scores = self.cfg.gamma - self.distance(
-                params, q[:, None, :], ev[None, :, :])
+        if self.cfg.semantic_dim > 0:
+            ev = self.fused_entity_vec(params, torch.arange(rows, device=ev.device))
+        scores = self._score(params, q, ev)
         n_real = getattr(self, "n_entities", rows)
         if n_real != rows:
             ids = torch.arange(rows, device=scores.device)
             scores = torch.where(ids[None, :] < n_real, scores,
                                  torch.full_like(scores, -1e30))
         return scores
+
+    @torch.no_grad()
+    def score_all_chunked(self, params: Params, q, sem_rows_fn,
+                          chunk: int = 4096) -> np.ndarray:
+        """Out-of-core twin of ``score_all`` for the semantic-store path:
+        streams entity chunks — the structural slice plus ``sem_rows_fn(ids)``
+        rows read from the store and copied to the device — fuses each with
+        ``gather_fuse`` (local ``sem_ids`` into the chunk) and scores it; the
+        full ``[E, d_l]`` table never exists anywhere. Returns host numpy
+        [B, n_real]. ``sem_rows_fn`` is e.g. ``SemanticStore.read_rows``."""
+        entity = params["entity"]
+        dev = entity.device
+        rows = entity.shape[0]
+        n_real = getattr(self, "n_entities", rows)
+        outs = []
+        for lo in range(0, n_real, chunk):
+            hi = min(lo + chunk, n_real)
+            if self.cfg.semantic_dim > 0:
+                z = torch.from_numpy(np.ascontiguousarray(
+                    sem_rows_fn(np.arange(lo, hi)), dtype=np.float32)).to(dev)
+                ev = kops.gather_fuse(
+                    torch.arange(lo, hi, device=dev), entity, z,
+                    params["sem_proj_w"], params["sem_proj_b"],
+                    params["fuse_w"], params["fuse_b"],
+                    sem_ids=torch.arange(hi - lo, device=dev))
+            else:
+                ev = entity[lo:hi]
+            outs.append(self._score(params, q, ev))
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+
+def _carried(v, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``: floats become float32,
+    integer arrays (the cache layout's int32 ``sem_slot`` index map) keep
+    their dtype."""
+    a = np.asarray(v)
+    if not np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.float32)
+    return torch.tensor(a, device=device)
 
 
 def params_from_numpy(model: QueryEncoder, np_params: Mapping[str, np.ndarray],
@@ -172,8 +296,7 @@ def params_from_numpy(model: QueryEncoder, np_params: Mapping[str, np.ndarray],
     ``device`` (the model's device by default). ``n_entities`` is the real
     entity count when the table is padded. Returns the params mapping."""
     device = model.device if device is None else torch.device(device)
-    tensors = {k: torch.tensor(np.array(v, dtype=np.float32), device=device)
-               for k, v in np_params.items()}
+    tensors = {k: _carried(v, device) for k, v in np_params.items()}
     rows = tensors["entity"].shape[0]
     return model._set_params(tensors, rows if n_entities is None else n_entities)
 

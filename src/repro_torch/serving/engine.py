@@ -25,6 +25,11 @@ is to coalesce them into the same pooled micro-batches the executor runs:
   retraces.
 * **All-entity scoring** — one per-model cached scorer (``scorer_for``),
   shared with the offline ``serve_batch``.
+* **Out-of-core semantic serving** — with ``sem_cache``/``sem_rows_fn`` the
+  batcher stages each micro-batch's anchors into the device hot set
+  (``plan`` -> ``apply_to``) before encode, and scores all entities with
+  ``score_all_chunked``, streaming H_sem from the store in chunks. One
+  batcher thread means plan order is apply order.
 * **Per-request latency accounting** — each future's result carries its
   end-to-end latency; ``stats()`` aggregates p50/p95/p99 over a bounded
   window of completed requests.
@@ -160,11 +165,13 @@ class ServingEngine:
 
     ``submit`` is thread-safe and returns a future; a single batcher thread
     coalesces pending requests into pooled micro-batches and resolves the
-    futures."""
+    futures. ``sem_cache``/``sem_rows_fn`` switch on out-of-core serving:
+    anchors stage into the hot set before encode, and all-entity scoring
+    streams H_sem via ``sem_rows_fn`` (e.g. ``SemanticStore.read_rows``)."""
 
     def __init__(self, model, params, executor=None,
                  cfg: Optional[ServingConfig] = None, device=None,
-                 started: bool = True):
+                 sem_cache=None, sem_rows_fn=None, started: bool = True):
         self.model = model
         self.params = params
         self.cfg = cfg or ServingConfig()
@@ -178,6 +185,12 @@ class ServingEngine:
         if self.executor.device != self.device:
             raise ValueError(f"executor runs on {self.executor.device}, the "
                              f"engine on {self.device}")
+        if sem_cache is not None and sem_rows_fn is None:
+            raise ValueError(
+                "out-of-core serving needs sem_rows_fn (e.g. store.read_rows)"
+                " to stream H_sem for all-entity scoring")
+        self.sem_cache = sem_cache
+        self.sem_rows_fn = sem_rows_fn
         self._scorer = scorer_for(model)
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
@@ -423,8 +436,18 @@ class ServingEngine:
         padded, n_real = pad_to_bucket(uniq)
         with self._lock:
             params = self.params
+        if self.sem_cache is not None:
+            # Staging runs here, on the batcher thread, once per micro-batch:
+            # the plan's store read + device copy, then the in-place apply,
+            # both before the encode that gathers the rows.
+            stage = self.sem_cache.plan(np.concatenate([q.anchors for q in padded]))
+            if stage is not None:
+                self.sem_cache.apply_to(params, stage)
         states = self.executor.encode(params, padded)
-        scores = self._scorer(params, states).cpu().numpy()
+        if self.sem_cache is not None:
+            scores = self.model.score_all_chunked(params, states, self.sem_rows_fn)
+        else:
+            scores = self._scorer(params, states).cpu().numpy()
         # Select per DISTINCT (row, k) group, not one k_max selection sliced
         # per request: argpartition at k_max can arrange boundary-tied ids
         # differently than argpartition at k, and the contract is exact
@@ -492,6 +515,8 @@ class ServingEngine:
         cache contents are kept. submitted/completed survive so ``close``'s
         drain accounting stays truthful."""
         self.executor.reset_cache_counters()
+        if self.sem_cache is not None:
+            self.sem_cache.reset_counters()
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
         with self._lock:
@@ -540,4 +565,6 @@ class ServingEngine:
         }
         out["scorer_traces"] = self._scorer.traces - self._scorer_traces0
         out["plan_cache"] = sh["plan_cache"]
+        if self.sem_cache is not None:
+            out["sem_cache"] = self.sem_cache.stats()
         return out

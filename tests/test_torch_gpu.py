@@ -75,6 +75,78 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kops.intersect(torch.randn(3, 9, 8, device=dev), w1, b1, w2, b2)  # k > 8
 
 
+def _fuse_inputs(dev, E, d, dl, dp, n, table_dtype=torch.float32, seed=0):
+    """Tables, ids and the model's own initializers for gather_fuse."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, E, (n,), generator=g, device=dev)
+    h_str = (torch.randn((E, d), generator=g, device=dev) / d ** 0.5).to(table_dtype)
+    h_sem = torch.nn.functional.normalize(
+        torch.randn((E, dl), generator=g, device=dev), dim=1).to(table_dtype)
+    wp, wf = glorot((dl, dp), g, dev), glorot((d + dp, d), g, dev)
+    bp = 0.1 * torch.randn((dp,), generator=g, device=dev)
+    bf = 0.1 * torch.randn((d,), generator=g, device=dev)
+    return ids, h_str, h_sem, wp, bp, wf, bf
+
+
+# (E, d, dl, dp, n): all-entity fusion, a store chunk, 48 anchor rows, ragged.
+FUSE_SHAPES = [(14951, 400, 1024, 64, 14951), (4096, 400, 1024, 64, 4096),
+               (14951, 400, 1024, 64, 48), (100, 64, 128, 32, 33),
+               (40, 16, 32, 16, 8)]
+
+
+@pytest.mark.parametrize("E,d,dl,dp,n", FUSE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_fuse_kernel_matches_plain(dev, E, d, dl, dp, n, dtype):
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, n, dtype)
+    before = kops.gather_fuse.launches
+    got = kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf)
+    torch.cuda.synchronize()
+    assert kops.gather_fuse.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    want = kops.gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf)
+    # fp32: tests/test_kernels.py:51. bf16 tables: both sides sum the same
+    # bf16 inputs in fp32 and round the output in [-1, 1] to bf16, so they
+    # may differ by one bf16 step (2**-8 just below 1).
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
+    """A row's bits are the same whatever rows share its launch, and whether
+    its semantic row comes from the full table or from hot-set slots."""
+    E, d, dl, dp = 3000, 400, 1024, 64
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, E)
+    full = kops.gather_fuse(torch.arange(E, device=dev), h_str, h_sem, wp, bp, wf, bf)
+    some = ids[:48]
+    alone = kops.gather_fuse(some, h_str, h_sem, wp, bp, wf, bf)
+    # A hot set holding those rows at other slots, in another order.
+    slots = torch.randperm(64, device=dev)[:48]
+    cache = torch.zeros((64, dl), device=dev)
+    cache[slots] = h_sem[some]
+    cached = kops.gather_fuse(some, h_str, cache, wp, bp, wf, bf, sem_ids=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, full[some])
+    assert torch.equal(cached, full[some])
+
+
+def test_gather_fuse_rejects_what_it_does_not_take(dev):
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, 50, 16, 32, 8, 10)
+    with pytest.raises(ValueError, match="fuse weight rows"):
+        kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf[:-1], bf)
+    with pytest.raises(ValueError, match="sem_ids shape"):
+        kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=ids[:5])
+    with pytest.raises(TypeError):
+        kops.gather_fuse(ids, h_str.double(), h_sem, wp, bp, wf, bf)
+    with pytest.raises(TypeError):
+        kops.gather_fuse(ids, h_str, h_sem.bfloat16(), wp, bp, wf, bf)  # mixed
+    with pytest.raises(TypeError):
+        kops.gather_fuse(ids, h_str, h_sem, wp.double(), bp, wf, bf)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.gather_fuse(ids, h_str.T.contiguous().T, h_sem, wp, bp, wf, bf)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kops.gather_fuse(ids, h_str, h_sem.cpu(), wp, bp, wf, bf)
+
+
 @pytest.mark.parametrize("name", ["betae", "gqe", "complex"])
 def test_engine_on_gpu_matches_cpu_plain_path(dev, name):
     """A small GPU engine run replays identically through serve_batch and

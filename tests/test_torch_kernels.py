@@ -15,6 +15,8 @@ torch.set_num_threads(1)
 
 SCORING_SHAPES = [(8, 64, 32), (70, 333, 96), (128, 256, 128)]
 INTERSECT_SHAPES = [(16, 2, 32, 64), (100, 3, 64, 128), (64, 4, 128, 128)]
+# tests/test_kernels.py:37: (E, d, dl, dp, n); n = 33 is ragged.
+GATHER_FUSE_SHAPES = [(40, 16, 32, 16, 8), (100, 64, 128, 32, 33)]
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -67,12 +69,68 @@ def test_intersect_matches_pallas(n, k, d, hd, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect"])
+@pytest.mark.parametrize("E,d,dl,dp,n", GATHER_FUSE_SHAPES)
+@pytest.mark.parametrize("layout", ["resident", "cache"])
+def test_gather_fuse_matches_pallas(E, d, dl, dp, n, layout):
+    """Resident: h_sem is the full table, indexed by ids. Cache: h_sem is a
+    hot set holding those rows at other slots, indexed by sem_ids."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, E, n).astype(np.int32)
+    h_str = rng.normal(size=(E, d)).astype(np.float32)
+    table = rng.normal(size=(E, dl)).astype(np.float32)
+    wp = (rng.normal(size=(dl, dp)) * 0.2).astype(np.float32)
+    bp = (rng.normal(size=(dp,)) * 0.1).astype(np.float32)
+    wf = (rng.normal(size=(d + dp, d)) * 0.2).astype(np.float32)
+    bf = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    if layout == "resident":
+        h_sem, sem_ids = table, None
+    else:
+        sem_ids = rng.permutation(2 * n)[:n].astype(np.int32)
+        h_sem = rng.normal(size=(2 * n, dl)).astype(np.float32)
+        h_sem[sem_ids] = table[ids]
+    args = (ids, h_str, h_sem, wp, bp, wf, bf)
+    want = np.asarray(jops.gather_fuse(
+        *map(jnp.asarray, args),
+        sem_ids=None if sem_ids is None else jnp.asarray(sem_ids),
+        interpret=True))
+    before = tops.gather_fuse.launches
+    got = tops.gather_fuse(*map(torch.from_numpy, args), sem_ids=(
+        None if sem_ids is None else torch.from_numpy(sem_ids)))
+    assert tops.gather_fuse.launches == before
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_fuse_shape_errors():
+    """The reference's ValueErrors: fuse weight rows != d + dp, and sem_ids
+    shaped unlike ids."""
+    ids = torch.zeros(6, dtype=torch.int64)
+    h_str, h_sem = torch.zeros(10, 8), torch.zeros(10, 12)
+    wp, bp, bf = torch.zeros(12, 4), torch.zeros(4), torch.zeros(8)
+    with pytest.raises(ValueError, match="fuse weight rows 11 != d\\+dp"):
+        tops.gather_fuse(ids, h_str, h_sem, wp, bp, torch.zeros(11, 8), bf)
+    with pytest.raises(ValueError, match="sem_ids shape"):
+        tops.gather_fuse(ids, h_str, h_sem, wp, bp, torch.zeros(12, 8), bf,
+                         sem_ids=ids[:3])
+
+
+def _gather_fuse_args(device):
+    return (torch.zeros(6, dtype=torch.int64, device=device),
+            torch.empty(10, 8, device=device), torch.empty(10, 12, device=device),
+            torch.empty(12, 4, device=device), torch.empty(4, device=device),
+            torch.empty(12, 8, device=device), torch.empty(8, device=device))
+
+
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "gather_fuse"])
 def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
     meta = torch.empty((4, 2, 8), device="meta")
     if kernel == "scoring":
         with pytest.raises(ValueError):
             tops.scoring(meta[:, 0], torch.zeros(5, 8))
+    elif kernel == "gather_fuse":
+        ids, *rest = _gather_fuse_args("cpu")
+        with pytest.raises(ValueError):
+            tops.gather_fuse(ids, meta[:, 0], *rest[1:])
     else:
         w1, b1, w2, b2 = (torch.zeros(8, 16), torch.zeros(16),
                           torch.zeros(16, 1), torch.zeros(1))
@@ -80,7 +138,7 @@ def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
             tops.intersect(meta, w1, b1, w2, b2)
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect"])
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "gather_fuse"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
     """A wrapper handed CUDA tensors (fake ones: this machine has no card)
     asks for its kernel and raises; it never takes the plain version."""
@@ -88,9 +146,12 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
 
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
-    before = (tops.scoring.launches, tops.intersect.launches)
+    before = (tops.scoring.launches, tops.intersect.launches,
+              tops.gather_fuse.launches)
     with FakeTensorMode(), pytest.raises(RuntimeError, match="CUDA is not available"):
-        if kernel == "scoring":
+        if kernel == "gather_fuse":
+            tops.gather_fuse(*_gather_fuse_args("cuda"))
+        elif kernel == "scoring":
             tops.scoring(torch.empty(4, 8, device="cuda"),
                          torch.empty(5, 8, device="cuda"), 1.0, "l1")
         else:
@@ -99,7 +160,8 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
                            torch.empty(16, device="cuda"),
                            torch.empty(16, 1, device="cuda"),
                            torch.empty(1, device="cuda"))
-    assert (tops.scoring.launches, tops.intersect.launches) == before
+    assert (tops.scoring.launches, tops.intersect.launches,
+            tops.gather_fuse.launches) == before
 
 
 def test_kernel_library_needs_cuda():
@@ -115,6 +177,6 @@ def test_library_path_keyed_by_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("librepro_kernels_") and path.suffix == ".so"
-    assert {s.name for s in build.sources()} >= {"scoring.cu", "intersect.cu",
-                                                 "common.cuh"}
+    assert {s.name for s in build.sources()} >= {
+        "scoring.cu", "intersect.cu", "gather_fuse.cu", "common.cuh"}
 

@@ -83,8 +83,20 @@ def test_padded_entity_rows_masked():
     assert (s[:, 200:] == -1e30).all() and (s[:, :200] > -1e29).all()
 
 
-def test_semantic_config_not_ported():
+@pytest.mark.parametrize("name", FAMILIES)
+def test_semantic_config_builds_and_fuses(name):
+    """A semantic config builds, and its entity vectors are the Eq. 12
+    fusion of the structural and semantic rows."""
     from repro_torch.models import ModelConfig, make_model
 
-    with pytest.raises(NotImplementedError):
-        make_model("gqe", ModelConfig(dim=8, semantic_dim=4), device="cpu")
+    tm = make_model(name, ModelConfig(dim=8, semantic_dim=4,
+                                      semantic_proj_dim=2), device="cpu")
+    table = np.random.default_rng(0).normal(size=(200, 4)).astype(np.float32)
+    tp = tm.init_params(torch.Generator().manual_seed(0), 200, 10,
+                        semantic_table=table)
+    ids = torch.tensor([3, 7, 7, 150])
+    want = tm.fuse_semantic(tp, tp["entity"][ids], tm.semantic_rows(tp, ids))
+    with torch.no_grad():
+        got = tm.fused_entity_vec(tp, ids)
+    assert got.shape == (4, 8) and (got.abs() < 1).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

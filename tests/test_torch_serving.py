@@ -191,3 +191,105 @@ def test_registry_snapshot_sees_engine_counters():
     assert snap["serving_completed"] - before.get("serving_completed", 0) == 4
     assert snap["serving_latency_ms_count"] >= 4
     assert snap["cache_misses{cache=encode}"] >= 1
+
+
+# ------------------------------------------------------- semantic serving
+def _semantic_model(d_l=16):
+    from repro_torch.models import ModelConfig, make_model
+
+    table = np.random.default_rng(0).normal(size=(200, d_l)).astype(np.float32)
+    rows_fn = lambda ids: table[np.asarray(ids, dtype=np.int64).ravel()]  # noqa: E731
+    return make_model("gqe", ModelConfig(dim=8, semantic_dim=d_l),
+                      device="cpu"), table, rows_fn
+
+
+def test_engine_out_of_core_semantic_serving():
+    """Hot-set staging on the batcher thread + chunked store-streamed
+    scoring match offline serve_batch with the same cache and chunked scorer
+    bit for bit, with a budget small enough to force evictions
+    (tests/test_serving.py::test_engine_out_of_core_semantic_serving)."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.serving import (ServingConfig, ServingEngine,
+                                     check_against_offline, run_closed_loop)
+
+    model, table, rows_fn = _semantic_model()
+    cache = SemanticCache(table, budget_rows=24, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0), 200, 10,
+                               semantic_cache=cache)
+    cfg = ServingConfig(max_batch=8, max_wait_ms=1000.0, top_k=6,
+                        record_batches=True)
+    _, tq = queries(40, seed=15)
+    with ServingEngine(model, params, executor=_port_executor(model), cfg=cfg,
+                       device="cpu", sem_cache=cache,
+                       sem_rows_fn=rows_fn) as engine:
+        run_closed_loop(engine, tq, concurrency=8)
+        log = list(engine.batch_log)
+        st = engine.stats()["sem_cache"]
+    assert st["rows_staged"] > 0 and st["evictions"] > 0
+
+    # Offline oracle: a fresh cache and params, the same chunked scorer.
+    cache2 = SemanticCache(table, budget_rows=24, device="cpu")
+    params2 = model.init_params(torch.Generator().manual_seed(0), 200, 10,
+                                semantic_cache=cache2)
+    ex2 = _port_executor(model)
+    chunked = lambda p, q: model.score_all_chunked(p, q, rows_fn, chunk=64)  # noqa: E731
+    oracle = lambda qs: serve_batch(model, params2, ex2, qs, top_k=6, device="cpu",  # noqa: E731
+                                    score_all_fn=chunked, sem_cache=cache2)[0]
+    assert check_against_offline(log, oracle) == sum(r.n_real for r in log) > 0
+
+
+def test_engine_resident_semantic_matches_out_of_core():
+    """The same queries served from the resident table and out of core give
+    the same top-k and scores."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.semantic import SemanticCache
+
+    model, table, rows_fn = _semantic_model()
+    _, tq = queries(12, seed=16)
+    params = model.init_params(torch.Generator().manual_seed(0), 200, 10,
+                               semantic_table=table)
+    resident, _ = serve_batch(model, params, _port_executor(model), tq,
+                              device="cpu")
+    cache = SemanticCache(table, budget_rows=64, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0), 200, 10,
+                               semantic_cache=cache)
+    ooc, _ = serve_batch(
+        model, params, _port_executor(model), tq, device="cpu", sem_cache=cache,
+        score_all_fn=lambda p, q: model.score_all_chunked(p, q, rows_fn, chunk=64))
+    for a, b in zip(resident, ooc):
+        assert a["top_entities"] == b["top_entities"]
+        np.testing.assert_allclose(a["scores"], b["scores"], **FP32)
+
+
+def test_out_of_core_serving_needs_a_rows_fn_and_a_chunked_scorer():
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.serving import ServingEngine
+
+    model, table, _ = _semantic_model()
+    cache = SemanticCache(table, budget_rows=32, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0), 200, 10,
+                               semantic_cache=cache)
+    with pytest.raises(ValueError, match="sem_rows_fn"):
+        ServingEngine(model, params, executor=_port_executor(model),
+                      device="cpu", sem_cache=cache, started=False)
+    with pytest.raises(ValueError, match="score_all_fn"):
+        serve_batch(model, params, _port_executor(model), queries(2)[1],
+                    device="cpu", sem_cache=cache)
+    assert cache.stages == 0  # refused before any staging
+
+
+def test_cli_serves_out_of_core_on_cpu(capsys, tmp_path):
+    """The CLI builds the store with the stub PTE, then serves from it."""
+    from repro_torch.launch.serve import main
+
+    args = ["--model", "gqe", "--reduced", "--device", "cpu", "--dim", "8",
+            "--requests", "16", "--semantic-store", str(tmp_path),
+            "--semantic-budget-rows", "256"]
+    main(args)
+    out = capsys.readouterr().out
+    assert "semantic store: built" in out and "semantic cache: hit rate" in out
+    main(args)  # the second run opens the store the first one built
+    out = capsys.readouterr().out
+    assert "built" not in out and "[closed] 16 requests" in out
