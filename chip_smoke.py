@@ -36,7 +36,8 @@ non-zero (printing no result) on any failed check:
    the resident layout within 1e-5, and the ``gather_fuse`` and ``scoring``
    launches equal what the recorded batches call for.
 5. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   serving path gave it most often.
+   serving path gave it most often; ``gather_fuse`` has one entry for each
+   semantic layout, with that layout's launches.
 6. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -404,11 +405,11 @@ def main() -> None:
     # ------------------------------------------------- 4b. semantic serving
     def serve_semantic(store):
         """GQE with H_sem served from both layouts, with phase 4's windows.
-        Returns the ``gather_fuse`` launches of both timed runs and a Counter
-        of the (layout, n) they were made at."""
+        Returns, for each layout, the ``gather_fuse`` launches of its timed
+        run and a Counter of the (kind, n) they were made at."""
         sem_cfg = ModelConfig(semantic_dim=SEM_DIM)
         n_chunks = -(-E // CHUNK)
-        total, calls, resident = 0, collections.Counter(), None
+        per_layout, resident = {}, None
         for layout in ("resident", "out-of-core"):
             model = make_model("gqe", sem_cfg, device=dev)
             executor = PooledExecutor(model, b_max=256, device=dev)
@@ -448,7 +449,7 @@ def main() -> None:
 
             # Launches: one per EMBED op, plus the all-entity fusion (one
             # resident launch, or one per streamed chunk) of every batch.
-            embeds = 0
+            embeds, calls = 0, collections.Counter()
             for rec in log:
                 for op, _card, pn in executor.prepare(rec.queries).meta:
                     if op == int(OpType.EMBED):
@@ -467,7 +468,7 @@ def main() -> None:
             if launches["scoring"] != per_batch * len(log):
                 fail(f"semantic {layout}: {launches['scoring']} scoring launches "
                      f"for {len(log)} batches")
-            total += launches["gather_fuse"]
+            per_layout[f"gather_fuse[{layout}]"] = (launches["gather_fuse"], calls)
 
             # Replay: resident through serve_batch; out-of-core through
             # serve_batch with a fresh cache and params and the chunked scorer.
@@ -547,7 +548,7 @@ def main() -> None:
             del engine
         del resident
         torch.cuda.empty_cache()
-        return total, calls
+        return per_layout
 
     sem_dir = tempfile.mkdtemp(prefix="chip_smoke_semstore_")
     try:
@@ -559,7 +560,7 @@ def main() -> None:
               f"{store.disk_nbytes / 1e6:.1f} MB, built in "
               f"{time.perf_counter() - t0:.1f} s (stub PTE on the card, "
               f"normalisation and neighbour smoothing on the host)")
-        main_path["gather_fuse"] = serve_semantic(store)
+        main_path.update(serve_semantic(store))
     finally:
         shutil.rmtree(sem_dir, ignore_errors=True)
 
@@ -567,7 +568,7 @@ def main() -> None:
     entries = []
     for key, (launches, shapes) in main_path.items():
         shape = shapes.most_common(1)[0][0]
-        if key == "gather_fuse":
+        if key.startswith("gather_fuse"):
             layout, n = shape
             r = measure_gather_fuse(n, cfg.dim, SEM_DIM, cfg.semantic_proj_dim,
                                     "float32", layout, E)

@@ -106,7 +106,7 @@ def load_library() -> ctypes.CDLL:
             lib.repro_intersect.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_intersect.restype = i
             ll = ctypes.c_longlong
-            lib.repro_gather_fuse.argtypes = [p] * 9 + [i, ll, ll, i, i, i, i, p]
+            lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
             lib.repro_gather_fuse.restype = i
             lib.repro_intersect_tiles.argtypes = [i]
             lib.repro_intersect_tiles.restype = i

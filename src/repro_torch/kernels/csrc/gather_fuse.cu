@@ -33,7 +33,14 @@
 //    loads are in flight while the current one is computed.
 //  * The column groups are split over blocks (grid y) until the grid covers
 //    the SMs twice, so 48 anchor rows still fill 14 blocks; at n = E every
-//    block keeps all of d and projects each row once.
+//    block keeps all of d. When the groups are split, the blocks of a row
+//    tile would each redo the whole projection. Where those blocks share
+//    SMs (n = 4,096: 384 blocks), the repeats cost throughput, so a
+//    projection-only launch of the same kernel (one block per row tile)
+//    writes zp to a scratch [n, dp] first and the fusion blocks read it:
+//    each row is projected once. Where every block has an SM to itself
+//    (48 rows: 14 blocks), the repeat costs no time and a second launch
+//    would, so the blocks project for themselves.
 //
 // Every output element is one fmaf chain in a fixed order — h·Wf_h over
 // k = 0..d-1, then zp·Wf_z over j = 0..dp-1, then + b_f — and zp likewise, so
@@ -45,6 +52,7 @@
 #include <math.h>
 
 #include <algorithm>
+#include <atomic>
 
 #include "common.cuh"
 
@@ -59,6 +67,11 @@ constexpr int CPT = 4;          // columns per thread (one float4)
 constexpr int RPT = 2;          // rows per thread
 constexpr int PA = BM * BK / THREADS;  // z elements each thread stages
 constexpr int PB = BK * BN / THREADS;  // weight elements each thread stages
+constexpr int MAX_DEVICES = 64;
+
+// What a launch does: project and fuse (the column groups are not split),
+// project only (zp to global), or fuse the zp a projection launch wrote.
+enum Mode { kFull = 0, kProject = 1, kFuse = 2 };
 static_assert(TXN * CPT == BN && (THREADS / TXN) * RPT == BM, "thread tile");
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -83,8 +96,9 @@ gather_fuse_kernel(const long long* __restrict__ ids, const long long* __restric
                    const T* __restrict__ h_str, const T* __restrict__ h_sem,
                    const float* __restrict__ wp, const float* __restrict__ bp,
                    const float* __restrict__ wf, const float* __restrict__ bf,
-                   T* __restrict__ out, int n, long long n_str, long long n_sem,
-                   int d, int dl, int dp, int groups_per_block) {
+                   float* __restrict__ zp, T* __restrict__ out, int n,
+                   long long n_str, long long n_sem, int d, int dl, int dp,
+                   int groups_per_block, int mode) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Layout L(d, dp);
@@ -120,10 +134,12 @@ gather_fuse_kernel(const long long* __restrict__ ids, const long long* __restric
 
   // Gathered structural rows, zero-padded to whole BK slices.
   const int dk = round_up(d, BK);
-  for (int i = tid; i < BM * dk; i += THREADS) {
-    const int r = i / dk, k = i % dk;
-    const long long row = hrow[r];
-    hs[r * L.hst + k] = (row >= 0 && k < d) ? repro::to_f32(h_str[row * d + k]) : 0.f;
+  if (mode != kProject) {
+    for (int i = tid; i < BM * dk; i += THREADS) {
+      const int r = i / dk, k = i % dk;
+      const long long row = hrow[r];
+      hs[r * L.hst + k] = (row >= 0 && k < d) ? repro::to_f32(h_str[row * d + k]) : 0.f;
+    }
   }
 
   float acc[RPT][CPT];
@@ -175,7 +191,13 @@ gather_fuse_kernel(const long long* __restrict__ ids, const long long* __restric
 
   // ---- projection: zs = z·Wp + bp, streamed over dl ----------------------
   const int zk = round_up(dp, BK);
-  for (int cg = 0; cg < zk; cg += BN) {
+  if (mode == kFuse) {  // projected once per row by the kProject launch
+    for (int i = tid; i < BM * zk; i += THREADS) {
+      const int r = i / zk, c = i % zk;
+      zs[r * L.zst + c] = (c < dp && r0 + r < n) ? zp[(size_t)(r0 + r) * dp + c] : 0.f;
+    }
+  }
+  for (int cg = 0; mode != kFuse && cg < zk; cg += BN) {
     zero_acc();
     load_z(0);
     load_w(wp, dp, dl, 0, cg, dp);
@@ -203,6 +225,13 @@ gather_fuse_kernel(const long long* __restrict__ ids, const long long* __restric
       }
   }
   __syncthreads();
+  if (mode == kProject) {
+    for (int i = tid; i < BM * dp; i += THREADS) {
+      const int r = i / dp, c = i % dp;
+      if (r0 + r < n) zp[(size_t)(r0 + r) * dp + c] = zs[r * L.zst + c];
+    }
+    return;
+  }
 
   // ---- fusion: out = sigmoid(h·Wf_h + zp·Wf_z + bf)·2 − 1 ----------------
   const float* wf_z = wf + (size_t)d * d;
@@ -243,30 +272,60 @@ gather_fuse_kernel(const long long* __restrict__ ids, const long long* __restric
   }
 }
 
+// Once per device and table dtype: opt the kernel into all of a block's
+// shared memory (above 48 KB only with the opt-in; a layout past the 227 KB
+// then fails at launch) and read the SM count. Returns the SM count, or
+// minus the CUDA error.
+template <typename T>
+int device_sms(int dev) {
+  static std::atomic<int> sms[MAX_DEVICES];
+  int v = sms[dev].load(std::memory_order_acquire);
+  if (v > 0) return v;
+  auto kernel = gather_fuse_kernel<T>;
+  cudaFuncAttributes attr;
+  int optin = 0;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  sms[dev].store(v, std::memory_order_release);
+  return v;
+}
+
 template <typename T>
 int launch(const long long* ids, const long long* sem_ids, const void* h_str,
            const void* h_sem, const float* wp, const float* bp, const float* wf,
-           const float* bf, void* out, int n, long long n_str, long long n_sem,
-           int d, int dl, int dp, cudaStream_t stream) {
-  const Layout L(d, dp);
-  const size_t smem = L.bytes();
-  auto kernel = gather_fuse_kernel<T>;
-  // Above 48 KB only with the opt-in; past the block's 227 KB this refuses.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           const float* bf, float* zp, void* out, int n, long long n_str,
+           long long n_sem, int d, int dl, int dp, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  const int sms = device_sms<T>(dev);
+  if (sms < 0) return -sms;
+  const size_t smem = Layout(d, dp).bytes();
   const int row_tiles = (n + BM - 1) / BM;
   const int n_groups = (d + BN - 1) / BN;
   // Split the column groups over blocks until the grid covers the SMs twice.
   int splits = std::min(n_groups, std::max(1, (2 * sms + row_tiles - 1) / row_tiles));
   const int per_block = (n_groups + splits - 1) / splits;
   splits = (n_groups + per_block - 1) / per_block;
-  kernel<<<dim3(row_tiles, splits), THREADS, smem, stream>>>(
-      ids, sem_ids, static_cast<const T*>(h_str), static_cast<const T*>(h_sem),
-      wp, bp, wf, bf, static_cast<T*>(out), n, n_str, n_sem, d, dl, dp, per_block);
+  const T* hs = static_cast<const T*>(h_str);
+  const T* zs = static_cast<const T*>(h_sem);
+  int mode = kFull;
+  if (splits > 1 && row_tiles * splits > sms) {  // project each row once
+    gather_fuse_kernel<T><<<dim3(row_tiles, 1), THREADS, smem, stream>>>(
+        ids, sem_ids, hs, zs, wp, bp, wf, bf, zp, static_cast<T*>(out), n, n_str,
+        n_sem, d, dl, dp, 0, kProject);
+    mode = kFuse;
+  }
+  gather_fuse_kernel<T><<<dim3(row_tiles, splits), THREADS, smem, stream>>>(
+      ids, sem_ids, hs, zs, wp, bp, wf, bf, zp, static_cast<T*>(out), n, n_str,
+      n_sem, d, dl, dp, per_block, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,20 +333,20 @@ int launch(const long long* ids, const long long* sem_ids, const void* h_str,
 
 // ids, sem_ids [n] int64; h_str [n_str, d] and h_sem [n_sem, dl] of one
 // dtype (repro::DType); wp [dl, dp], bp [dp], wf [d + dp, d], bf [d] fp32;
-// out [n, d] in the tables' dtype. Returns the CUDA error of the launch
-// (0 = success).
+// zp [n, dp] fp32 scratch for the projected rows; out [n, d] in the tables'
+// dtype. Returns the CUDA error of the launch (0 = success).
 extern "C" int repro_gather_fuse(const long long* ids, const long long* sem_ids,
                                  const void* h_str, const void* h_sem,
                                  const float* wp, const float* bp, const float* wf,
-                                 const float* bf, void* out, int n, long long n_str,
-                                 long long n_sem, int d, int dl, int dp, int dtype,
-                                 void* stream) {
+                                 const float* bf, float* zp, void* out, int n,
+                                 long long n_str, long long n_sem, int d, int dl,
+                                 int dp, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float>(ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, out, n, n_str,
-                         n_sem, d, dl, dp, s);
+    return launch<float>(ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, zp, out, n,
+                         n_str, n_sem, d, dl, dp, s);
   if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, out, n,
-                                 n_str, n_sem, d, dl, dp, s);
+    return launch<__nv_bfloat16>(ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, zp, out,
+                                 n, n_str, n_sem, d, dl, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

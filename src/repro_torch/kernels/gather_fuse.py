@@ -14,7 +14,8 @@ all-entity fusion of ``score_all`` (n = E) is bound by operations. The kernel
 gathers its own rows, projects z into shared memory streaming dl in slices,
 accumulates h·Wf_h + zp·Wf_z in registers (the concat never exists) and runs
 the sigmoid in its epilogue; it splits the d output columns over blocks when
-n is small. Each output is one fp32 fmaf chain in a fixed order, so a row's
+n is small, and projects each row once, in a launch of its own, where those
+blocks would share SMs. Each output is one fp32 fmaf chain in a fixed order, so a row's
 bits do not depend on the batch it came in with: the resident table, the
 hot-set cache and a streamed chunk give the same row bitwise.
 
@@ -92,13 +93,16 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
         return out
     ids64 = ids.long()
     sem64 = ids64 if sem_ids is None else sem_ids.long()
+    # Projected rows, when the kernel projects them in a launch of their own.
+    zp = torch.empty((n, dp), dtype=torch.float32, device=ids.device)
     lib = build.load_library()
     with torch.cuda.device(ids.device):
         err = lib.repro_gather_fuse(
             ids64.data_ptr(), sem64.data_ptr(), h_str.data_ptr(),
             h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
-            bf.data_ptr(), out.data_ptr(), n, h_str.shape[0], h_sem.shape[0],
-            d, dl, dp, DTYPES[h_str.dtype], build.stream_handle(ids))
+            bf.data_ptr(), zp.data_ptr(), out.data_ptr(), n, h_str.shape[0],
+            h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype],
+            build.stream_handle(ids))
     build.check(lib, err, "gather_fuse")
     gather_fuse.launches += 1
     return out
@@ -107,14 +111,20 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
 gather_fuse.launches = 0
 
 
-def gather_fuse_params(params, ids) -> torch.Tensor:
-    """Fuse ``ids`` straight from a model params mapping, in whichever
-    semantic layout it carries: the resident ``sem_table``, or the hot-set
-    ``sem_cache`` through the ``sem_slot`` indirection."""
+def semantic_source(params, ids):
+    """(h_sem, sem_ids) for ``ids`` in whichever semantic layout a model
+    params mapping carries: the resident ``sem_table`` (sem_ids None = ids),
+    or the hot-set ``sem_cache`` through the ``sem_slot`` indirection. The
+    one place the layout is resolved."""
     if "sem_slot" in params:
-        h_sem, sem_ids = params["sem_cache"], params["sem_slot"][ids]
-    else:
-        h_sem, sem_ids = params["sem_table"], None
+        return params["sem_cache"], params["sem_slot"][ids]
+    return params["sem_table"], None
+
+
+def gather_fuse_params(params, ids) -> torch.Tensor:
+    """Fuse ``ids`` straight from a model params mapping, in either semantic
+    layout (``semantic_source``)."""
+    h_sem, sem_ids = semantic_source(params, ids)
     return gather_fuse(ids, params["entity"], h_sem, params["sem_proj_w"],
                        params["sem_proj_b"], params["fuse_w"],
                        params["fuse_b"], sem_ids=sem_ids)

@@ -191,16 +191,18 @@ class QueryEncoder(nn.Module):
         """Gather(H_sem, I) — Eq. 11, in whichever layout the params carry:
         the resident ``sem_table`` or the hot-set cache via ``sem_slot``
         (ids must have been staged by the cache)."""
-        if "sem_slot" in params:
-            return params["sem_cache"][params["sem_slot"][ent_ids]]
-        return params["sem_table"][ent_ids]
+        h_sem, sem_ids = kops.semantic_source(params, ent_ids)
+        return h_sem[ent_ids if sem_ids is None else sem_ids]
 
     def fuse_semantic(self, params: Params, h, z) -> torch.Tensor:
-        """Eq. 12 on already-gathered rows in plain PyTorch: h [.., d]
-        structural, z [.., d_l] semantic -> fused [.., d]."""
-        z = z @ params["sem_proj_w"] + params["sem_proj_b"]   # F: d_l -> dp
-        x = torch.cat([h, z], dim=-1)
-        return torch.sigmoid(x @ params["fuse_w"] + params["fuse_b"]) * 2.0 - 1.0
+        """Eq. 12 on already-gathered rows in plain PyTorch (differentiable):
+        h [.., d] structural, z [.., d_l] semantic -> fused [.., d]."""
+        h2 = h.reshape(-1, h.shape[-1])
+        out = kops.gather_fuse_ref(
+            torch.arange(h2.shape[0], device=h.device), h2,
+            z.reshape(-1, z.shape[-1]), params["sem_proj_w"],
+            params["sem_proj_b"], params["fuse_w"], params["fuse_b"])
+        return out.reshape(h.shape)
 
     def fused_entity_vec(self, params: Params, ent_ids) -> torch.Tensor:
         """x_i = sigma(W [h_str ⊕ F(h_sem)] + b) — Eq. 12, through the

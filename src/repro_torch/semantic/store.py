@@ -345,7 +345,6 @@ class SemStage:
     ids: torch.Tensor       # int64 [m]
     rows: torch.Tensor      # fp32 [m, dim]
     n_rows: int
-    background: bool
 
 
 class SemanticCache:
@@ -397,13 +396,12 @@ class SemanticCache:
         self.misses = self._metrics.counter("misses")
         self.evictions = self._metrics.counter("evictions")
         self.stages = self._metrics.counter("stages")
-        self.stages_background = self._metrics.counter("stages_background")
         self.rows_staged = self._metrics.counter("rows_staged")
         self.bytes_staged = self._metrics.counter("bytes_staged")
         self.resident_gauge = self._metrics.gauge("resident_rows")
 
     # ------------------------------------------------------------- planning
-    def plan(self, ent_ids, background: bool = False) -> Optional[SemStage]:
+    def plan(self, ent_ids) -> Optional[SemStage]:
         """Ensure every id in ``ent_ids`` is device-resident once the returned
         stage is applied: store reads, dequantize and the one host->device
         copy happen here. Returns None on a full hit."""
@@ -448,8 +446,6 @@ class SemanticCache:
                 slots[j] = s
             m = len(missing)
             self.stages += 1
-            if background:
-                self.stages_background += 1
             self.rows_staged += m
             self.bytes_staged += m * self.dim * 4
             self.resident_gauge.set(int((self._owner >= 0).sum()))
@@ -465,7 +461,6 @@ class SemanticCache:
             ids=torch.from_numpy(missing).to(self.device),
             rows=torch.from_numpy(rows).to(self.device),
             n_rows=m,
-            background=background,
         )
 
     # -------------------------------------------------------------- applying
@@ -513,11 +508,6 @@ class SemanticCache:
         return int(self.hits) / n if n else 0.0
 
     @property
-    def prefetch_overlap_frac(self) -> float:
-        n = int(self.stages)
-        return int(self.stages_background) / n if n else 0.0
-
-    @property
     def device_resident_sem_bytes(self) -> int:
         """Device bytes pinned by the semantic subsystem: the hot-set buffer
         + the id->slot indirection (independent of E x d_l)."""
@@ -536,9 +526,6 @@ class SemanticCache:
             "evictions": int(self.evictions),
             "hit_rate": self.hit_rate,
             "stages": int(self.stages),
-            "stages_background": int(self.stages_background),
-            "sync_stages": int(self.stages) - int(self.stages_background),
-            "prefetch_overlap_frac": self.prefetch_overlap_frac,
             "rows_staged": int(self.rows_staged),
             "bytes_staged": int(self.bytes_staged),
             "device_resident_sem_bytes": self.device_resident_sem_bytes,

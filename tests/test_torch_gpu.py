@@ -113,10 +113,18 @@ def test_gather_fuse_kernel_matches_plain(dev, E, d, dl, dp, n, dtype):
 
 def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
     """A row's bits are the same whatever rows share its launch, and whether
-    its semantic row comes from the full table or from hot-set slots."""
-    E, d, dl, dp = 3000, 400, 1024, 64
+    its semantic row comes from the full table, from hot-set slots or from a
+    streamed chunk. All of FB15k's rows fill the card without splitting the
+    column groups; the 48-row launches split them over blocks that each
+    project for themselves; the 4,096-row chunk projects in a launch of its
+    own before its split fusion blocks."""
+    E, d, dl, dp = 14951, 400, 1024, 64
     ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, E)
     full = kops.gather_fuse(torch.arange(E, device=dev), h_str, h_sem, wp, bp, wf, bf)
+    lo, hi = 8192, 8192 + 4096
+    chunk = kops.gather_fuse(torch.arange(lo, hi, device=dev), h_str,
+                             h_sem[lo:hi].clone(), wp, bp, wf, bf,
+                             sem_ids=torch.arange(hi - lo, device=dev))
     some = ids[:48]
     alone = kops.gather_fuse(some, h_str, h_sem, wp, bp, wf, bf)
     # A hot set holding those rows at other slots, in another order.
@@ -127,6 +135,7 @@ def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
     torch.cuda.synchronize()
     assert torch.equal(alone, full[some])
     assert torch.equal(cached, full[some])
+    assert torch.equal(chunk, full[lo:hi])
 
 
 def test_gather_fuse_rejects_what_it_does_not_take(dev):

@@ -95,8 +95,13 @@ def test_semantic_config_builds_and_fuses(name):
     tp = tm.init_params(torch.Generator().manual_seed(0), 200, 10,
                         semantic_table=table)
     ids = torch.tensor([3, 7, 7, 150])
-    want = tm.fuse_semantic(tp, tp["entity"][ids], tm.semantic_rows(tp, ids))
+    P = {k: v.detach().numpy().astype(np.float64) for k, v in tp.items()}
+    x = np.concatenate(
+        [P["entity"][ids], table[ids] @ P["sem_proj_w"] + P["sem_proj_b"]], -1)
+    want = 2.0 / (1.0 + np.exp(-(x @ P["fuse_w"] + P["fuse_b"]))) - 1.0
     with torch.no_grad():
         got = tm.fused_entity_vec(tp, ids)
+        plain = tm.fuse_semantic(tp, tp["entity"][ids], tm.semantic_rows(tp, ids))
     assert got.shape == (4, 8) and (got.abs() < 1).all()
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(plain, got, rtol=1e-6, atol=1e-6)
