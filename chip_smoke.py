@@ -14,9 +14,12 @@ non-zero (printing no result) on any failed check:
    the serving shapes and one ragged shape, in fp32 and bf16, with the
    tolerances of the JAX package's kernel tests; kernel, plain and library
    device times (CUDA events, median over 25 runs, L2 flushed before each
-   run) beside each kernel's bound. ``gather_fuse`` also shows that rows
-   fused from the resident table and from a staged hot set are bitwise
-   equal.
+   run) beside each kernel's bound. ``scoring`` also runs a 4,096-row store
+   chunk and a table off 16-byte boundaries (its element-load variant), and
+   shows that a chunk's scores equal those columns of the all-entity launch
+   and a query alone its row in a batch of 16, bitwise. ``gather_fuse``
+   shows that rows fused from the resident table and from a staged hot set
+   are bitwise equal.
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
    with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
    window, then five timed closed-loop windows of fresh requests (QPS, p50
@@ -36,8 +39,9 @@ non-zero (printing no result) on any failed check:
    the resident layout within 1e-5, and the ``gather_fuse`` and ``scoring``
    launches equal what the recorded batches call for.
 5. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   serving path gave it most often; ``gather_fuse`` has one entry for each
-   semantic layout, with that layout's launches.
+   serving path gave it most often; ``scoring`` has one entry for each path
+   that launches it (GQE, ComplEx, GQE+H_sem resident and out of core) and
+   ``gather_fuse`` one for each semantic layout, each with its own launches.
 6. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -151,9 +155,16 @@ def main() -> None:
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def measure_scoring(mode: str, B: int, N: int, d: int, dtype: str) -> dict:
+    def measure_scoring(mode: str, B: int, N: int, d: int, dtype: str,
+                        misaligned: bool = False) -> dict:
+        """``misaligned``: ``e`` is ``table[1:]`` of a contiguous [N + 1, d]
+        table, so its storage starts d elements past the table's."""
         q = torch.randn((B, d), generator=gen, device=dev).to(fp[dtype])
-        e = torch.randn((N, d), generator=gen, device=dev).to(fp[dtype])
+        e = torch.randn((N + misaligned, d), generator=gen, device=dev).to(fp[dtype])
+        e = e[1:] if misaligned else e
+        if kops.scoring_aligned(e) == misaligned:
+            fail(f"scoring {(B, N, d)} {dtype}: a table {'off' if misaligned else 'on'} "
+                 f"16-byte boundaries took the other variant")
         got = kops.scoring(q, e, gamma=12.0, mode=mode)
         want = kops.scoring_ref(q, e, gamma=12.0, mode=mode)
         torch.cuda.synchronize()
@@ -177,8 +188,27 @@ def main() -> None:
             "plain_ms": time_ms(torch, lambda: kops.scoring_ref(q, e, 12.0, mode), flush),
             "library_ms": library and time_ms(torch, library, flush),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"B": B, "N": N, "d": d}, "dtype": dtype,
+            "shape": {"B": B, "N": N, "d": d, **({"e": "table[1:]"} if misaligned else {})},
+            "dtype": dtype,
         }
+
+    def check_scoring_bitwise(mode: str, dtype: str) -> None:
+        """A score's bits depend only on its query row, its entity row and d:
+        a 4,096-row chunk (as the out-of-core path scores) equals those
+        columns of the all-entity launch, and a query scored alone equals its
+        row in a batch of 16."""
+        q = torch.randn((16, 400), generator=gen, device=dev).to(fp[dtype])
+        e = torch.randn((E, 400), generator=gen, device=dev).to(fp[dtype])
+        full = kops.scoring(q, e, gamma=12.0, mode=mode)
+        chunk = kops.scoring(q, e[CHUNK:2 * CHUNK], gamma=12.0, mode=mode)
+        alone = kops.scoring(q[5:6].contiguous(), e, gamma=12.0, mode=mode)
+        torch.cuda.synchronize()
+        if not torch.equal(chunk, full[:, CHUNK:2 * CHUNK]):
+            fail(f"scoring[{mode}] {dtype}: a {CHUNK}-row chunk differs from the "
+                 f"all-entity launch's columns")
+        if not torch.equal(alone, full[5:6]):
+            fail(f"scoring[{mode}] {dtype}: a query scored alone differs from its "
+                 f"row in a batch of 16")
 
     def measure_intersect(n: int, k: int, d: int, hd: int, dtype: str) -> dict:
         # BetaE-like values: Beta parameters from the entity-state map, MLP
@@ -285,8 +315,13 @@ def main() -> None:
     print("kernels against their plain versions:")
     for dtype in ("float32", "bfloat16"):
         for mode in ("l1", "dot"):
-            for B, N, d in ((1, E, 400), (16, E, 400), (5, 333, 96)):
-                show(f"scoring[{mode}]", measure_scoring(mode, B, N, d, dtype))
+            for B, N, d, mis in ((1, E, 400, False), (16, E, 400, False),
+                                 (16, CHUNK, 400, False), (5, 333, 96, False),
+                                 (16, 333, 33, True)):
+                show(f"scoring[{mode}]", measure_scoring(mode, B, N, d, dtype, mis))
+            check_scoring_bitwise(mode, dtype)
+        print(f"  scoring {dtype}: {CHUNK}-row chunks and single queries bitwise "
+              f"equal to the all-entity batch of 16")
         for n, k, d, hd in ((16, 2, 800, 800), (16, 3, 800, 800),
                             (256, 2, 800, 800), (256, 3, 800, 800),
                             (100, 3, 64, 128)):
@@ -376,7 +411,7 @@ def main() -> None:
                     if op in (int(OpType.INTERSECT), int(OpType.UNION)):
                         shapes[(pn, card)] += 1
             else:
-                shapes[len(rec.queries)] += 1
+                shapes[(len(rec.queries), E)] += 1
         l = latency_summary([res["latency_ms"] for res in results])
         wall = sum(rep.wall_s for rep in reports)
         per_window = ", ".join(f"{rep.qps:.1f} q/s p50 {rep.latency_ms['p50']:.2f} "
@@ -406,7 +441,8 @@ def main() -> None:
     def serve_semantic(store):
         """GQE with H_sem served from both layouts, with phase 4's windows.
         Returns, for each layout, the ``gather_fuse`` launches of its timed
-        run and a Counter of the (kind, n) they were made at."""
+        run with a Counter of the (kind, n) they were made at, and its
+        ``scoring`` launches with a Counter of their (B, N)."""
         sem_cfg = ModelConfig(semantic_dim=SEM_DIM)
         n_chunks = -(-E // CHUNK)
         per_layout, resident = {}, None
@@ -448,8 +484,9 @@ def main() -> None:
                 fail(f"semantic {layout}: {st['failures']} requests failed")
 
             # Launches: one per EMBED op, plus the all-entity fusion (one
-            # resident launch, or one per streamed chunk) of every batch.
-            embeds, calls = 0, collections.Counter()
+            # resident launch, or one per streamed chunk) of every batch;
+            # scoring once per batch resident, once per chunk out of core.
+            embeds, calls, scored = 0, collections.Counter(), collections.Counter()
             for rec in log:
                 for op, _card, pn in executor.prepare(rec.queries).meta:
                     if op == int(OpType.EMBED):
@@ -457,9 +494,11 @@ def main() -> None:
                         calls[("resident" if cache is None else "cache", pn)] += 1
                 if cache is None:
                     calls[("resident", E)] += 1
+                    scored[(len(rec.queries), E)] += 1
                 else:
                     for lo in range(0, E, CHUNK):
                         calls[("chunk", min(CHUNK, E - lo))] += 1
+                        scored[(len(rec.queries), min(CHUNK, E - lo))] += 1
             want = embeds + per_batch * len(log)
             if launches["gather_fuse"] == 0 or launches["gather_fuse"] != want:
                 fail(f"semantic {layout}: {launches['gather_fuse']} gather_fuse "
@@ -469,6 +508,9 @@ def main() -> None:
                 fail(f"semantic {layout}: {launches['scoring']} scoring launches "
                      f"for {len(log)} batches")
             per_layout[f"gather_fuse[{layout}]"] = (launches["gather_fuse"], calls)
+            per_layout[f"scoring[{model.score_mode}][semantic-{layout}]"
+                       if layout == "resident" else
+                       f"scoring[{model.score_mode}][{layout}]"] = (launches["scoring"], scored)
 
             # Replay: resident through serve_batch; out-of-core through
             # serve_batch with a fresh cache and params and the chunked scorer.
@@ -579,8 +621,9 @@ def main() -> None:
                                   "float32")
             src, replaces = "intersect.cu", "src/repro/kernels/intersect.py:50"
         else:
-            mode = key[len("scoring["):-1]
-            r = measure_scoring(mode, shape, E, cfg.dim, "float32")
+            mode = key[len("scoring["):].split("]")[0]
+            B, N = shape
+            r = measure_scoring(mode, B, N, cfg.dim, "float32")
             src, replaces = "scoring.cu", "src/repro/kernels/scoring.py:48"
         show(f"{key} (main path)", r)
         entries.append({"name": key, "route": "cuda",

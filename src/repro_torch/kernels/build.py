@@ -103,6 +103,8 @@ def load_library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
             lib.repro_scoring.restype = i
+            lib.repro_scoring_aligned.argtypes = [p, i, i]
+            lib.repro_scoring_aligned.restype = i
             lib.repro_intersect.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.repro_intersect.restype = i
             ll = ctypes.c_longlong

@@ -3,87 +3,416 @@
 // Replaces the TPU kernel src/repro/kernels/scoring.py::scoring_pallas
 // (body _scoring_kernel). out[b, n] = gamma + q[b]·e[n] (MODE 0, dot) or
 // gamma - sum_d |q[b,d] - e[n,d]| (MODE 1, l1), accumulated in fp32 for
-// fp32 or bf16 inputs.
+// fp32 or bf16 inputs, any B, N and d.
 //
 // Bound: at the serving shapes (B <= 16 queries against N = 14,951 entities,
-// d = 400) the entity table is read once and each element feeds at most 16
-// multiply-adds, so the kernel is bound by the bytes of `e`. One block owns a
-// BM x BN output tile, one output per thread; the BM query rows cover the
-// whole serving batch, so `e` crosses device memory once per launch, and the
-// small tiles give ~935 blocks at N = 14,951 — enough resident warps to keep
-// many loads of `e` in flight. Each BK-wide slice of q and e is staged in
-// shared memory with coalesced loads; every thread issues all its loads of a
-// slice before storing any, and the next slice's loads are in flight while
-// the current one is computed, so a step costs one memory latency, not one
-// per load. The +1 padding keeps the column reads of `es` free of bank
-// conflicts. Ragged B, N and d are masked inside
-// the kernel (zero fill adds nothing to either the dot or the l1 sum).
+// d = 400) the entity table (23.9 MB in fp32) is read once and each of its
+// elements feeds at most 16 multiply-adds, so the kernel is bound by the
+// bytes of `e`: 7.4 us at 3.35 TB/s. The arithmetic is not far behind: the
+// 96 M FMAs of dot need ~3 us of the card's CUDA cores and l1's subtract and
+// |.|-add twice that, so the loads of `e` have to overlap the arithmetic and
+// the arithmetic has to read little shared memory per operation:
+//
+//  * Persistent grid, one block per SM. Block g owns the contiguous rows
+//    [g·N/G, (g+1)·N/G) of `e` (~113 rows at N = 14,951): every SM streams
+//    the same number of bytes and there is no tail wave. It walks its rows
+//    in tiles of BN = 128 and each tile along d in slices of 64 elements.
+//  * Warp specialisation. A producer warpgroup streams the slices into a
+//    ring of 4 shared-memory stages with 16-byte cp.async and signals each
+//    stage's `full` mbarrier with cp.async.mbarrier.arrive; 8 consumer warps
+//    compute and release the stage on its `empty` mbarrier. Computing warps
+//    never issue copies, so they never stall on the copy queue. setmaxnreg
+//    moves the producers' registers to the consumers.
+//  * q is staged once per block by the consumers, while the first slices of
+//    `e` are already in flight: the block's 16-row (or 8-row) query tile
+//    over all of d, in fp32, 29 KB at d = 400. A d too large for shared
+//    memory is staged in windows instead, once per window and tile. B > 16
+//    runs another grid row per 16 queries.
+//  * Split d, large register tiles. Each lane owns 8 queries x 8 entities
+//    (8 x 4 for B <= 8) over one of 8 k-groups: 8 interleaved elements of
+//    every slice. It loads e and q once per 4 elements as 16-byte vectors,
+//    about one byte of shared memory per FMA; with one output per thread it
+//    was three. At the end of a tile the 8 k-groups' partials are added in a
+//    fixed shuffle tree, and the tile's scores go through shared memory so
+//    that rows of `out` are written with coalesced stores.
+//  * Bank-conflict-free reads: the 8 lanes of a quarter-warp cover two
+//    k-groups and rows (or query rows) that start 8 banks apart.
+//  * The 16-byte copies need a 16-byte aligned table and rows of a multiple
+//    of 16 bytes (d % 4 == 0 in fp32, d % 8 == 0 in bf16). Any other table
+//    (odd d, a slice such as e[1:]) takes the element-load variant: the same
+//    kernel whose producers load elements into registers and store them to
+//    an fp32 ring. Neither is the plain version; repro_scoring_aligned says
+//    which one a table takes.
+//
+// Each output is the fixed tree over 8 k-group partials, each one fp32
+// chain (fmaf for dot; a subtract and an add of |.| for l1) over its
+// elements in order. The order depends only on d and the ring's dtype, so
+// the bits of out[b, n] depend only on q[b], e[n] and d: not on B, N, the
+// row's place in the table, the block or the tiling. A chunk of rows scores
+// bitwise the same as those columns of the all-entity launch, and a query
+// alone as its row in a batch. No atomics.
+//
+// ptxas -v (sm_90a, -O3, CUDA 12.9): every fp32 instantiation 168 registers
+// (the cap for 384 threads), no spills; the bf16 ones spill at most 4 bytes.
+// Shared memory per block at d = 400: 185,152 bytes (fp32 ring, 16 queries),
+// 119,616 bytes (bf16 ring); one block per SM.
+#include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 16;       // query rows per block
-constexpr int BN = 16;       // entities per block
-constexpr int BK = 64;       // latent-dim slice staged per step
-constexpr int THREADS = BM * BN;
-constexpr int PER = BK * BM / THREADS;  // q (and e) elements each thread stages
-static_assert(BM == BN, "q and e tiles share one staging loop");
+constexpr int WARPS = 8;                // consumer warps
+constexpr int CONSUMERS = WARPS * 32;
+constexpr int PRODUCERS = 128;          // one warpgroup issues the copies
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+// 384 threads launch with 168 registers each; the producer warpgroup hands
+// most of its share to the two consumer warpgroups.
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;
+static_assert(PRODUCERS * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536, "register file");
+constexpr int SLICE = 64;              // elements of d per row per slice: 8 k-groups x 8
+constexpr int RQ = 8;                  // queries per lane
+constexpr int WN = 16;                 // entities per warp
+constexpr int BN = WARPS * WN;         // entity rows per tile (128)
+constexpr int STAGES = 4;              // slices in the ring
+constexpr int OSP = BN + 4;            // row pitch of the output tile in floats
+constexpr int QPAD = 8;                // q row padding in floats
+constexpr int MAX_DEVICES = 64;
 
-template <int MODE, typename T>
-__global__ void __launch_bounds__(THREADS)
-scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
-               float* __restrict__ out, int B, int N, int d, float gamma) {
-  __shared__ float qs[BM][BK + 1];
-  __shared__ float es[BN][BK + 1];
-  const int tid = threadIdx.x;
-  const int col = tid % BN;        // entity of this thread within the tile
-  const int row = tid / BN;        // query row of this thread within the tile
-  const int n0 = blockIdx.x * BN;
-  const int b0 = blockIdx.y * BM;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-  float acc = 0.f;
-  float qr[PER], er[PER];  // the next slice, staged in registers
+// Row pitch of a ring slice in bytes: the slice plus 32 bytes, 72 (fp32) or
+// 40 (bf16) words, 8 mod 32, so rows read together start 8 banks apart.
+template <typename S>
+__host__ __device__ constexpr int pitch() { return SLICE * static_cast<int>(sizeof(S)) + 32; }
+template <typename S>
+__host__ __device__ constexpr int ring_bytes() { return STAGES * BN * pitch<S>(); }
 
-  auto load = [&](int k0) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+// Arrive on `bar` once all of this thread's earlier cp.async have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// The consumer warps' own barrier (the producers never join it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// One level of the k-group reduction: lanes kg and kg ^ M (4·M lanes apart)
+// add H of their values each; the lane whose bit M is set keeps the upper half.
+template <int H, int M>
+__device__ __forceinline__ void fold(float* a, int kg) {
+  const bool up = kg & M;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = tid + j * THREADS, r = i / BK, k = k0 + i % BK;
-      qr[j] = (b0 + r < B && k < d) ? repro::to_f32(q[(size_t)(b0 + r) * d + k]) : 0.f;
-      er[j] = (n0 + r < N && k < d) ? repro::to_f32(e[(size_t)(n0 + r) * d + k]) : 0.f;
+  for (int t = 0; t < H; ++t) {
+    const float send = up ? a[t] : a[t + H], keep = up ? a[t + H] : a[t];
+    a[t] = keep + __shfl_xor_sync(0xffffffffu, send, M * 4);
+  }
+}
+
+// Where k-group kg's 8 elements of a slice sit, as two halves h = 0, 1 of 4
+// elements; returns the half's first element within the slice. In an fp32
+// ring half h is float4 8h + kg, so a quarter-warp's two k-groups read
+// adjacent float4. In a bf16 ring kg owns the 16-byte chunk kg (elements
+// 8kg..8kg+7) and half h is its h-th 8 bytes; q rows of that kernel keep the
+// matching float4 pair (2kg, 2kg + 1) with its halves swapped in the upper
+// half of each slice, so those reads still hit distinct banks.
+template <typename S>
+__device__ __forceinline__ int half_elem(int kg, int h) {
+  return sizeof(S) == 2 ? 8 * kg + 4 * h : 4 * (8 * h + kg);
+}
+template <typename S>
+__device__ __forceinline__ int q_slot(int c) {  // c: float4 index in a q row
+  return sizeof(S) == 2 ? c ^ ((c >> 3) & 1) : c;
+}
+
+// MODE: 0 dot, 1 l1. T: input dtype. ALIGNED: 16-byte cp.async of `e` into a
+// ring of T, else element loads into a ring of fp32. QG: query groups of 8
+// per warp (the block's query tile is 8·QG rows). W: elements of d per q
+// window (a multiple of SLICE).
+template <int MODE, typename T, bool ALIGNED, int QG>
+__global__ void __launch_bounds__(THREADS, 1)
+scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
+               float* __restrict__ out, int B, int N, int d, int W, float gamma) {
+  using S = typename std::conditional<ALIGNED, T, float>::type;  // ring element
+  constexpr int QT = RQ * QG;            // query rows of the block
+  constexpr int EG = 4 / QG;             // entity groups per warp
+  constexpr int RE = WN / EG;            // entities per lane
+  constexpr int PITCH = pitch<S>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int QP = W + QPAD;               // q row pitch in floats
+  float* qs = reinterpret_cast<float*>(smem + ring_bytes<S>());  // [QT][QP]
+  float* os = qs + QT * QP;                                      // [QT][OSP]
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + QT * OSP);  // [STAGES]
+  uint64_t* empty = full + STAGES;                               // [STAGES]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.y * QT;
+  const int r_lo = static_cast<int>(static_cast<long long>(blockIdx.x) * N / gridDim.x);
+  const int r_hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * N / gridDim.x);
+  const int slices = max(1, cdiv(d, SLICE));
+  const int iters = cdiv(r_hi - r_lo, BN) * slices;
+
+  // The query tile's columns [k0, k0 + W) as fp32 rows, zero past B and d,
+  // staged by the consumers. Each issues QPER loads before it stores any, so
+  // a window costs one memory latency per QPER·CONSUMERS elements.
+  auto stage_q = [&](int k0) {
+    constexpr int QPER = 32;
+    for (int base = 0; base < QT * W; base += QPER * CONSUMERS) {
+      float v[QPER];
+#pragma unroll
+      for (int u = 0; u < QPER; ++u) {
+        const int i = base + tid + u * CONSUMERS, b = i / W, k = i - b * W;
+        v[u] = (i < QT * W && b0 + b < B && k0 + k < d)
+                   ? repro::to_f32(q[static_cast<size_t>(b0 + b) * d + k0 + k]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < QPER; ++u) {
+        const int i = base + tid + u * CONSUMERS, b = i / W, k = i - b * W;
+        if (i < QT * W) qs[b * QP + q_slot<S>(k >> 2) * 4 + (k & 3)] = v[u];
+      }
     }
   };
 
-  load(0);
-  for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = tid + j * THREADS;
-      qs[i / BK][i % BK] = qr[j];
-      es[i / BK][i % BK] = er[j];
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], PRODUCERS);
+      mbar_init(&empty[s], WARPS);
     }
-    __syncthreads();
-    if (k0 + BK < d) load(k0 + BK);
-#pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      if (MODE == 0) {
-        acc = fmaf(qs[row][c], es[col][c], acc);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    // Producers: slice `it` (tile it / slices, d-slice it % slices) into ring
+    // stage it % STAGES once the consumers have released that stage; each
+    // producer thread arrives on the stage's `full` barrier when its own
+    // copies have landed.
+    const int pt = tid - CONSUMERS;
+    for (int it = 0; it < iters; ++it) {
+      const int stage = it % STAGES;
+      if (it >= STAGES) mbar_wait(&empty[stage], (it / STAGES - 1) & 1);
+      const int t = it / slices, k0 = (it - t * slices) * SLICE;
+      const int row0 = r_lo + t * BN, rows = min(BN, r_hi - row0), kw = min(SLICE, d - k0);
+      unsigned char* st = smem + stage * BN * PITCH;
+      if constexpr (ALIGNED) {
+        constexpr int VEC = 16 / sizeof(T), CH = SLICE / VEC;  // 16-byte chunks a row
+        for (int c = pt; c < rows * CH; c += PRODUCERS) {
+          const int r = c / CH, ch = c % CH;
+          if (ch * VEC < kw)
+            cp_async16(st + r * PITCH + ch * 16, e + static_cast<size_t>(row0 + r) * d + k0 + ch * VEC);
+        }
+        cp_async_arrive(&full[stage]);
       } else {
-        acc += fabsf(qs[row][c] - es[col][c]);
+        constexpr int PER = 16;  // loads in flight per thread
+        for (int base = 0; base < BN * SLICE; base += PER * PRODUCERS) {
+          float v[PER];
+#pragma unroll
+          for (int u = 0; u < PER; ++u) {
+            const int c = base + pt + u * PRODUCERS, r = c / SLICE, k = c % SLICE;
+            v[u] = (r < rows && k < kw) ? repro::to_f32(e[static_cast<size_t>(row0 + r) * d + k0 + k]) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < PER; ++u) {
+            const int c = base + pt + u * PRODUCERS;
+            reinterpret_cast<float*>(st + (c / SLICE) * PITCH)[c % SLICE] = v[u];
+          }
+        }
+        mbar_arrive(&full[stage]);
       }
     }
-    __syncthreads();
+    return;
   }
 
-  const int n = n0 + col, b = b0 + row;
-  if (n < N && b < B) out[(size_t)b * N + n] = MODE == 0 ? gamma + acc : gamma - acc;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // Consumers. Lane (kg, eg, qg) = (lane >> 2, lane & 3): k-group kg of
+  // each slice, entities eg + EG·j of the warp's 16, queries qg + QG·i of
+  // the block's tile. The 8 lanes of a quarter-warp cover two k-groups, so
+  // their 16-byte reads of e and q share rows and fall in distinct banks
+  // (row pitches are 8 mod 32 words).
+  const int kg = lane >> 2, eg = (lane & 3) % EG, qg = (lane & 3) / EG;
+  auto erow = [&](int j) { return warp * WN + eg + EG * j; };
+  auto qrow = [&](int i) { return qg + QG * i; };
+  // q by the consumers alone, while the producers already stream `e`.
+  stage_q(0);
+  consumers_sync();
+  float acc[RQ * RE];  // [query i][entity j]: this lane's k-group's partial sums
+#pragma unroll
+  for (int u = 0; u < RQ * RE; ++u) acc[u] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int stage = it % STAGES;
+    const int t = it / slices, s = it - t * slices, k0 = s * SLICE;
+    const int row0 = r_lo + t * BN, rows = min(BN, r_hi - row0), kw = min(SLICE, d - k0);
+    if (W < d && it > 0 && k0 % W == 0) {  // next q window
+      consumers_sync();
+      stage_q(k0);
+      consumers_sync();
+    }
+    mbar_wait(&full[stage], (it / STAGES) & 1);
+    if (warp * WN < rows) {  // warp-uniform
+      const unsigned char* st = smem + stage * BN * PITCH;
+      const float4* qw = reinterpret_cast<const float4*>(qs);
+      const int c0 = (k0 % W) / 4;  // the slice's first float4 in a q row
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        // A half lies wholly inside d or wholly past it (aligned fp32 rings
+        // have d % 4 == 0, bf16 rings d % 8 == 0, element rings zero-fill).
+        // A half past d was not copied and is skipped.
+        const int el = half_elem<S>(kg, h);
+        if (el >= kw) continue;
+        float4 ev[RE];
+#pragma unroll
+        for (int j = 0; j < RE; ++j) {
+          const unsigned char* row = st + erow(j) * PITCH;
+          if constexpr (sizeof(S) == 2) {
+            const uint2 u = *reinterpret_cast<const uint2*>(row + el * 2);
+            ev[j] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                                __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+          } else {
+            ev[j] = *reinterpret_cast<const float4*>(row + el * 4);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const float4 qv = qw[qrow(i) * (QP / 4) + q_slot<S>(c0 + el / 4)];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int j = 0; j < RE; ++j) {
+              const float qk = c == 0 ? qv.x : c == 1 ? qv.y : c == 2 ? qv.z : qv.w;
+              const float ek = c == 0 ? ev[j].x : c == 1 ? ev[j].y : c == 2 ? ev[j].z : ev[j].w;
+              float& a = acc[i * RE + j];
+              if constexpr (MODE == 0) a = fmaf(qk, ek, a);
+              else a += fabsf(qk - ek);
+            }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+
+    if (s == slices - 1) {
+      // The tile's last slice: add the 8 k-groups' partials in a fixed tree,
+      // ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), leaving lane kg
+      // with query kr = bitreverse3(kg) for its RE entities; the tile's
+      // scores go through shared memory so that rows of `out` are written
+      // with coalesced stores.
+      if (warp * WN < rows) {
+        constexpr int N0 = RQ * RE;
+        fold<N0 / 2, 1>(acc, kg);
+        fold<N0 / 4, 2>(acc, kg);
+        fold<N0 / 8, 4>(acc, kg);
+        const int kr = ((kg & 1) << 2) | (kg & 2) | ((kg >> 2) & 1);
+#pragma unroll
+        for (int j = 0; j < RE; ++j)
+          os[qrow(kr) * OSP + erow(j)] = acc[j];
+#pragma unroll
+        for (int u = 0; u < RQ * RE; ++u) acc[u] = 0.f;
+      }
+      consumers_sync();
+      for (int i = tid; i < QT * BN; i += CONSUMERS) {
+        const int b = i / BN, r = i % BN;
+        if (b0 + b < B && r < rows) {
+          const float v = os[b * OSP + r];
+          out[static_cast<size_t>(b0 + b) * N + row0 + r] = MODE == 0 ? gamma + v : gamma - v;
+        }
+      }
+      consumers_sync();
+    }
+  }
+}
+
+struct DeviceInfo {
+  int sms, smem;  // SM count, shared memory a block may opt into
+};
+
+int device_info(int dev, DeviceInfo* info) {
+  static std::atomic<int> sms[MAX_DEVICES], optin[MAX_DEVICES];
+  int s = sms[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    int o = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin[dev].store(o, std::memory_order_relaxed);
+    sms[dev].store(s, std::memory_order_release);
+  }
+  *info = {s, optin[dev].load(std::memory_order_relaxed)};
+  return 0;
+}
+
+bool aligned(const void* e, int d, int dtype) {
+  const int elt = dtype == repro::kBF16 ? 2 : 4;
+  return reinterpret_cast<uintptr_t>(e) % 16 == 0 && (static_cast<long long>(d) * elt) % 16 == 0;
+}
+
+template <int MODE, typename T, bool ALIGNED, int QG>
+int launch(const void* q, const void* e, float* out, int B, int N, int d,
+           float gamma, int dev, const DeviceInfo& info, cudaStream_t stream) {
+  using S = typename std::conditional<ALIGNED, T, float>::type;
+  constexpr int QT = RQ * QG, RING = ring_bytes<S>();
+  // The q window: all of d where it fits beside the ring, else the most
+  // whole slices that do (rows of W + QPAD floats).
+  const int fit = ((info.smem - RING - 2 * STAGES * 8) / (QT * 4) - QPAD - OSP) / SLICE * SLICE;
+  if (fit < SLICE) return static_cast<int>(cudaErrorInvalidValue);
+  const int W = std::min(fit, std::max(SLICE, cdiv(d, SLICE) * SLICE));
+  const size_t smem = RING + static_cast<size_t>(QT) * (W + QPAD + OSP) * 4 + 2 * STAGES * 8;
+  auto kernel = scoring_kernel<MODE, T, ALIGNED, QG>;
+  static std::atomic<bool> opted[MAX_DEVICES];
+  if (!opted[dev].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, info.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[dev].store(true, std::memory_order_release);
+  }
+  const dim3 grid(std::min(info.sms, cdiv(N, WN)), cdiv(B, QT));
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(e),
+                                          out, B, N, d, W, gamma);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE, typename T>
-void launch(const void* q, const void* e, float* out, int B, int N, int d,
-            float gamma, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (B + BM - 1) / BM);
-  scoring_kernel<MODE, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(e), out, B, N, d, gamma);
+int dispatch(const void* q, const void* e, float* out, int B, int N, int d,
+             float gamma, int dtype, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  DeviceInfo info;
+  if (const int rc = device_info(dev, &info)) return rc;
+  const bool al = aligned(e, d, dtype);
+  if (B <= RQ) {  // one query group of 8
+    return al ? launch<MODE, T, true, 1>(q, e, out, B, N, d, gamma, dev, info, stream)
+              : launch<MODE, T, false, 1>(q, e, out, B, N, d, gamma, dev, info, stream);
+  }
+  return al ? launch<MODE, T, true, 2>(q, e, out, B, N, d, gamma, dev, info, stream)
+            : launch<MODE, T, false, 2>(q, e, out, B, N, d, gamma, dev, info, stream);
 }
 
 }  // namespace
@@ -94,12 +423,17 @@ extern "C" int repro_scoring(const void* q, const void* e, float* out, int B,
                              int N, int d, float gamma, int mode, int dtype,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0 && dtype == repro::kF32) launch<0, float>(q, e, out, B, N, d, gamma, s);
-  else if (mode == 1 && dtype == repro::kF32) launch<1, float>(q, e, out, B, N, d, gamma, s);
-  else if (mode == 0 && dtype == repro::kBF16) launch<0, __nv_bfloat16>(q, e, out, B, N, d, gamma, s);
-  else if (mode == 1 && dtype == repro::kBF16) launch<1, __nv_bfloat16>(q, e, out, B, N, d, gamma, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (mode == 0 && dtype == repro::kF32) return dispatch<0, float>(q, e, out, B, N, d, gamma, dtype, s);
+  if (mode == 1 && dtype == repro::kF32) return dispatch<1, float>(q, e, out, B, N, d, gamma, dtype, s);
+  if (mode == 0 && dtype == repro::kBF16) return dispatch<0, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, s);
+  if (mode == 1 && dtype == repro::kBF16) return dispatch<1, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// 1 if a table `e` of row length d takes the 16-byte cp.async variant, 0 if
+// it takes the element-load one.
+extern "C" int repro_scoring_aligned(const void* e, int d, int dtype) {
+  return aligned(e, d, dtype) ? 1 : 0;
 }
 
 extern "C" const char* repro_error_string(int err) {

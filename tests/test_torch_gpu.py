@@ -24,13 +24,35 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N,d", [(1, 14951, 400), (16, 14951, 400), (70, 333, 96)])
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """The same values as a contiguous tensor whose storage starts one
+    element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (B, N, d, misaligned): the serving shapes (one query, a micro-batch of 16,
+# a 4,096-row store chunk), several query tiles, ragged d, and tables the
+# 16-byte copies cannot take (d = 33; a table one element off a boundary).
+SCORING_SHAPES = [(1, 14951, 400, False), (16, 14951, 400, False),
+                  (16, 4096, 400, False), (70, 333, 96, False), (5, 333, 33, False),
+                  (16, 333, 33, True), (16, 4096, 400, True)]
+
+
+@pytest.mark.parametrize("B,N,d,misaligned", SCORING_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["dot", "l1"])
-def test_scoring_kernel_matches_plain(dev, B, N, d, dtype, mode):
+def test_scoring_kernel_matches_plain(dev, B, N, d, misaligned, dtype, mode):
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((B, d), generator=g, device=dev).to(dtype)
     e = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    if misaligned:
+        e = _misaligned(e)
+        assert not kops.scoring_aligned(e)
+    elif d % (16 // e.element_size()) == 0:
+        assert kops.scoring_aligned(e)
     before = kops.scoring.launches
     got = kops.scoring(q, e, gamma=12.0, mode=mode)
     torch.cuda.synchronize()
@@ -39,6 +61,26 @@ def test_scoring_kernel_matches_plain(dev, B, N, d, dtype, mode):
     # Both sides take the same (bf16-rounded) inputs and sum in fp32, so bf16
     # is held to the fp32 tolerance too.
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dot", "l1"])
+def test_scoring_rows_do_not_depend_on_their_launch(dev, dtype, mode):
+    """A score's bits depend only on its query row, its entity row and d:
+    a 4,096-row chunk (as the out-of-core path scores) equals those columns
+    of the all-entity launch, and a query scored alone equals its row in a
+    batch of 16."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((16, 400), generator=g, device=dev).to(dtype)
+    e = torch.randn((14951, 400), generator=g, device=dev).to(dtype)
+    full = kops.scoring(q, e, gamma=12.0, mode=mode)
+    for lo in (0, 8192, 12288):
+        hi = min(lo + 4096, e.shape[0])
+        chunk = kops.scoring(q, e[lo:hi], gamma=12.0, mode=mode)
+        assert torch.equal(chunk, full[:, lo:hi])
+    for b in (0, 5, 15):
+        alone = kops.scoring(q[b:b + 1].contiguous(), e, gamma=12.0, mode=mode)
+        assert torch.equal(alone, full[b:b + 1])
 
 
 @pytest.mark.parametrize("n,k,d,hd", [(16, 2, 800, 800), (256, 3, 800, 800),

@@ -173,6 +173,15 @@ def test_kernel_library_needs_cuda():
         build.load_library()
 
 
+def test_scoring_variant_query_needs_cuda():
+    """Which variant a table takes is the kernel library's own rule; asking
+    without CUDA raises instead of guessing."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tops.scoring_aligned(torch.zeros(5, 8))
+
+
 def test_library_path_keyed_by_sources():
     path = build.library_path()
     assert path.parent == build.BUILD_DIR
