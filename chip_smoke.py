@@ -17,7 +17,13 @@ non-zero (printing no result) on any failed check:
    run) beside each kernel's bound. ``scoring`` also runs a 4,096-row store
    chunk and a table off 16-byte boundaries (its element-load variant), and
    shows that a chunk's scores equal those columns of the all-entity launch
-   and a query alone its row in a batch of 16, bitwise. ``gather_fuse``
+   under either tiling and from either variant, and a query alone its row in
+   a batch of 16, bitwise. At its fp32 serving shapes it is also timed with
+   each tiling forced, and beside the floors of the timing protocol: a
+   launch that reads nothing, and a plain read of the same table
+   (``csrc/stream_read.cu``), with the flush buffer zeroed as for every
+   time, and again with it read instead, which leaves L2 clean.
+   ``gather_fuse``
    shows that rows fused from the resident table and from a staged hot set
    are bitwise equal.
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
@@ -49,7 +55,6 @@ from __future__ import annotations
 import collections
 import json
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -79,26 +84,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(torch, fn, flush, reps: int = 25) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), with
-    the L2 cache flushed before each run. Zeroing the 512 MB flush buffer
-    takes the card longer than the host needs to enqueue a run, so the card
-    never waits on the host between the events and the host's launch cost
-    stays out of the time."""
-    for _ in range(3):
-        fn()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def main() -> None:
     try:
         import torch
@@ -114,6 +99,8 @@ def main() -> None:
     from repro_torch.data import generate_synthetic_kg
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.scoring import TILES
+    from repro_torch.kernels.timing import flush_buffer, stream_read, time_ms
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import ModelConfig, make_model, params_from_numpy
     from repro_torch.models.base import glorot
@@ -146,7 +133,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {build.library_path()}")
 
     # ----------------------------------------------------------- 3. kernels
-    flush = torch.empty(512 * 2**20 // 4, dtype=torch.float32, device=dev)
+    flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     fp = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -156,9 +143,12 @@ def main() -> None:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def measure_scoring(mode: str, B: int, N: int, d: int, dtype: str,
-                        misaligned: bool = False) -> dict:
+                        misaligned: bool = False, detail: bool = False) -> dict:
         """``misaligned``: ``e`` is ``table[1:]`` of a contiguous [N + 1, d]
-        table, so its storage starts d elements past the table's."""
+        table, so its storage starts d elements past the table's. ``detail``
+        adds the time under each tiling, the protocol's floors (a launch that
+        reads nothing; a plain read of ``e``), and the kernel and the read
+        with L2 left clean by the flush."""
         q = torch.randn((B, d), generator=gen, device=dev).to(fp[dtype])
         e = torch.randn((N + misaligned, d), generator=gen, device=dev).to(fp[dtype])
         e = e[1:] if misaligned else e
@@ -182,30 +172,53 @@ def main() -> None:
         # l1 has no tensor-core form: its sub-abs-add runs on CUDA cores.
         b_ms, b_by = bound((B * d + N * d) * elt + B * N * 4, flops,
                            dtype if mode == "dot" else "float32")
-        return {
+        kernel = lambda: kops.scoring(q, e, 12.0, mode)  # noqa: E731
+        r = {
             "max_abs_err": float((got - want).abs().max()),
-            "ms": time_ms(torch, lambda: kops.scoring(q, e, 12.0, mode), flush),
-            "plain_ms": time_ms(torch, lambda: kops.scoring_ref(q, e, 12.0, mode), flush),
-            "library_ms": library and time_ms(torch, library, flush),
+            "ms": time_ms(kernel, flush),
+            "plain_ms": time_ms(lambda: kops.scoring_ref(q, e, 12.0, mode), flush),
+            "library_ms": library and time_ms(library, flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"B": B, "N": N, "d": d, **({"e": "table[1:]"} if misaligned else {})},
-            "dtype": dtype,
+            "dtype": dtype, "tile": kops.scoring_tile(e),
         }
+        if detail:
+            r["ms_by_tile"] = {str(t): time_ms(  # noqa: B023
+                lambda: kops.scoring(q, e, 12.0, mode, tile=t), flush) for t in TILES}
+            r["launch_floor_ms"] = time_ms(lambda: stream_read(e[:0]), flush)
+            r["read_floor_ms"] = time_ms(lambda: stream_read(e), flush)
+            r["ms_clean_l2"] = time_ms(kernel, flush, clean=True)
+            r["read_floor_ms_clean_l2"] = time_ms(lambda: stream_read(e), flush, clean=True)
+        return r
 
     def check_scoring_bitwise(mode: str, dtype: str) -> None:
-        """A score's bits depend only on its query row, its entity row and d:
-        a 4,096-row chunk (as the out-of-core path scores) equals those
-        columns of the all-entity launch, and a query scored alone equals its
-        row in a batch of 16."""
+        """A score's bits depend only on its query row, its entity row, d and
+        the dtype: a 4,096-row chunk (as the out-of-core path scores) equals
+        those columns of the all-entity launch under either tiling and
+        from a table off 16-byte boundaries (the element-load variant), and a
+        query scored alone equals its row in a batch of 16."""
         q = torch.randn((16, 400), generator=gen, device=dev).to(fp[dtype])
         e = torch.randn((E, 400), generator=gen, device=dev).to(fp[dtype])
         full = kops.scoring(q, e, gamma=12.0, mode=mode)
-        chunk = kops.scoring(q, e[CHUNK:2 * CHUNK], gamma=12.0, mode=mode)
+        cols = full[:, CHUNK:2 * CHUNK]
+        flat = torch.empty(CHUNK * 400 + 1, dtype=e.dtype, device=dev)
+        off = flat[1:].view(CHUNK, 400)  # one element past a 16-byte boundary
+        off.copy_(e[CHUNK:2 * CHUNK])
+        if kops.scoring_aligned(off):
+            fail(f"scoring {dtype}: a table off 16-byte boundaries took the 16-byte copies")
+        chunks = {f"tile {t}": kops.scoring(q, e[CHUNK:2 * CHUNK], 12.0, mode, tile=t)
+                  for t in TILES}
+        chunks["element-load variant"] = kops.scoring(q, off, gamma=12.0, mode=mode)
         alone = kops.scoring(q[5:6].contiguous(), e, gamma=12.0, mode=mode)
         torch.cuda.synchronize()
-        if not torch.equal(chunk, full[:, CHUNK:2 * CHUNK]):
-            fail(f"scoring[{mode}] {dtype}: a {CHUNK}-row chunk differs from the "
-                 f"all-entity launch's columns")
+        for how, chunk in chunks.items():
+            if not torch.equal(chunk, cols):
+                fail(f"scoring[{mode}] {dtype}: a {CHUNK}-row chunk ({how}) differs "
+                     f"from the all-entity launch's columns")
+        for t in TILES:
+            if not torch.equal(kops.scoring(q, e, 12.0, mode, tile=t), full):
+                fail(f"scoring[{mode}] {dtype}: the all-entity launch under tile {t} "
+                     f"differs from the kernel's own choice")
         if not torch.equal(alone, full[5:6]):
             fail(f"scoring[{mode}] {dtype}: a query scored alone differs from its "
                  f"row in a batch of 16")
@@ -231,8 +244,8 @@ def main() -> None:
         b_ms, b_by = bound(nbytes, flops, dtype)
         return {
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": time_ms(torch, lambda: kops.intersect(x, w1, b1, w2, b2), flush),
-            "plain_ms": time_ms(torch, lambda: kops.intersect_ref(x, w1, b1, w2, b2), flush),
+            "ms": time_ms(lambda: kops.intersect(x, w1, b1, w2, b2), flush),
+            "plain_ms": time_ms(lambda: kops.intersect_ref(x, w1, b1, w2, b2), flush),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"n": n, "k": k, "d": d, "hd": hd}, "dtype": dtype,
@@ -296,8 +309,8 @@ def main() -> None:
         b_ms, b_by = bound(nbytes, flops, "float32")  # fp32 FMAs, CUDA cores
         return {
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": time_ms(torch, lambda: kops.gather_fuse(*args, sem_ids=sem_ids), flush),
-            "plain_ms": time_ms(torch, lambda: kops.gather_fuse_ref(*args, sem_ids=sem_ids), flush),
+            "ms": time_ms(lambda: kops.gather_fuse(*args, sem_ids=sem_ids), flush),
+            "plain_ms": time_ms(lambda: kops.gather_fuse_ref(*args, sem_ids=sem_ids), flush),
             "library_ms": None,  # no single PyTorch call computes Eq. 11 + 12
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"n": n, "E": E, "d": d, "dl": dl, "dp": dp, "layout": layout},
@@ -306,10 +319,17 @@ def main() -> None:
 
     def show(name: str, r: dict) -> None:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        more = ""
+        if "ms_by_tile" in r:
+            tiles = ", ".join(f"{t}: {v:.4f}" for t, v in r["ms_by_tile"].items())
+            more = (f" | tile {r['tile']} (by tile {tiles}), launch floor "
+                    f"{r['launch_floor_ms']:.4f}, read floor {r['read_floor_ms']:.4f}; "
+                    f"L2 left clean: kernel_ms {r['ms_clean_l2']:.4f}, read floor "
+                    f"{r['read_floor_ms_clean_l2']:.4f}")
         print(f"  {name} {r['shape']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3g}, kernel_ms {r['ms']:.4f}, plain_ms "
               f"{r['plain_ms']:.4f}, library_ms {lib}, bound_ms "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){more}")
 
     E, R, T = FB15K
     print("kernels against their plain versions:")
@@ -318,10 +338,12 @@ def main() -> None:
             for B, N, d, mis in ((1, E, 400, False), (16, E, 400, False),
                                  (16, CHUNK, 400, False), (5, 333, 96, False),
                                  (16, 333, 33, True)):
-                show(f"scoring[{mode}]", measure_scoring(mode, B, N, d, dtype, mis))
+                detail = dtype == "float32" and d == 400
+                show(f"scoring[{mode}]", measure_scoring(mode, B, N, d, dtype, mis, detail))
             check_scoring_bitwise(mode, dtype)
-        print(f"  scoring {dtype}: {CHUNK}-row chunks and single queries bitwise "
-              f"equal to the all-entity batch of 16")
+        print(f"  scoring {dtype}: {CHUNK}-row chunks (either tiling, either "
+              f"variant) and single queries bitwise equal to the all-entity "
+              f"batch of 16")
         for n, k, d, hd in ((16, 2, 800, 800), (16, 3, 800, 800),
                             (256, 2, 800, 800), (256, 3, 800, 800),
                             (100, 3, 64, 128)):
@@ -623,7 +645,7 @@ def main() -> None:
         else:
             mode = key[len("scoring["):].split("]")[0]
             B, N = shape
-            r = measure_scoring(mode, B, N, cfg.dim, "float32")
+            r = measure_scoring(mode, B, N, cfg.dim, "float32", detail=True)
             src, replaces = "scoring.cu", "src/repro/kernels/scoring.py:48"
         show(f"{key} (main path)", r)
         entries.append({"name": key, "route": "cuda",

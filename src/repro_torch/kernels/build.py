@@ -31,8 +31,8 @@ _lock = threading.Lock()
 _lib = None
 
 
-def sources():
-    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+def sources(src_dir: Path = SRC_DIR):
+    return sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -48,9 +48,9 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = SRC_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
@@ -69,19 +69,20 @@ def _run_all(cmds):
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
 
 
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed shared library unless it is
+def build_library(src_dir: Path = SRC_DIR) -> Path:
+    """Compile ``csrc/*.cu`` (or the sources in ``src_dir``, such as another
+    version's, to time against) into the hashed shared library unless it is
     already built. Objects and the library are made in a private temporary
     directory and the library is renamed into place, so concurrent builders
     never see a half-written file."""
-    path = library_path()
+    path = library_path(src_dir)
     if path.is_file():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in sources() if src.suffix == ".cu"]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(SRC_DIR / f"{o.stem}.cu"), "-o", str(o)]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources(src_dir) if src.suffix == ".cu"]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src_dir / f"{o.stem}.cu"), "-o", str(o)]
                   for o in objs])
         lib = Path(tmp) / path.name
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
@@ -103,6 +104,10 @@ def load_library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
             lib.repro_scoring.restype = i
+            lib.repro_scoring_tiled.argtypes = [p, p, p, i, i, i, f, i, i, i, p]
+            lib.repro_scoring_tiled.restype = i
+            lib.repro_scoring_tile.argtypes = [i]
+            lib.repro_scoring_tile.restype = i
             lib.repro_scoring_aligned.argtypes = [p, i, i]
             lib.repro_scoring_aligned.restype = i
             lib.repro_intersect.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
@@ -110,6 +115,8 @@ def load_library() -> ctypes.CDLL:
             ll = ctypes.c_longlong
             lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
             lib.repro_gather_fuse.restype = i
+            lib.repro_stream_read.argtypes = [p, ll, p, i, p]
+            lib.repro_stream_read.restype = i
             lib.repro_intersect_tiles.argtypes = [i]
             lib.repro_intersect_tiles.restype = i
             lib.repro_error_string.argtypes = [i]

@@ -16,7 +16,7 @@
 //  * Persistent grid, one block per SM. Block g owns the contiguous rows
 //    [g·N/G, (g+1)·N/G) of `e` (~113 rows at N = 14,951): every SM streams
 //    the same number of bytes and there is no tail wave. It walks its rows
-//    in tiles of BN = 128 and each tile along d in slices of 64 elements.
+//    in tiles of BN and each tile along d in slices of 64 elements.
 //  * Warp specialisation. A producer warpgroup streams the slices into a
 //    ring of 4 shared-memory stages with 16-byte cp.async and signals each
 //    stage's `full` mbarrier with cp.async.mbarrier.arrive; 8 consumer warps
@@ -24,19 +24,24 @@
 //    never issue copies, so they never stall on the copy queue. setmaxnreg
 //    moves the producers' registers to the consumers.
 //  * q is staged once per block by the consumers, while the first slices of
-//    `e` are already in flight: the block's 16-row (or 8-row) query tile
-//    over all of d, in fp32, 29 KB at d = 400. A d too large for shared
-//    memory is staged in windows instead, once per window and tile. B > 16
-//    runs another grid row per 16 queries.
-//  * Split d, large register tiles. Each lane owns 8 queries x 8 entities
-//    (8 x 4 for B <= 8) over one of 8 k-groups: 8 interleaved elements of
-//    every slice. It loads e and q once per 4 elements as 16-byte vectors,
-//    about one byte of shared memory per FMA; with one output per thread it
-//    was three. At the end of a tile the 8 k-groups' partials are added in a
-//    fixed shuffle tree, and the tile's scores go through shared memory so
-//    that rows of `out` are written with coalesced stores.
+//    `e` are already in flight: the block's 16-row query tile over all of d,
+//    in fp32, 29 KB at d = 400 (rows past B are zeros). A d too large for
+//    shared memory is staged in windows instead, once per window and tile.
+//    B > 16 runs another grid row per 16 queries.
+//  * Split d, register tiles. Each lane owns 8 queries x RE entities over
+//    one of 8 k-groups: 8 interleaved elements of every slice. It loads e
+//    and q once per 4 elements as 16-byte vectors. Two tilings, chosen from
+//    N: WIDE gives each warp 16 rows (RE = 8, BN = 128, about one byte of
+//    shared memory per FMA; with one output per thread it was three), for
+//    blocks of more than 64 rows such as the all-entity launch. NARROW gives
+//    each warp 4 rows (RE = 2, BN = 32): a 4,096-row store chunk leaves ~31
+//    rows a block, which WIDE would hand to 2 of the 8 warps. At the end of
+//    a tile the 8 k-groups' partials are added in a fixed shuffle tree, and
+//    the tile's scores go through shared memory so that rows of `out` are
+//    written with coalesced stores.
 //  * Bank-conflict-free reads: the 8 lanes of a quarter-warp cover two
-//    k-groups and rows (or query rows) that start 8 banks apart.
+//    k-groups and two rows (or query rows) whose starts the row pitch puts
+//    8 or 16 banks apart.
 //  * The 16-byte copies need a 16-byte aligned table and rows of a multiple
 //    of 16 bytes (d % 4 == 0 in fp32, d % 8 == 0 in bf16). Any other table
 //    (odd d, a slice such as e[1:]) takes the element-load variant: the same
@@ -46,16 +51,16 @@
 //
 // Each output is the fixed tree over 8 k-group partials, each one fp32
 // chain (fmaf for dot; a subtract and an add of |.| for l1) over its
-// elements in order. The order depends only on d and the ring's dtype, so
-// the bits of out[b, n] depend only on q[b], e[n] and d: not on B, N, the
-// row's place in the table, the block or the tiling. A chunk of rows scores
-// bitwise the same as those columns of the all-entity launch, and a query
-// alone as its row in a batch. No atomics.
+// elements in order. Which elements a k-group owns depends only on d and the
+// input dtype, so the bits of out[b, n] depend only on q[b], e[n], d and the
+// dtype: not on B, N, the row's place in the table, the block, the tiling or
+// the variant. A chunk of rows scores bitwise the same as those columns of
+// the all-entity launch, and a query alone as its row in a batch. No atomics.
 //
-// ptxas -v (sm_90a, -O3, CUDA 12.9): every fp32 instantiation 168 registers
-// (the cap for 384 threads), no spills; the bf16 ones spill at most 4 bytes.
-// Shared memory per block at d = 400: 185,152 bytes (fp32 ring, 16 queries),
-// 119,616 bytes (bf16 ring); one block per SM.
+// ptxas -v (sm_90a, -O3): every instantiation 168 registers (the cap for 384
+// threads), no spills. Shared memory per block at d = 400: WIDE 185,152 bytes
+// (fp32 ring), 119,616 (bf16 ring); NARROW 68,416 (fp32 ring). One block per
+// SM.
 #include <stdint.h>
 
 #include <algorithm>
@@ -77,21 +82,25 @@ constexpr int CONSUMER_REGS = 224;
 static_assert(PRODUCERS * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 65536, "register file");
 constexpr int SLICE = 64;              // elements of d per row per slice: 8 k-groups x 8
 constexpr int RQ = 8;                  // queries per lane
-constexpr int WN = 16;                 // entities per warp
-constexpr int BN = WARPS * WN;         // entity rows per tile (128)
+constexpr int QT = 2 * RQ;             // query rows of a block: two query groups
+constexpr int WIDE = 16, NARROW = 4;   // entity rows per warp of the two tilings
 constexpr int STAGES = 4;              // slices in the ring
-constexpr int OSP = BN + 4;            // row pitch of the output tile in floats
 constexpr int QPAD = 8;                // q row padding in floats
 constexpr int MAX_DEVICES = 64;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Row pitch of a ring slice in bytes: the slice plus 32 bytes, 72 (fp32) or
-// 40 (bf16) words, 8 mod 32, so rows read together start 8 banks apart.
-template <typename S>
-__host__ __device__ constexpr int pitch() { return SLICE * static_cast<int>(sizeof(S)) + 32; }
-template <typename S>
-__host__ __device__ constexpr int ring_bytes() { return STAGES * BN * pitch<S>(); }
+// Row pitch of a ring slice in bytes, for a ring of S holding inputs of T.
+// A ring of T is the slice plus 32 bytes, 72 (fp32) or 40 (bf16) words,
+// 8 mod 32; an fp32 ring of bf16 inputs is the slice plus 64 bytes, 80 words,
+// 16 mod 32. Either way the rows a quarter-warp reads together start in
+// banks that its k-groups' 16-byte reads do not share.
+template <typename S, typename T>
+__host__ __device__ constexpr int pitch() {
+  return SLICE * static_cast<int>(sizeof(S)) + (sizeof(S) == 4 && sizeof(T) == 2 ? 64 : 32);
+}
+template <typename S, typename T, int BN>
+__host__ __device__ constexpr int ring_bytes() { return STAGES * BN * pitch<S, T>(); }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -134,37 +143,38 @@ __device__ __forceinline__ void fold(float* a, int kg) {
 }
 
 // Where k-group kg's 8 elements of a slice sit, as two halves h = 0, 1 of 4
-// elements; returns the half's first element within the slice. In an fp32
-// ring half h is float4 8h + kg, so a quarter-warp's two k-groups read
-// adjacent float4. In a bf16 ring kg owns the 16-byte chunk kg (elements
-// 8kg..8kg+7) and half h is its h-th 8 bytes; q rows of that kernel keep the
+// elements; returns the half's first element within the slice. The split
+// depends on the input dtype T alone, so both variants sum the same elements
+// in the same order. fp32: half h is float4 8h + kg, so a quarter-warp's two
+// k-groups read adjacent float4. bf16: kg owns the 16-byte chunk kg
+// (elements 8kg..8kg+7) and half h is its h-th 4 elements; q rows keep the
 // matching float4 pair (2kg, 2kg + 1) with its halves swapped in the upper
 // half of each slice, so those reads still hit distinct banks.
-template <typename S>
+template <typename T>
 __device__ __forceinline__ int half_elem(int kg, int h) {
-  return sizeof(S) == 2 ? 8 * kg + 4 * h : 4 * (8 * h + kg);
+  return sizeof(T) == 2 ? 8 * kg + 4 * h : 4 * (8 * h + kg);
 }
-template <typename S>
+template <typename T>
 __device__ __forceinline__ int q_slot(int c) {  // c: float4 index in a q row
-  return sizeof(S) == 2 ? c ^ ((c >> 3) & 1) : c;
+  return sizeof(T) == 2 ? c ^ ((c >> 3) & 1) : c;
 }
 
 // MODE: 0 dot, 1 l1. T: input dtype. ALIGNED: 16-byte cp.async of `e` into a
-// ring of T, else element loads into a ring of fp32. QG: query groups of 8
-// per warp (the block's query tile is 8·QG rows). W: elements of d per q
-// window (a multiple of SLICE).
-template <int MODE, typename T, bool ALIGNED, int QG>
+// ring of T, else element loads into a ring of fp32. WN: entity rows per
+// consumer warp (WIDE or NARROW). W: elements of d per q window (a multiple
+// of SLICE).
+template <int MODE, typename T, bool ALIGNED, int WN>
 __global__ void __launch_bounds__(THREADS, 1)
 scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
                float* __restrict__ out, int B, int N, int d, int W, float gamma) {
   using S = typename std::conditional<ALIGNED, T, float>::type;  // ring element
-  constexpr int QT = RQ * QG;            // query rows of the block
-  constexpr int EG = 4 / QG;             // entity groups per warp
-  constexpr int RE = WN / EG;            // entities per lane
-  constexpr int PITCH = pitch<S>();
+  constexpr int RE = WN / 2;             // entities per lane (2 entity groups)
+  constexpr int BN = WARPS * WN;         // entity rows per tile
+  constexpr int OSP = BN + 4;            // row pitch of the output tile in floats
+  constexpr int PITCH = pitch<S, T>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int QP = W + QPAD;               // q row pitch in floats
-  float* qs = reinterpret_cast<float*>(smem + ring_bytes<S>());  // [QT][QP]
+  float* qs = reinterpret_cast<float*>(smem + ring_bytes<S, T, BN>());  // [QT][QP]
   float* os = qs + QT * QP;                                      // [QT][OSP]
   uint64_t* full = reinterpret_cast<uint64_t*>(os + QT * OSP);  // [STAGES]
   uint64_t* empty = full + STAGES;                               // [STAGES]
@@ -177,22 +187,29 @@ scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
   const int iters = cdiv(r_hi - r_lo, BN) * slices;
 
   // The query tile's columns [k0, k0 + W) as fp32 rows, zero past B and d,
-  // staged by the consumers. Each issues QPER loads before it stores any, so
-  // a window costs one memory latency per QPER·CONSUMERS elements.
+  // staged by the consumers. Each starts KPER loads in every one of the 16
+  // rows before it stores any, so a window of up to KPER·CONSUMERS columns
+  // costs one memory latency; neighbouring threads read neighbouring columns.
   auto stage_q = [&](int k0) {
-    constexpr int QPER = 32;
-    for (int base = 0; base < QT * W; base += QPER * CONSUMERS) {
-      float v[QPER];
+    constexpr int KPER = 2;
+    for (int kb = 0; kb < W; kb += KPER * CONSUMERS) {
+      float v[KPER][QT];
 #pragma unroll
-      for (int u = 0; u < QPER; ++u) {
-        const int i = base + tid + u * CONSUMERS, b = i / W, k = i - b * W;
-        v[u] = (i < QT * W && b0 + b < B && k0 + k < d)
-                   ? repro::to_f32(q[static_cast<size_t>(b0 + b) * d + k0 + k]) : 0.f;
+      for (int u = 0; u < KPER; ++u) {
+        const int k = kb + u * CONSUMERS + tid;
+#pragma unroll
+        for (int b = 0; b < QT; ++b)
+          v[u][b] = (k < W && k0 + k < d && b0 + b < B)
+                        ? repro::to_f32(q[static_cast<size_t>(b0 + b) * d + k0 + k]) : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < QPER; ++u) {
-        const int i = base + tid + u * CONSUMERS, b = i / W, k = i - b * W;
-        if (i < QT * W) qs[b * QP + q_slot<S>(k >> 2) * 4 + (k & 3)] = v[u];
+      for (int u = 0; u < KPER; ++u) {
+        const int k = kb + u * CONSUMERS + tid;
+        if (k < W) {
+          float* col = qs + q_slot<T>(k >> 2) * 4 + (k & 3);
+#pragma unroll
+          for (int b = 0; b < QT; ++b) col[b * QP] = v[u][b];
+        }
       }
     }
   };
@@ -249,14 +266,14 @@ scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  // Consumers. Lane (kg, eg, qg) = (lane >> 2, lane & 3): k-group kg of
-  // each slice, entities eg + EG·j of the warp's 16, queries qg + QG·i of
-  // the block's tile. The 8 lanes of a quarter-warp cover two k-groups, so
-  // their 16-byte reads of e and q share rows and fall in distinct banks
-  // (row pitches are 8 mod 32 words).
-  const int kg = lane >> 2, eg = (lane & 3) % EG, qg = (lane & 3) / EG;
-  auto erow = [&](int j) { return warp * WN + eg + EG * j; };
-  auto qrow = [&](int i) { return qg + QG * i; };
+  // Consumers. Lane (kg, eg, qg) = (lane >> 2, lane & 1, (lane >> 1) & 1):
+  // k-group kg of each slice, entities eg + 2j of the warp's WN, queries
+  // qg + 2i of the block's 16. The 8 lanes of a quarter-warp cover two
+  // k-groups, so their 16-byte reads of e and q share rows and fall in
+  // distinct banks.
+  const int kg = lane >> 2, eg = lane & 1, qg = (lane >> 1) & 1;
+  auto erow = [&](int j) { return warp * WN + eg + 2 * j; };
+  auto qrow = [&](int i) { return qg + 2 * i; };
   // q by the consumers alone, while the producers already stream `e`.
   stage_q(0);
   consumers_sync();
@@ -283,7 +300,7 @@ scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
         // A half lies wholly inside d or wholly past it (aligned fp32 rings
         // have d % 4 == 0, bf16 rings d % 8 == 0, element rings zero-fill).
         // A half past d was not copied and is skipped.
-        const int el = half_elem<S>(kg, h);
+        const int el = half_elem<T>(kg, h);
         if (el >= kw) continue;
         float4 ev[RE];
 #pragma unroll
@@ -299,7 +316,7 @@ scoring_kernel(const T* __restrict__ q, const T* __restrict__ e,
         }
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
-          const float4 qv = qw[qrow(i) * (QP / 4) + q_slot<S>(c0 + el / 4)];
+          const float4 qv = qw[qrow(i) * (QP / 4) + q_slot<T>(c0 + el / 4)];
 #pragma unroll
           for (int c = 0; c < 4; ++c)
 #pragma unroll
@@ -372,18 +389,26 @@ bool aligned(const void* e, int d, int dtype) {
   return reinterpret_cast<uintptr_t>(e) % 16 == 0 && (static_cast<long long>(d) * elt) % 16 == 0;
 }
 
-template <int MODE, typename T, bool ALIGNED, int QG>
+// The tiling the kernel takes for N rows: WIDE, unless a block's share of the
+// rows under it (one block per SM) would keep at most half of its consumer
+// warps busy; then NARROW, whose tiles of 32 rows spread a block's rows over
+// all 8 warps.
+int tile_for(int N, const DeviceInfo& info) {
+  return cdiv(N, info.sms) <= WARPS * WIDE / 2 ? NARROW : WIDE;
+}
+
+template <int MODE, typename T, bool ALIGNED, int WN>
 int launch(const void* q, const void* e, float* out, int B, int N, int d,
            float gamma, int dev, const DeviceInfo& info, cudaStream_t stream) {
   using S = typename std::conditional<ALIGNED, T, float>::type;
-  constexpr int QT = RQ * QG, RING = ring_bytes<S>();
+  constexpr int BN = WARPS * WN, OSP = BN + 4, RING = ring_bytes<S, T, BN>();
   // The q window: all of d where it fits beside the ring, else the most
   // whole slices that do (rows of W + QPAD floats).
   const int fit = ((info.smem - RING - 2 * STAGES * 8) / (QT * 4) - QPAD - OSP) / SLICE * SLICE;
   if (fit < SLICE) return static_cast<int>(cudaErrorInvalidValue);
   const int W = std::min(fit, std::max(SLICE, cdiv(d, SLICE) * SLICE));
   const size_t smem = RING + static_cast<size_t>(QT) * (W + QPAD + OSP) * 4 + 2 * STAGES * 8;
-  auto kernel = scoring_kernel<MODE, T, ALIGNED, QG>;
+  auto kernel = scoring_kernel<MODE, T, ALIGNED, WN>;
   static std::atomic<bool> opted[MAX_DEVICES];
   if (!opted[dev].load(std::memory_order_acquire)) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -397,37 +422,63 @@ int launch(const void* q, const void* e, float* out, int B, int N, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+int current_device(int* dev, DeviceInfo* info) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  return device_info(*dev, info);
+}
+
+// tile: WIDE or NARROW, or 0 for tile_for's choice.
 template <int MODE, typename T>
 int dispatch(const void* q, const void* e, float* out, int B, int N, int d,
-             float gamma, int dtype, cudaStream_t stream) {
+             float gamma, int dtype, int tile, cudaStream_t stream) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   DeviceInfo info;
-  if (const int rc = device_info(dev, &info)) return rc;
+  if (const int rc = current_device(&dev, &info)) return rc;
+  if (tile == 0) tile = tile_for(N, info);
   const bool al = aligned(e, d, dtype);
-  if (B <= RQ) {  // one query group of 8
-    return al ? launch<MODE, T, true, 1>(q, e, out, B, N, d, gamma, dev, info, stream)
-              : launch<MODE, T, false, 1>(q, e, out, B, N, d, gamma, dev, info, stream);
+  if (tile == NARROW) {
+    return al ? launch<MODE, T, true, NARROW>(q, e, out, B, N, d, gamma, dev, info, stream)
+              : launch<MODE, T, false, NARROW>(q, e, out, B, N, d, gamma, dev, info, stream);
   }
-  return al ? launch<MODE, T, true, 2>(q, e, out, B, N, d, gamma, dev, info, stream)
-            : launch<MODE, T, false, 2>(q, e, out, B, N, d, gamma, dev, info, stream);
+  if (tile != WIDE) return static_cast<int>(cudaErrorInvalidValue);
+  return al ? launch<MODE, T, true, WIDE>(q, e, out, B, N, d, gamma, dev, info, stream)
+            : launch<MODE, T, false, WIDE>(q, e, out, B, N, d, gamma, dev, info, stream);
 }
 
 }  // namespace
 
-// mode: 0 = dot, 1 = l1. dtype: repro::DType of q and e. Returns the CUDA
-// error of the launch (0 = success).
+// mode: 0 = dot, 1 = l1. dtype: repro::DType of q and e. tile: entity rows
+// per consumer warp, 16 or 4, or 0 for the kernel's own choice from N (the
+// bits of every score are the same under either). Returns the CUDA error of
+// the launch (0 = success).
+extern "C" int repro_scoring_tiled(const void* q, const void* e, float* out, int B,
+                                   int N, int d, float gamma, int mode, int dtype,
+                                   int tile, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0 && dtype == repro::kF32) return dispatch<0, float>(q, e, out, B, N, d, gamma, dtype, tile, s);
+  if (mode == 1 && dtype == repro::kF32) return dispatch<1, float>(q, e, out, B, N, d, gamma, dtype, tile, s);
+  if (mode == 0 && dtype == repro::kBF16)
+    return dispatch<0, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, tile, s);
+  if (mode == 1 && dtype == repro::kBF16)
+    return dispatch<1, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, tile, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int repro_scoring(const void* q, const void* e, float* out, int B,
                              int N, int d, float gamma, int mode, int dtype,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0 && dtype == repro::kF32) return dispatch<0, float>(q, e, out, B, N, d, gamma, dtype, s);
-  if (mode == 1 && dtype == repro::kF32) return dispatch<1, float>(q, e, out, B, N, d, gamma, dtype, s);
-  if (mode == 0 && dtype == repro::kBF16) return dispatch<0, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, s);
-  if (mode == 1 && dtype == repro::kBF16) return dispatch<1, __nv_bfloat16>(q, e, out, B, N, d, gamma, dtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return repro_scoring_tiled(q, e, out, B, N, d, gamma, mode, dtype, 0, stream);
+}
+
+// The entity rows per consumer warp the kernel takes for N rows on the
+// current device (16 or 4), or minus a CUDA error.
+extern "C" int repro_scoring_tile(int N) {
+  int dev = 0;
+  DeviceInfo info;
+  if (const int rc = current_device(&dev, &info)) return -rc;
+  return tile_for(N, info);
 }
 
 // 1 if a table `e` of row length d takes the 16-byte cp.async variant, 0 if

@@ -4,8 +4,9 @@ CPU tensors and launches its hand-written CUDA kernel for CUDA tensors."""
 from repro_torch.kernels.gather_fuse import (gather_fuse, gather_fuse_params,
                                              gather_fuse_ref, semantic_source)
 from repro_torch.kernels.intersect import intersect, intersect_ref
-from repro_torch.kernels.scoring import scoring, scoring_aligned, scoring_ref
+from repro_torch.kernels.scoring import (scoring, scoring_aligned, scoring_ref,
+                                         scoring_tile)
 
 __all__ = ["gather_fuse", "gather_fuse_params", "gather_fuse_ref",
            "intersect", "intersect_ref", "scoring", "scoring_aligned", "scoring_ref",
-           "semantic_source"]
+           "scoring_tile", "semantic_source"]

@@ -12,14 +12,18 @@ that stream going while the arithmetic runs: a persistent grid of one block
 per SM, each owning ~N/132 contiguous rows; a producer warpgroup streams
 64-element slices of those rows into a 4-stage shared-memory ring with
 16-byte ``cp.async`` and mbarriers, while 8 consumer warps hold 8 queries ×
-8 entities per lane over one of 8 interleaved k-groups of d (about 1 byte of
-shared memory per FMA) and add the k-groups' partials in a fixed tree. q is
-staged once per block. The sum order depends only on d and the dtype, so a
-chunk of rows scores bitwise as those columns of the all-entity launch, and a
-query alone as its row in a batch. A table that is not 16-byte aligned, or
-whose rows are not a multiple of 16 bytes, takes the kernel's element-load
-variant (``scoring_aligned`` says which one a table takes). ``csrc/
-scoring.cu`` gives the registers and shared memory per block.
+several entities per lane over one of 8 interleaved k-groups of d and add
+the k-groups' partials in a fixed tree. q is staged once per block. The
+kernel picks its tiling from N: 16 entity rows a warp when a block owns more
+than 64 rows (the all-entity launch), else 4, so that a 4,096-row store
+chunk (~31 rows a block) keeps all 8 warps busy; ``scoring_tile`` says
+which. Which elements of d each k-group sums, and in what order, depends
+only on d and the dtype, not on the tiling or the variant, so a chunk of
+rows scores bitwise as those columns of the all-entity launch, and a query
+alone as its row in a batch. A table that is not 16-byte aligned, or whose
+rows are not a multiple of 16 bytes, takes the kernel's element-load variant
+(``scoring_aligned`` says which one a table takes). ``csrc/scoring.cu``
+gives the registers and shared memory per block.
 
 ``scoring`` dispatches on where its inputs lie: CPU tensors take the plain
 version ``scoring_ref``; CUDA tensors launch the kernel or raise.
@@ -32,6 +36,7 @@ from repro_torch.kernels import build
 
 MODES = {"dot": 0, "l1": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILES = (16, 4)  # entity rows per consumer warp of the kernel's two tilings
 
 
 def scoring_ref(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
@@ -50,11 +55,15 @@ def scoring_ref(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
 
 
 def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
-            mode: str = "dot") -> torch.Tensor:
+            mode: str = "dot", *, tile: int | None = None) -> torch.Tensor:
     """Scoring logits q [B, d] × e [N, d] -> fp32 [B, N]. Counts each kernel
-    launch in ``scoring.launches``."""
+    launch in ``scoring.launches``. ``tile`` forces one of the kernel's
+    tilings (``TILES``), to time both sides of its choice; None lets the
+    kernel choose from N. The scores are bitwise the same either way."""
     if mode not in MODES:
         raise ValueError(f"unknown scoring mode {mode!r}")
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"scoring: tile must be one of {TILES} or None, got {tile!r}")
     if q.dim() != 2 or e.dim() != 2 or q.shape[1] != e.shape[1]:
         raise ValueError(f"scoring: need q [B, d] and e [N, d], got "
                          f"{tuple(q.shape)} and {tuple(e.shape)}")
@@ -75,9 +84,9 @@ def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
         return out
     lib = build.load_library()
     with torch.cuda.device(q.device):
-        err = lib.repro_scoring(q.data_ptr(), e.data_ptr(), out.data_ptr(),
-                                B, N, d, float(gamma), MODES[mode],
-                                DTYPES[q.dtype], build.stream_handle(q))
+        err = lib.repro_scoring_tiled(q.data_ptr(), e.data_ptr(), out.data_ptr(),
+                                      B, N, d, float(gamma), MODES[mode],
+                                      DTYPES[q.dtype], tile or 0, build.stream_handle(q))
     build.check(lib, err, "scoring")
     scoring.launches += 1
     return out
@@ -92,3 +101,14 @@ def scoring_aligned(e: torch.Tensor) -> bool:
     itself applies, read from the library."""
     lib = build.load_library()
     return bool(lib.repro_scoring_aligned(e.data_ptr(), e.shape[1], DTYPES[e.dtype]))
+
+
+def scoring_tile(e: torch.Tensor) -> int:
+    """The entity rows per consumer warp (one of ``TILES``) the CUDA kernel
+    takes for ``e`` [N, d] on its card: the rule the kernel itself applies,
+    read from the library."""
+    lib = build.load_library()
+    with torch.cuda.device(e.device):
+        tile = lib.repro_scoring_tile(e.shape[0])
+    build.check(lib, max(0, -tile), "scoring_tile")
+    return tile

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.scoring import TILES
+from repro_torch.kernels.timing import stream_read
 from repro_torch.models.base import glorot
 
 pytestmark = pytest.mark.gpu
@@ -66,21 +68,71 @@ def test_scoring_kernel_matches_plain(dev, B, N, d, misaligned, dtype, mode):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["dot", "l1"])
 def test_scoring_rows_do_not_depend_on_their_launch(dev, dtype, mode):
-    """A score's bits depend only on its query row, its entity row and d:
-    a 4,096-row chunk (as the out-of-core path scores) equals those columns
-    of the all-entity launch, and a query scored alone equals its row in a
-    batch of 16."""
+    """A score's bits depend only on its query row, its entity row, d and
+    the dtype: a 4,096-row chunk (as the out-of-core path scores) equals
+    those columns of the all-entity launch under either tiling and from a
+    table off 16-byte boundaries (the element-load variant), and a query
+    scored alone equals its row in a batch of 16."""
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((16, 400), generator=g, device=dev).to(dtype)
     e = torch.randn((14951, 400), generator=g, device=dev).to(dtype)
     full = kops.scoring(q, e, gamma=12.0, mode=mode)
+    for tile in TILES:
+        assert torch.equal(kops.scoring(q, e, 12.0, mode, tile=tile), full)
     for lo in (0, 8192, 12288):
         hi = min(lo + 4096, e.shape[0])
         chunk = kops.scoring(q, e[lo:hi], gamma=12.0, mode=mode)
         assert torch.equal(chunk, full[:, lo:hi])
+        for tile in TILES:
+            assert torch.equal(kops.scoring(q, e[lo:hi], 12.0, mode, tile=tile),
+                               full[:, lo:hi])
+        off = _misaligned(e[lo:hi])
+        assert not kops.scoring_aligned(off)
+        assert torch.equal(kops.scoring(q, off, gamma=12.0, mode=mode), full[:, lo:hi])
     for b in (0, 5, 15):
         alone = kops.scoring(q[b:b + 1].contiguous(), e, gamma=12.0, mode=mode)
         assert torch.equal(alone, full[b:b + 1])
+
+
+@pytest.mark.parametrize("B,N,d,misaligned", [(70, 333, 96, False), (5, 333, 33, False),
+                                              (16, 333, 33, True), (16, 4096, 400, False),
+                                              (16, 14951, 400, True)])
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dot", "l1"])
+def test_scoring_each_tiling_matches_plain(dev, B, N, d, misaligned, tile, dtype, mode):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((B, d), generator=g, device=dev).to(dtype)
+    e = torch.randn((N, d), generator=g, device=dev).to(dtype)
+    if misaligned:
+        e = _misaligned(e)
+    got = kops.scoring(q, e, 12.0, mode, tile=tile)
+    torch.cuda.synchronize()
+    want = kops.scoring_ref(q, e, gamma=12.0, mode=mode)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
+
+
+@pytest.mark.parametrize("N", [333, 4096, 8448, 8449, 14951])
+def test_scoring_tile_follows_rows_per_block(dev, N):
+    """The narrow tiling where one block per SM would own at most 64 rows
+    (a 4,096-row store chunk), the wide one above (the all-entity launch)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = 4 if -(-N // sms) <= 64 else 16
+    assert kops.scoring_tile(torch.empty((N, 8), device=dev)) == want
+
+
+@pytest.mark.parametrize("n", [0, 4, 4096 * 400, 14951 * 400])
+def test_stream_read_sums_every_element(dev, n):
+    """The read floor's kernel reads each element once: its partial sums
+    add up to the tensor's sum, and an empty tensor gives zeros."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = torch.rand((n + 4,), generator=g, device=dev)[:n]
+    part = stream_read(t)
+    assert part.shape == (torch.cuda.get_device_properties(dev).multi_processor_count,)
+    torch.testing.assert_close(part.double().sum(), t.double().sum(), rtol=1e-5, atol=1e-6)
+    if n:  # an empty tensor reads nothing, wherever it starts
+        with pytest.raises(ValueError):
+            stream_read(torch.rand((n + 4,), generator=g, device=dev)[1:n + 1])
 
 
 @pytest.mark.parametrize("n,k,d,hd", [(16, 2, 800, 800), (256, 3, 800, 800),

@@ -10,6 +10,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.scoring import TILES
 
 torch.set_num_threads(1)
 
@@ -189,3 +190,38 @@ def test_library_path_keyed_by_sources():
     assert {s.name for s in build.sources()} >= {
         "scoring.cu", "intersect.cu", "gather_fuse.cu", "common.cuh"}
 
+
+
+def test_scoring_tile_query_needs_cuda():
+    """Which tiling the kernel takes for N is the kernel library's own rule;
+    asking without CUDA raises instead of guessing."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tops.scoring_tile(torch.zeros(5, 8))
+
+
+@pytest.mark.parametrize("tile", [None, *TILES])
+def test_scoring_takes_a_forced_tile_and_rejects_others(tile):
+    """A forced tiling is one of the kernel's two; on the CPU it changes
+    nothing (the plain version runs), and any other value is refused before
+    anything runs."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(size=(7, 16)).astype(np.float32))
+    got = tops.scoring(q, e, 1.5, "l1", tile=tile)
+    assert torch.equal(got, tops.scoring_ref(q, e, 1.5, "l1"))
+    with pytest.raises(ValueError, match="tile"):
+        tops.scoring(q, e, 1.5, "l1", tile=8)
+
+
+def test_library_path_keyed_by_another_source_dir(tmp_path):
+    """Another version's sources (to time against) build a library of their
+    own: its name is keyed by those sources, not by this checkout's."""
+    for src in build.sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert build.library_path(tmp_path) == build.library_path()
+    (tmp_path / "scoring.cu").write_text("// another version\n")
+    other = build.library_path(tmp_path)
+    assert other != build.library_path() and other.parent == build.BUILD_DIR
+    assert [s.name for s in build.sources(tmp_path)] == [s.name for s in build.sources()]
