@@ -23,9 +23,12 @@ non-zero (printing no result) on any failed check:
    launch that reads nothing, and a plain read of the same table
    (``csrc/stream_read.cu``), with the flush buffer zeroed as for every
    time, and again with it read instead, which leaves L2 clean.
-   ``gather_fuse``
-   shows that rows fused from the resident table and from a staged hot set
-   are bitwise equal.
+   ``gather_fuse`` runs all entities, a 4,096-row and the last (2,663-row)
+   store chunk, 48 anchors through a hot set and one row, with the bound of
+   its route (3xTF32 on the tensor cores) and the fp32 CUDA-core bound
+   beside it, and shows that rows fused from a staged hot set, in a 4,096-row
+   chunk and in a 48-row launch are bitwise equal to the all-entity
+   launch's.
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
    with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
    window, then five timed closed-loop windows of fresh requests (QPS, p50
@@ -66,9 +69,9 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "src"
 
 # NVIDIA H100 SXM data sheet (dense): HBM bandwidth, fp32 on CUDA cores, bf16
-# on tensor cores.
+# and TF32 on tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 FB15K = (14_951, 1_345, 483_142)  # Table 4: entities, relations, train triples
 WARMUP_PER_PATTERN = 8     # warm-up window: requests of each of the 14 patterns
 WINDOWS = 5                # timed closed-loop windows, fresh requests in each
@@ -288,8 +291,22 @@ def main() -> None:
         tol = 1e-5 if dtype == "float32" else 1e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         if layout == "resident" and n == E:
-            # The same rows through a staged hot set are bitwise equal.
+            # The same rows through a staged hot set, in a 4,096-row store
+            # chunk and in a 48-row launch are bitwise equal to the
+            # all-entity launch's.
             some = torch.randperm(E, generator=gen, device=dev)[:48]
+            lo = E // 2
+            chunk = kops.gather_fuse(torch.arange(lo, lo + CHUNK, device=dev), h_str,
+                                     h_sem[lo:lo + CHUNK].clone(), wp, bp, wf, bf,
+                                     sem_ids=torch.arange(CHUNK, device=dev))
+            few = kops.gather_fuse(some, h_str, h_sem, wp, bp, wf, bf)
+            torch.cuda.synchronize()
+            for how, rows, want_rows in (("a 4,096-row chunk", chunk, got[lo:lo + CHUNK]),
+                                         ("a 48-row launch", few, got[some])):
+                if not torch.equal(rows, want_rows):
+                    fail(f"gather_fuse {dtype}: rows fused in {how} differ from the "
+                         f"all-entity launch's by "
+                         f"{(rows.float() - want_rows.float()).abs().max():.3g}")
             cache = SemanticCache(table.to(fp[dtype]).float().cpu().numpy(),
                                   budget_rows=SEM_BUDGET, device=dev)
             staged = {"sem_cache": cache.buffer, "sem_slot": cache.slot_map}
@@ -306,13 +323,21 @@ def main() -> None:
                   + (dl * dp + dp + (d + dp) * d + d) * 4)
         # Both products and the bias adds; the sigmoid epilogue's ~4 ops.
         flops = n * (2 * dl * dp + dp + 2 * (d + dp) * d + d + 4 * d)
-        b_ms, b_by = bound(nbytes, flops, "float32")  # fp32 FMAs, CUDA cores
+        # The kernel's route: 3xTF32 on the tensor cores, three TF32
+        # products a multiply-add (two where a bf16 table row is one
+        # operand: its lo part is 0); zp·Wf_z always takes three.
+        table_products = 3 if dtype == "float32" else 2
+        tf32_flops = 2 * n * (table_products * (dl * dp + d * d) + 3 * dp * d)
+        b_ms, b_by = bound(nbytes, tf32_flops, "tf32")
+        # The same work as fp32 FMAs on the CUDA cores (the parent's route).
+        b32_ms, b32_by = bound(nbytes, flops, "float32")
         return {
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "ms": time_ms(lambda: kops.gather_fuse(*args, sem_ids=sem_ids), flush),
             "plain_ms": time_ms(lambda: kops.gather_fuse_ref(*args, sem_ids=sem_ids), flush),
             "library_ms": None,  # no single PyTorch call computes Eq. 11 + 12
             "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_cuda_cores_ms": b32_ms, "bound_fp32_cuda_cores_by": b32_by,
             "shape": {"n": n, "E": E, "d": d, "dl": dl, "dp": dp, "layout": layout},
             "dtype": dtype,
         }
@@ -320,6 +345,9 @@ def main() -> None:
     def show(name: str, r: dict) -> None:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         more = ""
+        if "bound_fp32_cuda_cores_ms" in r:
+            more = (f" | fp32 CUDA-core bound {r['bound_fp32_cuda_cores_ms']:.4f} "
+                    f"({r['bound_fp32_cuda_cores_by']})")
         if "ms_by_tile" in r:
             tiles = ", ".join(f"{t}: {v:.4f}" for t, v in r["ms_by_tile"].items())
             more = (f" | tile {r['tile']} (by tile {tiles}), launch floor "
@@ -349,8 +377,10 @@ def main() -> None:
                             (100, 3, 64, 128)):
             show("intersect", measure_intersect(n, k, d, hd, dtype))
         for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
-                                           (min(CHUNK, E), 400, SEM_DIM, 64, "chunk", E),
+                                           (CHUNK, 400, SEM_DIM, 64, "chunk", E),
+                                           (E % CHUNK, 400, SEM_DIM, 64, "chunk", E),
                                            (48, 400, SEM_DIM, 64, "cache", E),
+                                           (1, 400, SEM_DIM, 64, "resident", E),
                                            (33, 64, 128, 32, "resident", 100)):
             show("gather_fuse", measure_gather_fuse(n, d, dl, dp, dtype, layout, rows))
 

@@ -6,18 +6,23 @@ Replaces the TPU kernel ``src/repro/kernels/gather_fuse.py::
 gather_fuse_pallas`` — both its row-gather geometry (``rows=1``, scalar-
 prefetched row DMAs) and its blocked one (``rows>1``, XLA-side takes) — and
 its wrappers ``src/repro/kernels/ops.py::gather_fuse``/``gather_fuse_params``
-with the one hand-written CUDA kernel of ``csrc/gather_fuse.cu`` for Hopper.
+with the hand-written CUDA kernels of ``csrc/gather_fuse.cu`` for Hopper
+(one launch a call).
 
 What bounds it on the H100: each row carries 2·(dl·dp + (d+dp)·d) flops
-(502k at d = 400, dl = 1024, dp = 64) against 7.3 KB of fp32 rows, so the
-all-entity fusion of ``score_all`` (n = E) is bound by operations. The kernel
-gathers its own rows, projects z into shared memory streaming dl in slices,
-accumulates h·Wf_h + zp·Wf_z in registers (the concat never exists) and runs
-the sigmoid in its epilogue; it splits the d output columns over blocks when
-n is small, and projects each row once, in a launch of its own, where those
-blocks would share SMs. Each output is one fp32 fmaf chain in a fixed order, so a row's
-bits do not depend on the batch it came in with: the resident table, the
-hot-set cache and a streamed chunk give the same row bitwise.
+(502k at d = 400, dl = 1024, dp = 64) against 7.3 KB of fp32 rows. The
+kernel runs them on the tensor cores (wgmma) in 3xTF32: each fp32 operand
+split into TF32 hi and lo parts, a·b = a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+summed in fp32 in that order (bf16 table rows are exact in TF32 and take the
+last two), so the all-entity fusion of ``score_all`` (n = E) is bound by the
+card's TF32 rate. One launch a call: a producer warpgroup splits the weights
+slice by slice into a shared-memory ring while consumer warpgroups gather
+their rows, project z into shared memory and accumulate h·Wf_h + zp·Wf_z in
+registers (the concat never exists), with the sigmoid in the epilogue. Each
+output is one accumulator chain whose order depends only on d, dl, dp and
+the dtype, so a row's bits do not depend on the batch it came in with: the
+resident table, the hot-set cache and a streamed chunk give the same row
+bitwise.
 
 ``gather_fuse`` dispatches on where its inputs lie: CPU tensors take the
 plain version ``gather_fuse_ref``; CUDA tensors launch the kernel or raise.
@@ -93,14 +98,14 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
         return out
     ids64 = ids.long()
     sem64 = ids64 if sem_ids is None else sem_ids.long()
-    # Projected rows, when the kernel projects them in a launch of their own.
-    zp = torch.empty((n, dp), dtype=torch.float32, device=ids.device)
     lib = build.load_library()
+    # zp (the C interface's [n, dp] scratch) is null: the kernel projects
+    # each block's rows into its shared memory.
     with torch.cuda.device(ids.device):
         err = lib.repro_gather_fuse(
             ids64.data_ptr(), sem64.data_ptr(), h_str.data_ptr(),
             h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
-            bf.data_ptr(), zp.data_ptr(), out.data_ptr(), n, h_str.shape[0],
+            bf.data_ptr(), None, out.data_ptr(), n, h_str.shape[0],
             h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype],
             build.stream_handle(ids))
     build.check(lib, err, "gather_fuse")

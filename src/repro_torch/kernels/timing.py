@@ -1,5 +1,5 @@
 """Device time of one kernel call, as ``chip_smoke.py`` and
-``launch/time_scoring.py`` measure it, and the floor for reading a table that
+``launch/time_kernels.py`` measure it, and the floor for reading a table that
 such a time is held against."""
 from __future__ import annotations
 

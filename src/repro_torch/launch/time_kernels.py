@@ -1,0 +1,199 @@
+"""Times one of this checkout's kernels against another version of it, in
+one process on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.time_kernels \\
+        --kernel scoring|gather_fuse --baseline DIR
+
+DIR is the root of another checkout of the repository (for example a
+``git archive`` of the parent commit, unpacked): its
+``src/repro_torch/kernels/csrc`` is compiled into a library of its own, and
+its entry point (the same C interface) is called on the same tensors. At each
+shape the two kernels are timed in the order baseline, this, this, baseline,
+with ``chip_smoke.py``'s protocol (``kernels.timing.time_ms``: CUDA events,
+512 MB flush zeroed before each run, median of 25), and the plain version
+once beside them. Both kernels are held to the plain version first.
+
+- ``scoring`` (fp32, d = 400, each mode): the all-entity batch of 16, one
+  query, a 4,096-row store chunk; this checkout's kernel is also timed with
+  each of its tilings forced.
+- ``gather_fuse`` (fp32 and bf16 tables, d = 400, dl = 1024, dp = 64, as
+  the serving path calls it): all 14,951 entities from the resident table,
+  a 4,096-row and the last 2,663-row store chunk, 48 anchors through a
+  hot set.
+
+Prints the card's name and power limit, one line per shape, and one JSON
+line with every time.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import gather_fuse as gf
+from repro_torch.kernels.scoring import (DTYPES, MODES, TILES, scoring,
+                                         scoring_ref, scoring_tile)
+from repro_torch.kernels.timing import flush_buffer, time_ms
+from repro_torch.models.base import glorot
+
+SCORING_SHAPES = ((16, 14_951, 400), (1, 14_951, 400), (16, 4_096, 400))
+E = 14_951
+# (n, layout): all entities, a store chunk, the last chunk, EMBED anchors.
+FUSE_SHAPES = ((E, "resident"), (4_096, "chunk"), (2_663, "chunk"), (48, "cache"))
+FUSE_DIMS = (400, 1024, 64)  # d, dl (PTEConfig().d_l), dp
+SEM_BUDGET = 2048
+
+
+def load_baseline(root: Path) -> ctypes.CDLL:
+    """The other checkout's kernel library, built from its sources."""
+    lib = ctypes.CDLL(str(build.build_library(root / "src" / "repro_torch" / "kernels" / "csrc")))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
+    lib.repro_scoring.restype = i
+    lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
+    lib.repro_gather_fuse.restype = i
+    lib.repro_error_string.argtypes = [i]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def baseline_scoring(lib, q, e, gamma, mode):
+    out = torch.empty((q.shape[0], e.shape[0]), dtype=torch.float32, device=q.device)
+    err = lib.repro_scoring(q.data_ptr(), e.data_ptr(), out.data_ptr(), q.shape[0],
+                            e.shape[0], q.shape[1], float(gamma), MODES[mode],
+                            DTYPES[q.dtype], build.stream_handle(q))
+    build.check(lib, err, "baseline scoring")
+    return out
+
+
+def baseline_gather_fuse(lib, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
+    """The other library's kernel through the unchanged C entry; its zp
+    scratch is allocated, as versions that project in a launch of their own
+    need it."""
+    n, d = ids.shape[0], h_str.shape[1]
+    sem = ids if sem_ids is None else sem_ids
+    out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
+    zp = torch.empty((n, wp.shape[1]), dtype=torch.float32, device=ids.device)
+    err = lib.repro_gather_fuse(
+        ids.data_ptr(), sem.data_ptr(), h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(),
+        bp.data_ptr(), wf.data_ptr(), bf.data_ptr(), zp.data_ptr(), out.data_ptr(), n,
+        h_str.shape[0], h_sem.shape[0], d, h_sem.shape[1], wp.shape[1],
+        gf.DTYPES[h_str.dtype], build.stream_handle(ids))
+    build.check(lib, err, "baseline gather_fuse")
+    return out
+
+
+def ab(fn_base, fn_this, flush, reps):
+    """Times in the order baseline, this, this, baseline."""
+    times = {"baseline": [], "this": []}
+    for name, fn in (("baseline", fn_base), ("this", fn_this), ("this", fn_this),
+                     ("baseline", fn_base)):
+        times[name].append(time_ms(fn, flush, reps))
+    return times
+
+
+def time_scoring(base, flush, gen, dev, reps):
+    rows = []
+    for B, N, d in SCORING_SHAPES:
+        q = torch.randn((B, d), generator=gen, device=dev)
+        e = torch.randn((N, d), generator=gen, device=dev)
+        for mode in ("dot", "l1"):
+            want = scoring_ref(q, e, 12.0, mode)
+            for name, got in (("baseline", baseline_scoring(base, q, e, 12.0, mode)),
+                              ("this", scoring(q, e, 12.0, mode))):
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d,
+                                           msg=lambda m: f"{name} {mode} {(B, N, d)}: {m}")
+            times = ab(lambda: baseline_scoring(base, q, e, 12.0, mode),  # noqa: B023
+                       lambda: scoring(q, e, 12.0, mode), flush, reps)  # noqa: B023
+            by_tile = {str(t): time_ms(lambda: scoring(q, e, 12.0, mode, tile=t),  # noqa: B023
+                                       flush, reps) for t in TILES}
+            row = {"mode": mode, "B": B, "N": N, "d": d, "dtype": "float32",
+                   "baseline_ms": times["baseline"], "ms": times["this"],
+                   "tile": scoring_tile(e), "ms_by_tile": by_tile}
+            rows.append(row)
+            print(f"scoring[{mode}] {(B, N, d)}: baseline {times['baseline']} ms, "
+                  f"this {times['this']} ms, by tile {by_tile} (the kernel takes "
+                  f"{row['tile']})")
+    return rows
+
+
+def fuse_inputs(n, layout, dtype, gen, dev):
+    """gather_fuse's arguments as the serving path gives them: ids into the
+    resident table, a streamed chunk of H_sem with local sem_ids, or ids
+    through the slots of a SEM_BUDGET-row hot set."""
+    d, dl, dp = FUSE_DIMS
+    h_str = (torch.randn((E, d), generator=gen, device=dev) / d ** 0.5).to(dtype)
+    table = torch.nn.functional.normalize(torch.randn((E, dl), generator=gen, device=dev), dim=1)
+    wp, wf = glorot((dl, dp), gen, dev), glorot((d + dp, d), gen, dev)
+    bp = 0.1 * torch.randn((dp,), generator=gen, device=dev)
+    bf = 0.1 * torch.randn((d,), generator=gen, device=dev)
+    sem_ids = None
+    if layout == "resident":
+        ids, h_sem = torch.arange(E, device=dev), table
+    elif layout == "chunk":
+        ids = torch.arange(E - n, E, device=dev)
+        h_sem, sem_ids = table[E - n:].clone(), torch.arange(n, device=dev)
+    else:
+        ids = torch.randperm(E, generator=gen, device=dev)[:n]
+        sem_ids = torch.randperm(SEM_BUDGET, generator=gen, device=dev)[:n]
+        h_sem = torch.zeros((SEM_BUDGET, dl), device=dev)
+        h_sem[sem_ids] = table[ids]
+    return (ids, h_str, h_sem.to(dtype), wp, bp, wf, bf), sem_ids
+
+
+def time_gather_fuse(base, flush, gen, dev, reps):
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, layout in FUSE_SHAPES:
+            args, sem_ids = fuse_inputs(n, layout, dtype, gen, dev)
+            want = gf.gather_fuse_ref(*args, sem_ids=sem_ids).float()
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            for name, got in (("baseline", baseline_gather_fuse(base, *args, sem_ids=sem_ids)),
+                              ("this", gf.gather_fuse(*args, sem_ids=sem_ids))):
+                torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                           msg=lambda m: f"{name} {n} {dtype}: {m}")
+            times = ab(lambda: baseline_gather_fuse(base, *args, sem_ids=sem_ids),  # noqa: B023
+                       lambda: gf.gather_fuse(*args, sem_ids=sem_ids), flush, reps)  # noqa: B023
+            plain = time_ms(lambda: gf.gather_fuse_ref(*args, sem_ids=sem_ids),  # noqa: B023
+                            flush, reps)
+            row = {"n": n, "layout": layout, "d": FUSE_DIMS[0], "dl": FUSE_DIMS[1],
+                   "dp": FUSE_DIMS[2], "dtype": str(dtype).split(".")[-1],
+                   "baseline_ms": times["baseline"], "ms": times["this"], "plain_ms": plain}
+            rows.append(row)
+            print(f"gather_fuse n={n} {layout} {row['dtype']}: baseline "
+                  f"{times['baseline']} ms, this {times['this']} ms, plain {plain:.4f} ms")
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("scoring", "gather_fuse"), required=True)
+    ap.add_argument("--baseline", required=True, type=Path,
+                    help="root of the checkout whose kernel is timed against this one")
+    ap.add_argument("--reps", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: needs a CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    base = load_baseline(args.baseline.resolve())
+    build.load_library()
+    flush = flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = time_scoring if args.kernel == "scoring" else time_gather_fuse
+    rows = timer(base, flush, gen, dev, args.reps)
+    print(json.dumps({"card": card, args.kernel: rows}))
+
+
+if __name__ == "__main__":
+    main()

@@ -182,9 +182,11 @@ def _fuse_inputs(dev, E, d, dl, dp, n, table_dtype=torch.float32, seed=0):
     return ids, h_str, h_sem, wp, bp, wf, bf
 
 
-# (E, d, dl, dp, n): all-entity fusion, a store chunk, 48 anchor rows, ragged.
+# (E, d, dl, dp, n): all-entity fusion, a store chunk, the last (2,663-row)
+# chunk of FB15k, 48 anchor rows, one row, ragged.
 FUSE_SHAPES = [(14951, 400, 1024, 64, 14951), (4096, 400, 1024, 64, 4096),
-               (14951, 400, 1024, 64, 48), (100, 64, 128, 32, 33),
+               (14951, 400, 1024, 64, 2663), (14951, 400, 1024, 64, 48),
+               (14951, 400, 1024, 64, 1), (100, 64, 128, 32, 33),
                (40, 16, 32, 16, 8)]
 
 
@@ -208,10 +210,9 @@ def test_gather_fuse_kernel_matches_plain(dev, E, d, dl, dp, n, dtype):
 def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
     """A row's bits are the same whatever rows share its launch, and whether
     its semantic row comes from the full table, from hot-set slots or from a
-    streamed chunk. All of FB15k's rows fill the card without splitting the
-    column groups; the 48-row launches split them over blocks that each
-    project for themselves; the 4,096-row chunk projects in a launch of its
-    own before its split fusion blocks."""
+    streamed chunk. All of FB15k's rows take the kernel whose blocks share
+    one stream of weights between two row tiles; the 48-row launches and
+    the chunks take the one whose two consumers split a tile's work."""
     E, d, dl, dp = 14951, 400, 1024, 64
     ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, E)
     full = kops.gather_fuse(torch.arange(E, device=dev), h_str, h_sem, wp, bp, wf, bf)
@@ -219,6 +220,10 @@ def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
     chunk = kops.gather_fuse(torch.arange(lo, hi, device=dev), h_str,
                              h_sem[lo:hi].clone(), wp, bp, wf, bf,
                              sem_ids=torch.arange(hi - lo, device=dev))
+    last = E - 2663  # FB15k's last 4,096-row chunk holds 2,663 rows
+    tail = kops.gather_fuse(torch.arange(last, E, device=dev), h_str,
+                            h_sem[last:].clone(), wp, bp, wf, bf,
+                            sem_ids=torch.arange(E - last, device=dev))
     some = ids[:48]
     alone = kops.gather_fuse(some, h_str, h_sem, wp, bp, wf, bf)
     # A hot set holding those rows at other slots, in another order.
@@ -230,6 +235,66 @@ def test_gather_fuse_rows_do_not_depend_on_their_batch(dev):
     assert torch.equal(alone, full[some])
     assert torch.equal(cached, full[some])
     assert torch.equal(chunk, full[lo:hi])
+    assert torch.equal(tail, full[last:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_fuse_rows_do_not_depend_on_their_place_in_a_tile(dev, dtype):
+    """The kernel multiplies 16-row fragments on the tensor cores. Shifting
+    the ids by 1..15 puts every row at each place inside its fragment (and
+    the 48-row launches split the columns over blocks): its bits stay those
+    of the all-entity launch."""
+    E, d, dl, dp = 14951, 400, 1024, 64
+    _, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, 1, dtype)
+    full = kops.gather_fuse(torch.arange(E, device=dev), h_str, h_sem, wp, bp, wf, bf)
+    for shift in range(1, 16):
+        ids = torch.arange(shift, E, device=dev)
+        few = torch.arange(1000 + shift, 1048 + shift, device=dev)
+        got = kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf)
+        got_few = kops.gather_fuse(few, h_str, h_sem, wp, bp, wf, bf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[shift:]), shift
+        assert torch.equal(got_few, full[few]), shift
+
+
+def test_gather_fuse_out_of_range_id_gives_a_nan_row(dev):
+    """An id outside its table (either index) gives a NaN row; the other rows
+    keep the bits they have in the all-entity launch."""
+    E, d, dl, dp = 14951, 400, 1024, 64
+    _, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, 1)
+    full = kops.gather_fuse(torch.arange(E, device=dev), h_str, h_sem, wp, bp, wf, bf)
+    ids = torch.arange(100, 170, device=dev)
+    sem_ids = ids.clone()
+    ids[3], ids[40] = E + 5, -1
+    sem_ids[17] = E
+    got = kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=sem_ids)
+    torch.cuda.synchronize()
+    bad = torch.zeros(70, dtype=torch.bool, device=dev)
+    bad[[3, 17, 40]] = True
+    assert torch.isnan(got[bad]).all()
+    assert torch.equal(got[~bad], full[100:170][~bad])
+
+
+def test_gather_fuse_entry_takes_a_null_zp(dev):
+    """The C entry keeps its zp scratch argument but this kernel does not use
+    it: a null pointer and a real buffer give the same bits."""
+    from repro_torch.kernels import build
+    E, d, dl, dp, n = 14951, 400, 1024, 64, 4096
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, n)
+    lib = build.load_library()
+    outs = []
+    for zp in (None, torch.empty((n, dp), device=dev)):
+        out = torch.empty((n, d), device=dev)
+        err = lib.repro_gather_fuse(
+            ids.data_ptr(), ids.data_ptr(), h_str.data_ptr(), h_sem.data_ptr(),
+            wp.data_ptr(), bp.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+            None if zp is None else zp.data_ptr(), out.data_ptr(), n, E, E, d, dl,
+            dp, 0, build.stream_handle(ids))
+        build.check(lib, err, "gather_fuse")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf))
 
 
 def test_gather_fuse_rejects_what_it_does_not_take(dev):

@@ -115,6 +115,78 @@ def test_gather_fuse_shape_errors():
                          sem_ids=ids[:3])
 
 
+# A test-only model of csrc/gather_fuse.cu's 3xTF32 arithmetic (no serving
+# path uses it): each fp32 operand x splits into hi = tf32(x) and
+# lo = tf32(x - hi), rounded to 10 mantissa bits, to nearest, ties away; every
+# k8 step adds a_lo·b_hi, then a_hi·b_lo, then a_hi·b_hi to an fp32
+# accumulator (each product of 8 terms summed, then rounded to fp32). A bf16
+# table value is exact in TF32, so its lo is 0 and its a_lo·b_hi is skipped.
+def _tf32(x: np.ndarray) -> np.ndarray:
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x: np.ndarray):
+    hi = _tf32(x)
+    return hi, _tf32(x.astype(np.float32) - hi)
+
+
+def _mm_3xtf32(a: np.ndarray, b: np.ndarray, exact_k: int) -> np.ndarray:
+    """a @ b as one accumulator chain over K; a's first ``exact_k`` columns
+    are bf16 table values (lo = 0)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        terms = ([] if k0 < exact_k else [(al, bh)]) + [(ah, bl), (ah, bh)]
+        for x, y in terms:
+            step = x[:, k].astype(np.float64) @ y[k].astype(np.float64)
+            acc = (acc + step.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_3xtf32_model_holds_the_fp32_tolerance(table_dtype):
+    """At the serving widths (d = 400, dl = 1024, dp = 64), 64 rows fused in
+    the kernel's 3xTF32 order are within 1e-5 of the plain fp32 version on the
+    same (for bf16: bf16-rounded) table values."""
+    rng = np.random.default_rng(0)
+    n, d, dl, dp = 64, 400, 1024, 64
+    h = (rng.normal(size=(n, d)) / d ** 0.5).astype(np.float32)
+    z = rng.normal(size=(n, dl))
+    z = (z / np.linalg.norm(z, axis=1, keepdims=True)).astype(np.float32)
+    if table_dtype == "bfloat16":
+        h = torch.from_numpy(h).bfloat16().float().numpy()
+        z = torch.from_numpy(z).bfloat16().float().numpy()
+    wp = (rng.normal(size=(dl, dp)) * (2 / (dl + dp)) ** 0.5).astype(np.float32)
+    wf = (rng.normal(size=(d + dp, d)) * (2 / (2 * d + dp)) ** 0.5).astype(np.float32)
+    bp = (0.1 * rng.normal(size=dp)).astype(np.float32)
+    bf = (0.1 * rng.normal(size=d)).astype(np.float32)
+    exact = table_dtype == "bfloat16"
+    zp = (_mm_3xtf32(z, wp, dl if exact else 0) + bp).astype(np.float32)
+    x = np.concatenate([h, zp], axis=1)  # one chain: h's k8 steps, then zp's
+    y = (_mm_3xtf32(x, wf, d if exact else 0) + bf).astype(np.float32)
+    got = (np.float32(2) / (np.float32(1) + np.exp(-y)) - np.float32(1)).astype(np.float32)
+    ids = torch.arange(n)
+    want = tops.gather_fuse_ref(ids, *map(torch.from_numpy, (h, z, wp, bp, wf, bf))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_3xtf32_split():
+    """bf16 values split with lo = 0; fp32 values into a hi with its low 13
+    bits clear and a lo that carries the rest to within 2^-22 of |x|."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=4096).astype(np.float32) * np.float32(3.0)
+    xb = torch.from_numpy(x).bfloat16().float().numpy()
+    hi, lo = _split(xb)
+    assert np.array_equal(hi, xb) and not lo.any()
+    hi, lo = _split(x)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert not (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert np.abs(x - hi).max() <= np.abs(x).max() * 2.0 ** -11
+    assert (np.abs(x.astype(np.float64) - hi - lo) <= np.abs(x) * 2.0 ** -22).all()
+
+
 def _gather_fuse_args(device):
     return (torch.zeros(6, dtype=torch.int64, device=device),
             torch.empty(10, 8, device=device), torch.empty(10, 12, device=device),
