@@ -121,6 +121,7 @@ def test_gather_fuse_shape_errors():
 # k8 step adds a_lo·b_hi, then a_hi·b_lo, then a_hi·b_hi to an fp32
 # accumulator (each product of 8 terms summed, then rounded to fp32). A bf16
 # table value is exact in TF32, so its lo is 0 and its a_lo·b_hi is skipped.
+# The projection is two chains over the halves of dl: zp = (p0 + p1) + bp.
 def _tf32(x: np.ndarray) -> np.ndarray:
     bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
@@ -163,7 +164,10 @@ def test_3xtf32_model_holds_the_fp32_tolerance(table_dtype):
     bp = (0.1 * rng.normal(size=dp)).astype(np.float32)
     bf = (0.1 * rng.normal(size=d)).astype(np.float32)
     exact = table_dtype == "bfloat16"
-    zp = (_mm_3xtf32(z, wp, dl if exact else 0) + bp).astype(np.float32)
+    half = dl // 2
+    p0 = _mm_3xtf32(z[:, :half], wp[:half], half if exact else 0)
+    p1 = _mm_3xtf32(z[:, half:], wp[half:], half if exact else 0)
+    zp = ((p0 + p1) + bp).astype(np.float32)
     x = np.concatenate([h, zp], axis=1)  # one chain: h's k8 steps, then zp's
     y = (_mm_3xtf32(x, wf, d if exact else 0) + bf).astype(np.float32)
     got = (np.float32(2) / (np.float32(1) + np.exp(-y)) - np.float32(1)).astype(np.float32)
