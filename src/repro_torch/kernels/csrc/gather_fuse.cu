@@ -41,7 +41,7 @@
 // and empty mbarriers: a producer warpgroup loads each slice into
 // registers a slice ahead, splits it and stores the hi and lo tiles; the
 // consumer warpgroups copy their own A rows into the same stage with
-// cp.async, S - 1 slices ahead, then read and split A and issue the
+// cp.async, S - 1 slices ahead, then read and split A and run the
 // stage's wgmmas. zp (BM × dp fp32) stays in shared memory and is the A
 // operand of the fusion's last slices: the concat never exists. The
 // epilogue (+ bf, the sigmoid, ×2 − 1, the cast) runs on the accumulator.
@@ -58,7 +58,7 @@
 //
 // Rows stay bitwise. zp = (p0 + p1) + bp, p0 and p1 each one chain over a
 // fixed half of dl (the split depends on dl only); an output element is one
-// chain over h's k8 steps, then zp's, then + bf. Both kernels issue the same
+// chain over h's k8 steps, then zp's, then + bf. Both kernels run the same
 // wgmma shapes on the same operands in the same order; past the data, A and
 // B hold zeros, which add nothing. So a row's bits depend only on its
 // inputs, d, dl, dp and the dtype: not on n, the kernel, the tile, or the
@@ -442,9 +442,9 @@ __global__ void __launch_bounds__(THREADS, 1) gather_fuse_kernel(const Args a) {
   // This consumer's BM rows (`rows`, of length len) over columns
   // [k0, k0 + BK) ∩ [0, kmax) into its A tile of slice s: 16-byte cp.async,
   // zeros outside the data; each thread arrives on the stage once its copies
-  // have landed (at once for zp slices, whose A is zp itself). Issued S - 1
+  // have landed (at once for zp slices, whose A is zp itself). Started S - 1
   // slices ahead.
-  auto issue_a = [&](int s) {
+  auto copy_a = [&](int s) {
     if (s >= ns) return;
     uint64_t* bar = &full[s % S];
     const Slice x = slice(s);
@@ -483,7 +483,7 @@ __global__ void __launch_bounds__(THREADS, 1) gather_fuse_kernel(const Args a) {
   auto step = [&](int s, float* acc, auto n, const auto* at, int pitch, auto exact) {
     constexpr int N = decltype(n)::value;
     constexpr bool EXACT = decltype(exact)::value;
-    issue_a(s + S - 1);
+    copy_a(s + S - 1);
     wait_full(s);
     const unsigned char* base = stage_of(s % S);
     uint32_t ah[BK / 8][4], al[BK / 8][4];
@@ -502,7 +502,7 @@ __global__ void __launch_bounds__(THREADS, 1) gather_fuse_kernel(const Args a) {
   using PN_ = std::integral_constant<int, PN>;
   using PASS_ = std::integral_constant<int, PASS>;
   using EXACT_ = std::integral_constant<bool, EXACT_T>;
-  for (int s = 0; s < S - 1; ++s) issue_a(s);
+  for (int s = 0; s < S - 1; ++s) copy_a(s);
 
   // Projection: p0 over half 0 of dl, p1 over half 1, each its own chain;
   // zp = (p0 + p1) + bp.
@@ -689,7 +689,7 @@ __global__ void __launch_bounds__(2 * WG + 2 * SPT, 1) gather_fuse_split_kernel(
   const int npc = np_of(c), nproj = chunks * npc, ns = ns_of(c);
   auto wait_full = [&](int s) { mbar_wait(&full[c][s % SS], (s / SS) & 1); };
   auto a_tile = [&](int s) { return reinterpret_cast<T*>(stage_of(c, s % SS) + 2 * TILE); };
-  auto issue_a = [&](int s) {
+  auto copy_a = [&](int s) {
     if (s >= ns) return;
     uint64_t* bar = &full[c][s % SS];
     const bool proj = s < nproj;
@@ -725,7 +725,7 @@ __global__ void __launch_bounds__(2 * WG + 2 * SPT, 1) gather_fuse_split_kernel(
   auto step = [&](int s, float* acc, auto n, const auto* at, int pitch, auto exact) {
     constexpr int N = decltype(n)::value;
     constexpr bool EXACT = decltype(exact)::value;
-    issue_a(s + SS - 1);
+    copy_a(s + SS - 1);
     wait_full(s);
     const unsigned char* base = stage_of(c, s % SS);
     uint32_t ah[BK / 8][4], al[BK / 8][4];
@@ -744,7 +744,7 @@ __global__ void __launch_bounds__(2 * WG + 2 * SPT, 1) gather_fuse_split_kernel(
   using PN_ = std::integral_constant<int, PN>;
   using PASS_ = std::integral_constant<int, PASS>;
   using EXACT_ = std::integral_constant<bool, EXACT_T>;
-  for (int s = 0; s < SS - 1; ++s) issue_a(s);
+  for (int s = 0; s < SS - 1; ++s) copy_a(s);
 
   // Projection: this consumer's half; p0 lands in zp, p1 in part, then
   // zp = (p0 + p1) + bp.
