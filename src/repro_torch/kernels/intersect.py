@@ -2,33 +2,45 @@
 
 Replaces the TPU kernel ``src/repro/kernels/intersect.py::intersect_pallas``
 (body ``_intersect_kernel``, wrapper ``src/repro/kernels/ops.py::intersect``)
-with the hand-written CUDA kernels of ``csrc/intersect.cu`` for Hopper.
+with the hand-written CUDA kernel of ``csrc/intersect.cu`` for Hopper.
 
 What bounds it on the H100: BetaE's attention MLP is 800→800→1, so each pool
-row costs k·d·hd = k·640,000 multiply-adds while its bytes are a few KB plus
-W1 (2.56 MB fp32): the work is bound by operations at pool sizes of a few
-hundred rows, and by reading W1 at the smallest pools. The design runs the
-x·W1 product as a tiled fp32 GEMM over (row tile, hidden-unit tile) blocks —
-splitting the hidden units is what fills the card's SMs at serving pool
-sizes — with relu, the w2 head and the reduction over hidden units fused into
-its epilogue, so h never reaches device memory; a second launch sums each
-row's partial logits in a fixed order, takes the softmax over k and writes the
-weighted combine. No atomics: results do not depend on the pool's size or
-composition. ``k`` is a runtime argument (1..8) dispatched to a kernel
-instantiated per k. The TPU wrapper pads the logit head to 128 lanes; this one
-does not need to.
+row costs k·d·hd = k·640,000 multiply-adds against W1's 2.56 MB (fp32). At
+serving pools (n·k of a few dozen rows) the call is bound by reading W1
+once, which only the whole card reads fast; at training pools (n·k in the
+thousands) by the fp32 CUDA cores. The kernel is one launch: W1 is cut into
+64-unit hidden blocks × 8 depth chunks, and a thread block cluster of 8
+blocks takes one hidden block for one row group, each block one chunk, with
+register-tiled FMA chains; the cluster folds its chunks through distributed
+shared memory into one partial logit per (32-unit tile, row), and the
+cluster that arrives last for a row group takes the softmax over k and
+writes the weighted combine from the x it holds. h and the logits never
+leave the launch except as those partial logits. Two geometries give a
+thread 4 × 4 or 4 × 8 outputs (``GEOMETRIES``; the kernel chooses from n·k).
+
+Every sum runs in an order fixed by d and hd alone (8 depth chunks of
+``chunk_len(d)``, each one FMA chain, added in order; 32-unit hidden tiles
+summed by a fixed tree; the tiles the same way), so a row's bits do not
+depend on the pool's size, the row's place in it, or the geometry. Any
+k >= 1. The TPU wrapper pads the logit head to 128 lanes; this one does not
+need to.
 
 ``intersect`` dispatches on where its inputs lie: CPU tensors take the plain
-version ``intersect_ref``; CUDA tensors launch the kernels or raise.
+version ``intersect_ref``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_K = 8
+GEOMETRIES = ("small", "large")  # the kernel's thread tiles (4 × 4, 4 × 8), in its codes' order
+
+_lock = threading.Lock()
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def intersect_ref(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -42,18 +54,53 @@ def intersect_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     return (att * xf).sum(dim=1).to(x.dtype)
 
 
-def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
-    Counts each launch of the kernel pair in ``intersect.launches``."""
+def _check_shapes(x, w1, b1, w2, b2):
+    """The shapes both paths take: x [n, k, d] with k, d >= 1 and an MLP
+    d -> hd -> 1 with hd >= 1. Returns (n, k, d, hd)."""
     if x.dim() != 3:
         raise ValueError(f"intersect: need x [n, k, d], got {tuple(x.shape)}")
     n, k, d = x.shape
     hd = w1.shape[-1]
-    if (tuple(w1.shape) != (d, hd) or b1.numel() != hd or w2.numel() != hd
-            or b2.numel() != 1):
+    if (w1.dim() != 2 or tuple(w1.shape) != (d, hd) or b1.numel() != hd
+            or w2.numel() != hd or b2.numel() != 1):
         raise ValueError(
             f"intersect: MLP shapes w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
             f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)} do not fit d={d}")
+    if k < 1 or d < 1 or hd < 1:
+        raise ValueError(f"intersect: need k, d and hd >= 1, got k={k}, d={d}, hd={hd}")
+    return n, k, d, hd
+
+
+def _geometry_code(geometry) -> int:
+    if geometry is None:
+        return -1
+    if geometry not in GEOMETRIES:
+        raise ValueError(f"intersect: geometry must be one of {GEOMETRIES} or None, "
+                         f"got {geometry!r}")
+    return GEOMETRIES.index(geometry)
+
+
+def _arrival_counters(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The kernel's per-row-group arrival counters for PyTorch's current
+    stream on x's device: zero between launches (the last arrival resets
+    its counter), so one buffer serves every launch on that stream, and
+    launches on two streams never share one."""
+    key = (x.device.index, build.stream_handle(x))
+    with _lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < groups:
+            size = 1 << max(groups - 1, 0).bit_length()
+            buf = _counters[key] = torch.zeros(size, dtype=torch.int32, device=x.device)
+        return buf
+
+
+def intersect(x, w1, b1, w2, b2, *, geometry: str | None = None) -> torch.Tensor:
+    """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
+    Counts each launch of the kernel in ``intersect.launches``. ``geometry``
+    forces one of the kernel's two geometries (``GEOMETRIES``), to time or
+    test both; None lets the kernel choose. The bits do not depend on it."""
+    n, k, d, hd = _check_shapes(x, w1, b1, w2, b2)
+    want = _geometry_code(geometry)
     params = (w1, b1, w2, b2)
     if x.device.type == "cpu" and all(p.device.type == "cpu" for p in params):
         return intersect_ref(x, w1, b1, w2, b2)
@@ -65,24 +112,33 @@ def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
                         f"MLP float32, got {x.dtype}")
     if not (x.is_contiguous() and all(p.is_contiguous() for p in params)):
         raise ValueError("intersect: inputs must be contiguous")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"intersect: cardinality k={k} outside 1..{MAX_K}")
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
     lib = build.load_library()
-    # Scratch: one partial logit per (hidden-unit tile, input row).
+    # Scratch: one partial logit per (hidden tile, input row).
     partial = torch.empty((lib.repro_intersect_tiles(hd), n * k),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.repro_intersect(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                  w2.data_ptr(), b2.data_ptr(),
-                                  partial.data_ptr(), out.data_ptr(),
-                                  n, k, d, hd, DTYPES[x.dtype],
-                                  build.stream_handle(x))
+        counters = _arrival_counters(x, lib.repro_intersect_groups(n, k))
+        err = lib.repro_intersect_fused(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                        w2.data_ptr(), b2.data_ptr(), partial.data_ptr(),
+                                        counters.data_ptr(), out.data_ptr(), n, k, d, hd,
+                                        DTYPES[x.dtype], want, build.stream_handle(x))
     build.check(lib, err, "intersect")
     intersect.launches += 1
     return out
 
 
 intersect.launches = 0
+
+
+def intersect_geometry(x: torch.Tensor, geometry: str | None = None) -> str:
+    """The launch geometry (one of ``GEOMETRIES``) the CUDA kernel takes for
+    x [n, k, d], or checks that the shapes fit a forced one. The choice is
+    the kernel library's own rule, so this needs CUDA."""
+    n, k, d = x.shape
+    lib = build.load_library()
+    code = lib.repro_intersect_geometry(n, k, d, DTYPES[x.dtype], _geometry_code(geometry))
+    build.check(lib, max(0, -code), "intersect_geometry")
+    return GEOMETRIES[code]

@@ -2,7 +2,7 @@
 one process on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.time_kernels \\
-        --kernel scoring|gather_fuse --baseline DIR
+        --kernel scoring|gather_fuse|intersect --baseline DIR
 
 DIR is the root of another checkout of the repository (for example a
 ``git archive`` of the parent commit, unpacked): its
@@ -20,6 +20,13 @@ once beside them. Both kernels are held to the plain version first.
   the serving path calls it): all 14,951 entities from the resident table,
   a 4,096-row and the last 2,663-row store chunk, 48 anchors through a
   hot set.
+- ``intersect`` (fp32 and bf16 x, d = hd = 800, BetaE's attention MLP):
+  n = 8, 16, 256 and 512 pool rows of k = 2 or 3 inputs; this checkout's
+  kernel is also timed with each of its geometries forced, and beside
+  ``stream_read(w1)``, a plain read of W1 under the same protocol (the
+  floor for a call that reads W1 once). The baseline is called through the
+  parent's C entry ``repro_intersect`` (two launches, ``partial`` sized
+  [repro_intersect_tiles(hd), n·k]), as that checkout has it.
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line with every time.
@@ -36,9 +43,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import gather_fuse as gf
+from repro_torch.kernels import intersect as its
 from repro_torch.kernels.scoring import (DTYPES, MODES, TILES, scoring,
                                          scoring_ref, scoring_tile)
-from repro_torch.kernels.timing import flush_buffer, time_ms
+from repro_torch.kernels.timing import flush_buffer, stream_read, time_ms
 from repro_torch.models.base import glorot
 
 SCORING_SHAPES = ((16, 14_951, 400), (1, 14_951, 400), (16, 4_096, 400))
@@ -47,6 +55,10 @@ E = 14_951
 FUSE_SHAPES = ((E, "resident"), (4_096, "chunk"), (2_663, "chunk"), (48, "cache"))
 FUSE_DIMS = (400, 1024, 64)  # d, dl (PTEConfig().d_l), dp
 SEM_BUDGET = 2048
+# (n, k) at d = hd = 800: serving's most common pool, two more serving pools,
+# chip_smoke's large pools, and the training executor's cap (b_max = 512).
+INTERSECT_SHAPES = ((8, 2), (16, 2), (16, 3), (256, 2), (256, 3), (512, 3))
+INTERSECT_DIMS = (800, 800)  # d = 2·dim (BetaE's state), hd = dim·hidden_mult
 
 
 def load_baseline(root: Path) -> ctypes.CDLL:
@@ -57,6 +69,10 @@ def load_baseline(root: Path) -> ctypes.CDLL:
     lib.repro_scoring.restype = i
     lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
     lib.repro_gather_fuse.restype = i
+    lib.repro_intersect.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.repro_intersect.restype = i
+    lib.repro_intersect_tiles.argtypes = [i]
+    lib.repro_intersect_tiles.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -85,6 +101,21 @@ def baseline_gather_fuse(lib, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
         h_str.shape[0], h_sem.shape[0], d, h_sem.shape[1], wp.shape[1],
         gf.DTYPES[h_str.dtype], build.stream_handle(ids))
     build.check(lib, err, "baseline gather_fuse")
+    return out
+
+
+def baseline_intersect(lib, x, w1, b1, w2, b2):
+    """The other library's kernel through the parent's C entry, with its
+    scratch of one partial logit per (hidden tile, input row)."""
+    n, k, d = x.shape
+    hd = w1.shape[1]
+    out = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    partial = torch.empty((lib.repro_intersect_tiles(hd), n * k), dtype=torch.float32,
+                          device=x.device)
+    err = lib.repro_intersect(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                              b2.data_ptr(), partial.data_ptr(), out.data_ptr(), n, k, d, hd,
+                              its.DTYPES[x.dtype], build.stream_handle(x))
+    build.check(lib, err, "baseline intersect")
     return out
 
 
@@ -170,9 +201,52 @@ def time_gather_fuse(base, flush, gen, dev, reps):
     return rows
 
 
+def intersect_inputs(n, k, dtype, gen, dev):
+    """BetaE-like inputs (positive Beta parameters; the model's initializer
+    for the MLP), as chip_smoke.py makes them."""
+    d, hd = INTERSECT_DIMS
+    x = torch.nn.functional.softplus(
+        2.0 * torch.randn((n, k, d), generator=gen, device=dev) / 20.0) + 0.05
+    w1, w2 = glorot((d, hd), gen, dev), glorot((hd, 1), gen, dev)
+    b1 = 0.1 * torch.randn((hd,), generator=gen, device=dev)
+    return x.to(dtype), w1, b1, w2, torch.zeros((1,), device=dev)
+
+
+def time_intersect(base, flush, gen, dev, reps):
+    rows = []
+    d, hd = INTERSECT_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, k in INTERSECT_SHAPES:
+            args = intersect_inputs(n, k, dtype, gen, dev)
+            want = its.intersect_ref(*args).float()
+            tol = 1e-5 if dtype == torch.float32 else 5e-2
+            got = {"baseline": baseline_intersect(base, *args), "this": its.intersect(*args)}
+            for geo in its.GEOMETRIES:
+                got[geo] = its.intersect(*args, geometry=geo)
+            for name, out in got.items():
+                torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol,
+                                           msg=lambda m: f"{name} {(n, k)} {dtype}: {m}")
+            times = ab(lambda: baseline_intersect(base, *args),  # noqa: B023
+                       lambda: its.intersect(*args), flush, reps)  # noqa: B023
+            by_geo = {geo: time_ms(lambda: its.intersect(*args, geometry=geo),  # noqa: B023
+                                   flush, reps) for geo in its.GEOMETRIES}
+            plain = time_ms(lambda: its.intersect_ref(*args), flush, reps)  # noqa: B023
+            read_w1 = time_ms(lambda: stream_read(args[1]), flush, reps)  # noqa: B023
+            row = {"n": n, "k": k, "d": d, "hd": hd, "dtype": str(dtype).split(".")[-1],
+                   "baseline_ms": times["baseline"], "ms": times["this"],
+                   "geometry": its.intersect_geometry(args[0]), "ms_by_geometry": by_geo,
+                   "plain_ms": plain, "read_w1_ms": read_w1,
+                   "max_abs_err": float((got["this"].float() - want).abs().max())}
+            rows.append(row)
+            print(f"intersect {(n, k, d, hd)} {row['dtype']}: baseline {times['baseline']} "
+                  f"ms, this {times['this']} ms ({row['geometry']}), by geometry "
+                  f"{by_geo}, plain {plain:.4f} ms, stream_read(w1) {read_w1:.4f} ms")
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("scoring", "gather_fuse"), required=True)
+    ap.add_argument("--kernel", choices=("scoring", "gather_fuse", "intersect"), required=True)
     ap.add_argument("--baseline", required=True, type=Path,
                     help="root of the checkout whose kernel is timed against this one")
     ap.add_argument("--reps", type=int, default=25)
@@ -190,7 +264,8 @@ def main(argv=None) -> None:
     build.load_library()
     flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = time_scoring if args.kernel == "scoring" else time_gather_fuse
+    timer = {"scoring": time_scoring, "gather_fuse": time_gather_fuse,
+             "intersect": time_intersect}[args.kernel]
     rows = timer(base, flush, gen, dev, args.reps)
     print(json.dumps({"card": card, args.kernel: rows}))
 
