@@ -55,9 +55,11 @@ E = 14_951
 FUSE_SHAPES = ((E, "resident"), (4_096, "chunk"), (2_663, "chunk"), (48, "cache"))
 FUSE_DIMS = (400, 1024, 64)  # d, dl (PTEConfig().d_l), dp
 SEM_BUDGET = 2048
-# (n, k) at d = hd = 800: serving's most common pool, two more serving pools,
-# chip_smoke's large pools, and the training executor's cap (b_max = 512).
-INTERSECT_SHAPES = ((8, 2), (16, 2), (16, 3), (256, 2), (256, 3), (512, 3))
+# (n, k) at d = hd = 800: every pool BetaE serving gives the kernel (its most
+# common first), chip_smoke's large pools, and the training executor's cap
+# (b_max = 512).
+INTERSECT_SHAPES = ((8, 2), (4, 2), (1, 2), (2, 2), (4, 3), (1, 3), (2, 3), (16, 2), (8, 3),
+                    (16, 3), (256, 2), (256, 3), (512, 3))
 INTERSECT_DIMS = (800, 800)  # d = 2·dim (BetaE's state), hd = dim·hidden_mult
 
 
@@ -228,8 +230,9 @@ def time_intersect(base, flush, gen, dev, reps):
                                            msg=lambda m: f"{name} {(n, k)} {dtype}: {m}")
             times = ab(lambda: baseline_intersect(base, *args),  # noqa: B023
                        lambda: its.intersect(*args), flush, reps)  # noqa: B023
-            by_geo = {geo: time_ms(lambda: its.intersect(*args, geometry=geo),  # noqa: B023
-                                   flush, reps) for geo in its.GEOMETRIES}
+            by_geo = ab(lambda: its.intersect(*args, geometry="small"),  # noqa: B023
+                        lambda: its.intersect(*args, geometry="large"), flush, reps)  # noqa: B023
+            by_geo = {"small": by_geo["baseline"], "large": by_geo["this"]}
             plain = time_ms(lambda: its.intersect_ref(*args), flush, reps)  # noqa: B023
             read_w1 = time_ms(lambda: stream_read(args[1]), flush, reps)  # noqa: B023
             row = {"n": n, "k": k, "d": d, "hd": hd, "dtype": str(dtype).split(".")[-1],
