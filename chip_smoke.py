@@ -29,11 +29,12 @@ non-zero (printing no result) on any failed check:
    beside it, and shows that rows fused from a staged hot set, in a 4,096-row
    chunk and in a 48-row launch are bitwise equal to the all-entity
    launch's. ``intersect`` runs serving's and training's pools (n = 8 to
-   512, k = 2 or 3, d = hd = 800) and a ragged one, under the geometry the
-   kernel chooses and each forced, k = 1, 8 and 12 too, and shows that a
-   row's output is bitwise the same alone and first, in the middle or last
-   of pools of 1, 8, 16, 256 and 512 rows, under either geometry; its main
-   path entry is timed beside a plain read of W1 (``stream_read``).
+   512, k = 2 or 3, d = hd = 800) and a ragged one, k = 1, 8 and 12 too,
+   with the bound of 3xTF32 on the tensor cores and the fp32 CUDA-core bound
+   beside it; it shows that a row's output is bitwise the same alone and
+   first, in the middle or last of pools of 1, 8, 16, 256 and 512 rows, and
+   that a bf16 output is the fp32 kernel's output on the same x rounded once;
+   its main path entry is timed beside a plain read of W1 (``stream_read``).
 4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
    with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
    window, then five timed closed-loop windows of fresh requests (QPS, p50
@@ -107,9 +108,9 @@ def main() -> None:
     from repro_torch.data import generate_synthetic_kg
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.intersect import GEOMETRIES, intersect_geometry
     from repro_torch.kernels.scoring import TILES
-    from repro_torch.kernels.timing import flush_buffer, stream_read, time_ms
+    from repro_torch.kernels.timing import (flush_buffer, intersect_inputs, stream_read,
+                                            time_ms)
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import ModelConfig, make_model, params_from_numpy
     from repro_torch.models.base import glorot
@@ -232,77 +233,76 @@ def main() -> None:
             fail(f"scoring[{mode}] {dtype}: a query scored alone differs from its "
                  f"row in a batch of 16")
 
-    def intersect_inputs(n: int, k: int, d: int, hd: int, dtype: str):
-        # BetaE-like values: Beta parameters from the entity-state map, MLP
-        # weights from the model's own initializer.
-        x = torch.nn.functional.softplus(
-            2.0 * torch.randn((n, k, d), generator=gen, device=dev) / 20.0) + 0.05
-        w1 = glorot((d, hd), gen, dev)
-        b1 = 0.1 * torch.randn((hd,), generator=gen, device=dev)
-        w2 = glorot((hd, 1), gen, dev)
-        return x.to(fp[dtype]), w1, b1, w2, torch.zeros((1,), device=dev)
-
-    def check_intersect(args, dtype: str, geometry=None) -> float:
-        got = kops.intersect(*args, geometry=geometry)
+    def check_intersect(args, dtype: str) -> float:
+        got = kops.intersect(*args)
         want = kops.intersect_ref(*args)
         torch.cuda.synchronize()
-        # tests/test_kernels.py:32; bf16 allows for the output rounding.
-        tol = 1e-5 if dtype == "float32" else 5e-2
+        # fp32: tests/test_kernels.py:32. bf16: a few bf16 steps of an output
+        # near 1 (both sides take the same bf16 x and compute in fp32).
+        tol = 1e-5 if dtype == "float32" else 1e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if dtype == "bfloat16":
+            # bf16 x loads exactly into fp32 and takes the fp32 arithmetic, so
+            # the output is the fp32 kernel's on the same x, rounded once.
+            once = kops.intersect(args[0].float(), *args[1:]).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            if not torch.equal(got, once):
+                fail(f"intersect bf16 {tuple(args[0].shape)}: the output differs from the "
+                     f"fp32 kernel's rounded once by "
+                     f"{(got.float() - once.float()).abs().max():.3g}")
         return float((got.float() - want.float()).abs().max())
 
     def measure_intersect(n: int, k: int, d: int, hd: int, dtype: str,
                           detail: bool = False) -> dict:
-        """At the kernel's own geometry and each forced; ``detail`` adds the
-        floor of a call that reads W1 once (a plain read of it)."""
-        args = intersect_inputs(n, k, d, hd, dtype)
+        """``detail`` adds the floor of a call that reads W1 once (a plain
+        read of it)."""
+        args = intersect_inputs(n, k, d, hd, fp[dtype], gen)
         err = check_intersect(args, dtype)
-        for geometry in GEOMETRIES:
-            check_intersect(args, dtype, geometry)
         elt = args[0].element_size()
         nbytes = (n * k * d + n * d) * elt + (d * hd + 2 * hd + 1) * 4
+        # x·W1, the head (b1, relu, w2) and the softmax-weighted sum.
         flops = n * k * (2 * d * hd + 4 * hd + 2 * d)
-        # Either x dtype is computed in fp32 on the CUDA cores.
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        # The card's fastest route for x·W1 at fp32 accuracy: 3xTF32 on the
+        # tensor cores, three TF32 products a multiply-add (two for bf16 x,
+        # exact in TF32, whose lo part is 0); the rest at the same rate.
+        products = 3 if dtype == "float32" else 2
+        tf32_flops = n * k * (products * 2 * d * hd + 4 * hd + 2 * d)
+        b_ms, b_by = bound(nbytes, tf32_flops, "tf32")
+        # The same work as fp32 FMAs on the CUDA cores (the kernel's route).
+        b32_ms, b32_by = bound(nbytes, flops, "float32")
         r = {
             "max_abs_err": err,
             "ms": time_ms(lambda: kops.intersect(*args), flush),
             "plain_ms": time_ms(lambda: kops.intersect_ref(*args), flush),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_cuda_cores_ms": b32_ms, "bound_fp32_cuda_cores_by": b32_by,
             "shape": {"n": n, "k": k, "d": d, "hd": hd}, "dtype": dtype,
-            "geometry": intersect_geometry(args[0]),
         }
         if detail:
-            r["ms_by_geometry"] = {g: time_ms(  # noqa: B023
-                lambda: kops.intersect(*args, geometry=g), flush) for g in GEOMETRIES}
             r["read_floor_ms"] = time_ms(lambda: stream_read(args[1]), flush)
         return r
 
     def check_intersect_bitwise(dtype: str) -> None:
         """A row's bits depend only on its own k inputs and the MLP: alone,
         it equals itself first, in the middle and last of pools of 1, 8, 16,
-        256 and 512 rows under either geometry; k = 1, 8 and 12 hold to the
-        plain version under either geometry."""
+        256 and 512 rows; k = 1, 8 and 12 hold to the plain version."""
         for k in (2, 3):
-            pool, w1, b1, w2, b2 = intersect_inputs(512, k, 800, 800, dtype)
+            pool, w1, b1, w2, b2 = intersect_inputs(512, k, 800, 800, fp[dtype], gen)
             row = pool[:1].clone()
-            alone = kops.intersect(row, w1, b1, w2, b2, geometry=GEOMETRIES[0])
+            alone = kops.intersect(row, w1, b1, w2, b2)
             for n in (1, 8, 16, 256, 512):
                 for place in sorted({0, n // 2, n - 1}):
                     x = pool[:n].clone()
                     x[place] = row[0]
-                    for geometry in GEOMETRIES:
-                        got = kops.intersect(x, w1, b1, w2, b2, geometry=geometry)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got[place:place + 1], alone):
-                            fail(f"intersect {dtype} k={k}: a row placed {place} of {n} "
-                                 f"({geometry}) differs from the row alone by "
-                                 f"{(got[place].float() - alone[0].float()).abs().max():.3g}")
+                    got = kops.intersect(x, w1, b1, w2, b2)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[place:place + 1], alone):
+                        fail(f"intersect {dtype} k={k}: a row placed {place} of {n} "
+                             f"differs from the row alone by "
+                             f"{(got[place].float() - alone[0].float()).abs().max():.3g}")
         for k in (1, 8, 12):
-            args = intersect_inputs(16, k, 800, 800, dtype)
-            for geometry in GEOMETRIES:
-                check_intersect(args, dtype, geometry)
+            check_intersect(intersect_inputs(16, k, 800, 800, fp[dtype], gen), dtype)
 
     def measure_gather_fuse(n: int, d: int, dl: int, dp: int, dtype: str,
                             layout: str, E: int) -> dict:
@@ -398,11 +398,8 @@ def main() -> None:
         if "bound_fp32_cuda_cores_ms" in r:
             more = (f" | fp32 CUDA-core bound {r['bound_fp32_cuda_cores_ms']:.4f} "
                     f"({r['bound_fp32_cuda_cores_by']})")
-        if "geometry" in r:
-            more = f" | geometry {r['geometry']}"
-            if "ms_by_geometry" in r:
-                geos = ", ".join(f"{g}: {v:.4f}" for g, v in r["ms_by_geometry"].items())
-                more += f" (by geometry {geos}), read floor (W1) {r['read_floor_ms']:.4f}"
+        if "read_floor_ms" in r and "ms_by_tile" not in r:
+            more += f" | read floor (W1) {r['read_floor_ms']:.4f}"
         if "ms_by_tile" in r:
             tiles = ", ".join(f"{t}: {v:.4f}" for t, v in r["ms_by_tile"].items())
             more = (f" | tile {r['tile']} (by tile {tiles}), launch floor "
@@ -433,7 +430,7 @@ def main() -> None:
             show("intersect", measure_intersect(n, k, d, hd, dtype))
         check_intersect_bitwise(dtype)
         print(f"  intersect {dtype}: rows bitwise alike alone and in pools of 1 to "
-              f"512 at every place, under either geometry; k = 1, 8, 12 match plain")
+              f"512 at every place; k = 1, 8, 12 match plain")
         for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
                                            (CHUNK, 400, SEM_DIM, 64, "chunk", E),
                                            (E % CHUNK, 400, SEM_DIM, 64, "chunk", E),

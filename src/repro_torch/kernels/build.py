@@ -110,12 +110,10 @@ def load_library() -> ctypes.CDLL:
             lib.repro_scoring_tile.restype = i
             lib.repro_scoring_aligned.argtypes = [p, i, i]
             lib.repro_scoring_aligned.restype = i
-            lib.repro_intersect_fused.argtypes = [p] * 8 + [i] * 6 + [p]
+            lib.repro_intersect_fused.argtypes = [p] * 8 + [i] * 5 + [p]
             lib.repro_intersect_fused.restype = i
             lib.repro_intersect_groups.argtypes = [i, i]
             lib.repro_intersect_groups.restype = i
-            lib.repro_intersect_geometry.argtypes = [i] * 5
-            lib.repro_intersect_geometry.restype = i
             ll = ctypes.c_longlong
             lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
             lib.repro_gather_fuse.restype = i

@@ -30,25 +30,25 @@
 // per row group) live in a buffer the wrapper keeps per stream; the group's
 // last cluster resets its counter, so no launch clears them.
 //
-// Two geometries, one arithmetic: "small" (n·k <= SMALL_ROWS) gives a
-// thread 4 rows × 4 units on 256 threads, so the chains are short; "large"
-// gives a thread 4 rows × 8 units on 128 threads, twice the FMAs per shared
-// load and four blocks an SM.
+// One geometry for every pool: a thread holds a register tile of 4 rows ×
+// 8 units on 128 threads (two shared loads for 8 FMAs, four blocks an SM).
+// 4 × 4 tiles on 256 threads time within a few percent of it at serving
+// pools and slower at large ones.
 //
-// Fixed-order sums: a row's bits do not depend on n, its place in the pool,
-// or the geometry. The depth chunks are fixed by d alone (8 chunks of
+// Fixed-order sums: a row's bits do not depend on n or its place in the
+// pool. The depth chunks are fixed by d alone (8 chunks of
 // chunk_len(d)); each chunk is one FMA chain in depth order from 0, and the
 // chunks are added in order to 0: h = ((0 + c0) + c1) + ... + c7. Then
 // v = relu(h + b1)·w2 per hidden unit; a 32-unit tile (fixed by hd alone)
 // is summed by a fixed xor tree over the lanes (lane 0's value), the tiles
 // by lane-strided chains and the same tree, and b2 is added last. The
 // softmax and the weighted sum over k (one FMA chain in k order) are one
-// device function for both geometries. No sum runs in arrival order.
+// device function. No sum runs in arrival order.
 //
-// ptxas -v (-O3, sm_90a): small 95 (fp32) / 80 (bf16) registers, large
-// 126 / 125, no spills, 48 bytes of static shared memory; dynamic shared
-// memory at d = hd = 800: 51,776 bytes (fp32 x, n·k <= 16) to 51,968
-// (a full 64-row group), 38,976 to 39,168 for bf16 x: four large blocks an SM.
+// ptxas -v (-O3, sm_90a): 126 (fp32) / 125 (bf16) registers, no spills, 48
+// bytes of static shared memory; dynamic shared memory at d = hd = 800:
+// 51,776 bytes (fp32 x, n·k <= 16) to 51,968 (a full 64-row group), 38,976
+// to 39,168 for bf16 x: four blocks an SM.
 #include <math.h>
 #include <stdint.h>
 
@@ -67,7 +67,6 @@ constexpr int CHUNKS = 8;         // depth chunks, fixed by d alone
 constexpr int HT = 32;            // hidden units of a tile: one a lane
 constexpr int W = 2 * HT;         // hidden units of a cluster
 constexpr int RG = 64;            // input rows of a row group (for k <= RG)
-constexpr int SMALL_ROWS = 128;   // n·k up to this takes the small geometry
 constexpr int MAX_GRID_Y = 65535;
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
@@ -240,17 +239,10 @@ __device__ void weighted_sum(const Args& a, const T* xs, size_t xp, int gp, int 
   }
 }
 
-// A geometry: a thread's register tile of TM rows × TN hidden units (rows
-// TM·ty + i; units 4·tx + 4·NTX·e + 0..3, so that a quarter-warp reads one
-// x row, a broadcast, and 128 contiguous bytes of W1).
-enum Geometry { kSmall = 0, kLarge = 1 };
-template <int G> struct Layout;
-template <> struct Layout<kSmall> {
-  static constexpr int TM = 4, TN = 4, NTX = W / TN, THREADS = (RG / TM) * NTX;
-};
-template <> struct Layout<kLarge> {
-  static constexpr int TM = 4, TN = 8, NTX = W / TN, THREADS = (RG / TM) * NTX;
-};
+// A thread's register tile: TM rows × TN hidden units (rows TM·ty + i;
+// units 4·tx + 4·NTX·e + 0..3, so that a quarter-warp reads one x row, a
+// broadcast, and 128 contiguous bytes of W1).
+constexpr int TM = 4, TN = 8, NTX = W / TN, THREADS = (RG / TM) * NTX;
 
 // Shared memory of a block: ws [SL][W] fp32 (a depth slice of W1) and, in
 // the same bytes once the chain has read it, hs [hrows][W] fp32 (the
@@ -275,35 +267,34 @@ __host__ __device__ inline Smem smem_layout(int SL, int Mmax) {
 // A depth slice's chains, added to acc[TM·TN]: x rows in xs (pitch SL), W1
 // in ws (pitch W), `len` deep. Rows past the group's compute on whatever xs
 // holds there and are never stored.
-template <typename T, int GEO>
+template <typename T>
 __device__ __forceinline__ void chain(const T* xs, const float* ws, int SL, int len, float* acc) {
-  using L = Layout<GEO>;
-  const int ty = threadIdx.x / L::NTX, tx = threadIdx.x % L::NTX;
-  const T* A = xs + L::TM * ty * SL;
+  const int ty = threadIdx.x / NTX, tx = threadIdx.x % NTX;
+  const T* A = xs + TM * ty * SL;
   const float* B = ws + 4 * tx;
   int kk = 0;
   for (; kk + 4 <= len; kk += 4) {
-    float av[L::TM][4];
+    float av[TM][4];
 #pragma unroll
-    for (int i = 0; i < L::TM; ++i) load4(A + i * SL + kk, av[i]);
+    for (int i = 0; i < TM; ++i) load4(A + i * SL + kk, av[i]);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float bv[L::TN];
+      float bv[TN];
 #pragma unroll
-      for (int e = 0; e < L::TN / 4; ++e) load4(B + (kk + q) * W + 4 * L::NTX * e, bv + 4 * e);
+      for (int e = 0; e < TN / 4; ++e) load4(B + (kk + q) * W + 4 * NTX * e, bv + 4 * e);
 #pragma unroll
-      for (int i = 0; i < L::TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < L::TN; ++j) acc[i * L::TN + j] = fmaf(av[i][q], bv[j], acc[i * L::TN + j]);
+        for (int j = 0; j < TN; ++j) acc[i * TN + j] = fmaf(av[i][q], bv[j], acc[i * TN + j]);
     }
   }
   for (; kk < len; ++kk) {
 #pragma unroll
-    for (int i = 0; i < L::TM; ++i) {
+    for (int i = 0; i < TM; ++i) {
       const float av = repro::to_f32(A[i * SL + kk]);
 #pragma unroll
-      for (int j = 0; j < L::TN; ++j)
-        acc[i * L::TN + j] = fmaf(av, B[kk * W + 4 * L::NTX * (j / 4) + j % 4], acc[i * L::TN + j]);
+      for (int j = 0; j < TN; ++j)
+        acc[i * TN + j] = fmaf(av, B[kk * W + 4 * NTX * (j / 4) + j % 4], acc[i * TN + j]);
     }
   }
 }
@@ -311,11 +302,10 @@ __device__ __forceinline__ void chain(const T* xs, const float* ws, int SL, int 
 // Cluster (hidden block hb = blockIdx.x / CHUNKS, row group g = blockIdx.y)
 // of CHUNKS blocks, block c = cluster rank taking depth chunk c (the header
 // above has the steps).
-template <typename T, int GEO>
-__global__ void __cluster_dims__(CHUNKS, 1, 1) __launch_bounds__(Layout<GEO>::THREADS)
+template <typename T>
+__global__ void __cluster_dims__(CHUNKS, 1, 1) __launch_bounds__(THREADS)
 intersect_kernel(Args a) {
-  using L = Layout<GEO>;
-  constexpr int NW = L::THREADS / 32, NACC = L::TM * L::TN;
+  constexpr int NW = THREADS / 32, NACC = TM * TN;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned seen[CHUNKS];  // each cluster block's arrival ticket
   __shared__ unsigned ticket;
@@ -338,7 +328,7 @@ intersect_kernel(Args a) {
   // the chunk is deeper than a slice: then passes over rows and slices.
   const bool whole = Mg <= RG && len <= a.SL;
 
-  for (int u = threadIdx.x; u < W; u += L::THREADS) {
+  for (int u = threadIdx.x; u < W; u += THREADS) {
     const int j = j0 + u;
     bw[u] = j < a.hd ? a.b1[j] : 0.f;
     bw[W + u] = j < a.hd ? a.w2[j] : 0.f;
@@ -364,18 +354,18 @@ intersect_kernel(Args a) {
       for (int h0 = 0; h0 < sl; h0 += half) {
         if (h0 == 0 && half < sl) cp_wait<1>(); else cp_wait<0>();
         __syncthreads();
-        chain<T, GEO>(xs + h0, ws + h0 * W, a.SL, min(half, sl - h0), acc);
+        chain<T>(xs + h0, ws + h0 * W, a.SL, min(half, sl - h0), acc);
       }
     }
     __syncthreads();  // ws is read: its bytes take hs
     {
-      const int ty = threadIdx.x / L::NTX, tx = threadIdx.x % L::NTX;
+      const int ty = threadIdx.x / NTX, tx = threadIdx.x % NTX;
 #pragma unroll
-      for (int i = 0; i < L::TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < L::TN; ++j) {
-          const int m = L::TM * ty + i;
-          if (m < rows) hs[m * W + 4 * tx + 4 * L::NTX * (j / 4) + j % 4] = acc[i * L::TN + j];
+        for (int j = 0; j < TN; ++j) {
+          const int m = TM * ty + i;
+          if (m < rows) hs[m * W + 4 * tx + 4 * NTX * (j / 4) + j % 4] = acc[i * TN + j];
         }
     }
     cluster.sync();
@@ -429,37 +419,29 @@ intersect_kernel(Args a) {
                  lg, out);
 }
 
-// Once per device and dtype: opt both geometries into all of a block's
-// shared memory and read that limit. Returns 0, or the CUDA error.
+// Once per device and dtype: opt the kernel into all of a block's shared
+// memory and read that limit. Returns 0, or the CUDA error.
 template <typename T>
-int smem_limit(int dev, int* limit) {
+int smem_limit(int* limit) {
   static std::atomic<int> room[MAX_DEVICES];
-  *limit = room[dev].load(std::memory_order_acquire);
-  if (*limit > 0) return 0;
-  int optin = 0, lim = 1 << 30;
-  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  for (const void* kernel : {reinterpret_cast<const void*>(intersect_kernel<T, kSmall>),
-                             reinterpret_cast<const void*>(intersect_kernel<T, kLarge>)}) {
-    cudaFuncAttributes attr;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-    const int r = optin - static_cast<int>(attr.sharedSizeBytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, r);
-    lim = std::min(lim, r);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  room[dev].store(lim, std::memory_order_release);
-  *limit = lim;
-  return 0;
-}
-
-int device_limit(int* limit, int dtype) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  return dtype == repro::kBF16 ? smem_limit<__nv_bfloat16>(dev, limit)
-                               : smem_limit<float>(dev, limit);
+  *limit = room[dev].load(std::memory_order_acquire);
+  if (*limit > 0) return 0;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  const void* kernel = reinterpret_cast<const void*>(intersect_kernel<T>);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  const int lim = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  room[dev].store(lim, std::memory_order_release);
+  *limit = lim;
+  return 0;
 }
 
 // A launch's shape: its row groups, the depth of a slice (the whole chunk
@@ -478,36 +460,23 @@ Plan plan(int n, int k, int d, int limit) {
   return {cdiv(n, group_rows(k)), std::max(SL, 0), SL >= 4 ? smem_layout<T>(SL, Mmax).total : 0};
 }
 
-// kSmall or kLarge for `want` (< 0: the kernel's choice from n·k), or
-// -(CUDA error) where the shapes do not fit a launch.
-template <typename T>
-int geometry(int n, int k, int d, int want, int limit) {
-  const Plan p = plan<T>(n, k, d, limit);
-  if (p.SL < 4 || p.groups > MAX_GRID_Y || want > kLarge)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  if (want >= 0) return want;
-  return static_cast<long long>(n) * k <= SMALL_ROWS ? kSmall : kLarge;
-}
-
 bool aligned(const void* p, size_t b) { return reinterpret_cast<uintptr_t>(p) % b == 0; }
 
 template <typename T>
-int launch(Args a, int want, cudaStream_t stream) {
+int launch(Args a, cudaStream_t stream) {
   int limit = 0;
-  if (const int rc = device_limit(&limit, sizeof(T) == 2 ? repro::kBF16 : repro::kF32)) return rc;
-  const int geo = geometry<T>(a.n, a.k, a.d, want, limit);
-  if (geo < 0) return -geo;
+  if (const int rc = smem_limit<T>(&limit)) return rc;
   const Plan p = plan<T>(a.n, a.k, a.d, limit);
+  // A pool row's k logits must fit a block's shared memory, and the row
+  // groups the grid's y.
+  if (p.SL < 4 || p.groups > MAX_GRID_Y) return static_cast<int>(cudaErrorInvalidValue);
   a.M = a.n * a.k;
   a.T = cdiv(a.hd, HT);
   a.SL = p.SL;
   a.vec = a.d % 4 == 0 && a.hd % 4 == 0 && aligned(a.x, 4 * sizeof(T)) &&
           aligned(a.out, 4 * sizeof(T)) && aligned(a.w1, 16);
   const dim3 grid(CHUNKS * cdiv(a.hd, W), p.groups);
-  if (geo == kSmall)
-    intersect_kernel<T, kSmall><<<grid, Layout<kSmall>::THREADS, p.smem, stream>>>(a);
-  else
-    intersect_kernel<T, kLarge><<<grid, Layout<kLarge>::THREADS, p.smem, stream>>>(a);
+  intersect_kernel<T><<<grid, THREADS, p.smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,29 +490,20 @@ extern "C" int repro_intersect_tiles(int hd) { return cdiv(hd, HT); }
 // all zero; every launch leaves them zero. One buffer per stream.
 extern "C" int repro_intersect_groups(int n, int k) { return k < 1 ? 0 : cdiv(n, group_rows(k)); }
 
-// The geometry a launch takes (0 = small, 1 = large) for these shapes with
-// `want` (-1 = the kernel's choice from n·k, 0 or 1 forced), or -(CUDA
-// error) where they do not fit a launch.
-extern "C" int repro_intersect_geometry(int n, int k, int d, int dtype, int want) {
-  int limit = 0;
-  if (const int rc = device_limit(&limit, dtype)) return -rc;
-  if (dtype == repro::kBF16) return geometry<__nv_bfloat16>(n, k, d, want, limit);
-  return geometry<float>(n, k, d, want, limit);
-}
-
 // x [n, k, d] (dtype: repro::DType), w1 [d, hd], b1 [hd], w2 [hd], b2 [1]
 // (fp32), partial and counters as above, out [n, d] in x's dtype; n, k, d,
-// hd >= 1 (n = 0 launches nothing). `want` as for repro_intersect_geometry.
-// One launch; returns its CUDA error (0 = success).
+// hd >= 1 (n = 0 launches nothing). One launch; returns its CUDA error
+// (0 = success; cudaErrorInvalidValue where a pool row's k logits do not
+// fit a block's shared memory).
 extern "C" int repro_intersect_fused(const void* x, const float* w1, const float* b1,
                                      const float* w2, const float* b2, float* partial,
                                      unsigned* counters, void* out, int n, int k, int d,
-                                     int hd, int dtype, int want, void* stream) {
+                                     int hd, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
   if (n < 0 || k < 1 || d < 1 || hd < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, w1, b1, w2, b2, partial, counters, out, n, k, d, hd, 0, 0, 0, 0};
-  if (dtype == repro::kF32) return launch<float>(a, want, s);
-  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, want, s);
+  if (dtype == repro::kF32) return launch<float>(a, s);
+  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,13 +15,13 @@ register-tiled FMA chains; the cluster folds its chunks through distributed
 shared memory into one partial logit per (32-unit tile, row), and the
 cluster that arrives last for a row group takes the softmax over k and
 writes the weighted combine from the x it holds. h and the logits never
-leave the launch except as those partial logits. Two geometries give a
-thread 4 × 4 or 4 × 8 outputs (``GEOMETRIES``; the kernel chooses from n·k).
+leave the launch except as those partial logits. A thread holds 4 rows × 8
+hidden units of the chunk's product in registers, at every pool size.
 
 Every sum runs in an order fixed by d and hd alone (8 depth chunks of
 ``chunk_len(d)``, each one FMA chain, added in order; 32-unit hidden tiles
 summed by a fixed tree; the tiles the same way), so a row's bits do not
-depend on the pool's size, the row's place in it, or the geometry. Any
+depend on the pool's size or the row's place in it. Any
 k >= 1. The TPU wrapper pads the logit head to 128 lanes; this one does not
 need to.
 
@@ -37,7 +37,6 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-GEOMETRIES = ("small", "large")  # the kernel's thread tiles (4 × 4, 4 × 8), in its codes' order
 
 _lock = threading.Lock()
 _counters: dict[tuple[int, int], torch.Tensor] = {}
@@ -71,15 +70,6 @@ def _check_shapes(x, w1, b1, w2, b2):
     return n, k, d, hd
 
 
-def _geometry_code(geometry) -> int:
-    if geometry is None:
-        return -1
-    if geometry not in GEOMETRIES:
-        raise ValueError(f"intersect: geometry must be one of {GEOMETRIES} or None, "
-                         f"got {geometry!r}")
-    return GEOMETRIES.index(geometry)
-
-
 def _arrival_counters(x: torch.Tensor, groups: int) -> torch.Tensor:
     """The kernel's per-row-group arrival counters for PyTorch's current
     stream on x's device: zero between launches (the last arrival resets
@@ -94,13 +84,10 @@ def _arrival_counters(x: torch.Tensor, groups: int) -> torch.Tensor:
         return buf
 
 
-def intersect(x, w1, b1, w2, b2, *, geometry: str | None = None) -> torch.Tensor:
+def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
     """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
-    Counts each launch of the kernel in ``intersect.launches``. ``geometry``
-    forces one of the kernel's two geometries (``GEOMETRIES``), to time or
-    test both; None lets the kernel choose. The bits do not depend on it."""
+    Counts each launch of the kernel in ``intersect.launches``."""
     n, k, d, hd = _check_shapes(x, w1, b1, w2, b2)
-    want = _geometry_code(geometry)
     params = (w1, b1, w2, b2)
     if x.device.type == "cpu" and all(p.device.type == "cpu" for p in params):
         return intersect_ref(x, w1, b1, w2, b2)
@@ -124,21 +111,10 @@ def intersect(x, w1, b1, w2, b2, *, geometry: str | None = None) -> torch.Tensor
         err = lib.repro_intersect_fused(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                         w2.data_ptr(), b2.data_ptr(), partial.data_ptr(),
                                         counters.data_ptr(), out.data_ptr(), n, k, d, hd,
-                                        DTYPES[x.dtype], want, build.stream_handle(x))
+                                        DTYPES[x.dtype], build.stream_handle(x))
     build.check(lib, err, "intersect")
     intersect.launches += 1
     return out
 
 
 intersect.launches = 0
-
-
-def intersect_geometry(x: torch.Tensor, geometry: str | None = None) -> str:
-    """The launch geometry (one of ``GEOMETRIES``) the CUDA kernel takes for
-    x [n, k, d], or checks that the shapes fit a forced one. The choice is
-    the kernel library's own rule, so this needs CUDA."""
-    n, k, d = x.shape
-    lib = build.load_library()
-    code = lib.repro_intersect_geometry(n, k, d, DTYPES[x.dtype], _geometry_code(geometry))
-    build.check(lib, max(0, -code), "intersect_geometry")
-    return GEOMETRIES[code]

@@ -1,6 +1,6 @@
 """Device time of one kernel call, as ``chip_smoke.py`` and
-``launch/time_kernels.py`` measure it, and the floor for reading a table that
-such a time is held against."""
+``launch/time_kernels.py`` measure it, the floor for reading a table that
+such a time is held against, and the inputs both time ``intersect`` on."""
 from __future__ import annotations
 
 import statistics
@@ -8,6 +8,7 @@ import statistics
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.models.base import glorot
 
 FLUSH_BYTES = 512 * 2**20  # ten times the H100's 50 MB L2
 
@@ -62,3 +63,17 @@ def stream_read(t: torch.Tensor) -> torch.Tensor:
                                     build.stream_handle(t))
     build.check(lib, err, "stream_read")
     return part
+
+
+def intersect_inputs(n: int, k: int, d: int, hd: int, dtype: torch.dtype,
+                     generator: torch.Generator):
+    """BetaE-like arguments of ``intersect`` on the generator's device:
+    x [n, k, d] positive Beta parameters (as the entity-state map gives
+    them), the attention MLP from the model's own initializer."""
+    dev = generator.device
+    x = torch.nn.functional.softplus(
+        torch.randn((n, k, d), generator=generator, device=dev) / 10) + 0.05
+    w1 = glorot((d, hd), generator, dev)
+    b1 = 0.1 * torch.randn((hd,), generator=generator, device=dev)
+    w2 = glorot((hd, 1), generator, dev)
+    return x.to(dtype), w1, b1, w2, torch.zeros((1,), device=dev)

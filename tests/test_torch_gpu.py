@@ -9,9 +9,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.intersect import GEOMETRIES, intersect_geometry
 from repro_torch.kernels.scoring import TILES
-from repro_torch.kernels.timing import stream_read
+from repro_torch.kernels.timing import intersect_inputs, stream_read
 from repro_torch.models.base import glorot
 
 pytestmark = pytest.mark.gpu
@@ -138,13 +137,7 @@ def test_stream_read_sums_every_element(dev, n):
 
 def _intersect_inputs(dev, n, k, d, hd, dtype, seed=0):
     """BetaE-like inputs: positive Beta parameters, the model's initializer."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.nn.functional.softplus(
-        torch.randn((n, k, d), generator=g, device=dev) / 10) + 0.05).to(dtype)
-    w1, w2 = glorot((d, hd), g, dev), glorot((hd, 1), g, dev)
-    b1 = 0.1 * torch.randn((hd,), generator=g, device=dev)
-    b2 = torch.zeros((1,), device=dev)
-    return x, w1, b1, w2, b2
+    return intersect_inputs(n, k, d, hd, dtype, torch.Generator(device=dev).manual_seed(seed))
 
 
 def _intersect_tol(dtype):
@@ -171,15 +164,14 @@ def test_intersect_kernel_matches_plain(dev, n, k, d, hd, dtype):
 @pytest.mark.parametrize("k", [1, 2, 3, 8, 9, 12])
 @pytest.mark.parametrize("n,d,hd", [(16, 800, 800), (300, 800, 800), (7, 33, 40),
                                     (70, 96, 72)])
-@pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_intersect_each_geometry_matches_plain(dev, k, n, d, hd, geometry, dtype):
-    """Either launch geometry, any k (beyond 8 too), ragged d and hd (no
-    16-byte copies: d = 33) and hidden widths that end inside a tile."""
+def test_intersect_any_k_matches_plain(dev, k, n, d, hd, dtype):
+    """Any k (beyond 8 too; beyond a 64-row group at n = 300, k = 12),
+    ragged d and hd (no 16-byte copies: d = 33) and hidden widths that end
+    inside a tile."""
     x, w1, b1, w2, b2 = _intersect_inputs(dev, n, k, d, hd, dtype, seed=k)
-    assert intersect_geometry(x, geometry) == geometry
     before = kops.intersect.launches
-    got = kops.intersect(x, w1, b1, w2, b2, geometry=geometry)
+    got = kops.intersect(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert kops.intersect.launches == before + 1
     assert got.dtype == dtype and got.shape == (n, d)
@@ -193,32 +185,29 @@ def test_intersect_each_geometry_matches_plain(dev, k, n, d, hd, geometry, dtype
 def test_intersect_rows_do_not_depend_on_their_pool(dev, k, dtype):
     """A row's bits depend only on its own k inputs and the MLP: the row
     alone equals the same row first, in the middle and last of pools of
-    1, 8, 16, 256 and 512 rows, under either geometry."""
+    1, 8, 16, 256 and 512 rows."""
     d = hd = 800
     pool, w1, b1, w2, b2 = _intersect_inputs(dev, 512, k, d, hd, dtype)
     row = pool[:1].clone()
-    alone = kops.intersect(row, w1, b1, w2, b2, geometry="small")
+    alone = kops.intersect(row, w1, b1, w2, b2)
     for n in (1, 8, 16, 256, 512):
         for place in sorted({0, n // 2, n - 1}):
             x = pool[:n].clone()
             x[place] = row[0]
-            for geometry in GEOMETRIES:
-                got = kops.intersect(x, w1, b1, w2, b2, geometry=geometry)
-                torch.cuda.synchronize()
-                assert torch.equal(got[place:place + 1], alone), (n, place, geometry)
-    assert torch.equal(kops.intersect(row, w1, b1, w2, b2, geometry="large"), alone)
+            got = kops.intersect(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            assert torch.equal(got[place:place + 1], alone), (n, place)
 
 
 @pytest.mark.parametrize("n,k,d,hd", [(8, 2, 800, 800), (512, 3, 800, 800), (7, 12, 33, 40),
                                       (70, 3, 96, 72)])
-@pytest.mark.parametrize("geometry", GEOMETRIES)
-def test_intersect_bf16_is_the_fp32_result_rounded_once(dev, n, k, d, hd, geometry):
+def test_intersect_bf16_is_the_fp32_result_rounded_once(dev, n, k, d, hd):
     """bf16 x loads exactly into fp32 and takes the fp32 arithmetic, so the
     bf16 output is the fp32 kernel's output on the same (bf16-rounded) x,
     rounded once to bf16."""
     x, w1, b1, w2, b2 = _intersect_inputs(dev, n, k, d, hd, torch.bfloat16)
-    got = kops.intersect(x, w1, b1, w2, b2, geometry=geometry)
-    want = kops.intersect(x.float(), w1, b1, w2, b2, geometry=geometry).to(torch.bfloat16)
+    got = kops.intersect(x, w1, b1, w2, b2)
+    want = kops.intersect(x.float(), w1, b1, w2, b2).to(torch.bfloat16)
     assert torch.equal(got, want)
 
 
@@ -233,29 +222,22 @@ def test_intersect_leaves_its_arrival_counters_zero(dev):
     """The last arrival of each row group resets its counter, so the
     stream's counter buffer is all zero after any mix of launches."""
     from repro_torch.kernels import intersect as its
-    for n, k, geometry in ((8, 2, None), (512, 3, None), (512, 3, "small"),
-                           (300, 12, "large"), (3, 70, None)):
+    for n, k in ((8, 2), (512, 3), (300, 12), (3, 70)):
         args = _intersect_inputs(dev, n, k, 96, 64, torch.float32)
-        kops.intersect(*args, geometry=geometry)
+        kops.intersect(*args)
         torch.cuda.synchronize()
         counters = its._counters[(dev.index or 0, torch.cuda.current_stream().cuda_stream)]
-        assert int(counters.abs().sum()) == 0, (n, k, geometry)
+        assert int(counters.abs().sum()) == 0, (n, k)
 
 
-@pytest.mark.parametrize("n,k", [(1, 2), (8, 2), (16, 3), (64, 2), (65, 2),
-                                 (42, 3), (43, 3), (256, 2), (3, 70)])
-def test_intersect_geometry_follows_pool_rows(dev, n, k):
-    """The small geometry up to 128 input rows (n·k), the large one above;
-    either can be forced, and a pool whose k logits of one row do not fit
-    in a block's shared memory is refused."""
-    x = torch.empty((n, k, 800), device=dev)
-    assert intersect_geometry(x) == ("small" if n * k <= 128 else "large")
-    for geometry in GEOMETRIES:
-        assert intersect_geometry(x, geometry) == geometry
-    huge = torch.empty((1, 80_000, 8), device=dev)
-    for geometry in (None, *GEOMETRIES):
-        with pytest.raises(RuntimeError, match="intersect_geometry"):
-            intersect_geometry(huge, geometry)
+def test_intersect_refuses_a_row_whose_logits_do_not_fit(dev):
+    """A pool row's k logits must fit a block's shared memory: k = 80,000
+    is refused by the launch, and nothing is counted."""
+    _, w1, b1, w2, b2 = _intersect_inputs(dev, 1, 1, 8, 4, torch.float32)
+    before = kops.intersect.launches
+    with pytest.raises(RuntimeError, match="intersect"):
+        kops.intersect(torch.rand((1, 80_000, 8), device=dev), w1, b1, w2, b2)
+    assert kops.intersect.launches == before
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -273,8 +255,6 @@ def test_kernels_reject_what_they_do_not_take(dev):
                                kops.intersect_ref(x, w1, b1, w2, b2), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="k, d and hd"):
         kops.intersect(torch.randn(3, 0, 8, device=dev), w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="geometry"):
-        kops.intersect(x, w1, b1, w2, b2, geometry="wide")
 
 
 def _fuse_inputs(dev, E, d, dl, dp, n, table_dtype=torch.float32, seed=0):

@@ -16,9 +16,10 @@ torch.set_num_threads(1)
 
 SCORING_SHAPES = [(8, 64, 32), (70, 333, 96), (128, 256, 128)]
 # (8, 2, 800, 800): BetaE's serving shape at full width; k = 9: beyond the
-# eight inputs the first CUDA kernel took.
+# eight inputs the first CUDA kernel took; k = 1: nothing to attend over but
+# itself; k = 70: a pool row wider than the CUDA kernel's 64-row group.
 INTERSECT_SHAPES = [(16, 2, 32, 64), (100, 3, 64, 128), (64, 4, 128, 128),
-                    (8, 2, 800, 800), (6, 9, 64, 48)]
+                    (8, 2, 800, 800), (6, 9, 64, 48), (5, 1, 24, 16), (3, 70, 16, 8)]
 # tests/test_kernels.py:37: (E, d, dl, dp, n); n = 33 is ragged.
 GATHER_FUSE_SHAPES = [(40, 16, 32, 16, 8), (100, 64, 128, 32, 33)]
 
@@ -82,28 +83,6 @@ def test_intersect_shape_errors(shape, match):
     w1, b1, w2, b2 = torch.zeros(8, 4), torch.zeros(4), torch.zeros(4, 1), torch.zeros(1)
     with pytest.raises(ValueError, match=match):
         tops.intersect(torch.zeros(shape), w1, b1, w2, b2)
-
-
-@pytest.mark.parametrize("geometry", [None, "small", "large"])
-def test_intersect_takes_a_forced_geometry_and_rejects_others(geometry):
-    """A forced geometry is one of the kernel's two; on the CPU it changes
-    nothing (the plain version runs), and any other value is refused."""
-    x, w1, b1, w2, b2 = map(torch.from_numpy, _intersect_inputs(5, 3, 16, 24))
-    got = tops.intersect(x, w1, b1, w2, b2, geometry=geometry)
-    assert torch.equal(got, tops.intersect_ref(x, w1, b1, w2, b2))
-    with pytest.raises(ValueError, match="geometry"):
-        tops.intersect(x, w1, b1, w2, b2, geometry="wide")
-
-
-def test_intersect_geometry_query_needs_cuda():
-    """Which geometry a pool takes is the kernel library's own rule; asking
-    without CUDA raises instead of guessing."""
-    from repro_torch.kernels.intersect import intersect_geometry
-
-    if torch.cuda.is_available():
-        pytest.skip("this machine has CUDA")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        intersect_geometry(torch.zeros(8, 2, 800))
 
 
 @pytest.mark.parametrize("E,d,dl,dp,n", GATHER_FUSE_SHAPES)
