@@ -35,14 +35,25 @@ non-zero (printing no result) on any failed check:
    first, in the middle or last of pools of 1, 8, 16, 256 and 512 rows, and
    that a bf16 output is the fp32 kernel's output on the same x rounded once;
    its main path entry is timed beside a plain read of W1 (``stream_read``).
-4. Serve: BetaE, GQE and ComplEx at full width (dim 400) on a synthetic graph
-   with FB15k's Table 4 shape, through ``ServingEngine.submit``: one warm-up
-   window, then five timed closed-loop windows of fresh requests (QPS, p50
-   and p99 over all of them, and the spread between windows). Every result
-   has top-k finite scores, every recorded micro-batch replays identically
-   through ``serve_batch``, the first batch agrees with the plain path on the
-   CPU, and the kernels' launch counts (zeroed just before the timed windows)
-   show the path went through them.
+   The ``intersect`` backward (``csrc/intersect_backward.cu``) runs
+   training's pools (n = 64, 256 and 512, k = 2 and 3, d = hd = 800), a
+   ragged n, k = 1 and k = 12 against autograd through the plain version on
+   fp64 inputs (each element within 1e-4·|exact| +
+   ``intersect_backward_allowance``: sums of dL/dlogit cancel and relus
+   within rounding of 0 flip, so no tolerance on a gradient's own size
+   holds in fp32), repeats bitwise across two calls, and is timed beside its
+   bound and the fp32 plain version's time.
+4. Serve: all six families (BetaE, GQE, ComplEx, Q2B, Q2P, FuzzQE) at full
+   width (dim 400) on a synthetic graph with FB15k's Table 4 shape, through
+   ``ServingEngine.submit``: one warm-up window, then five timed closed-loop
+   windows of fresh requests (QPS, p50 and p99 over all of them, and the
+   spread between windows). Every result has top-k finite scores, every
+   recorded micro-batch replays identically through ``serve_batch``, the
+   first batch agrees with the plain path on the CPU, and the kernels'
+   launch counts (zeroed just before the timed windows) show the path went
+   through them (BetaE ``intersect``; GQE, ComplEx ``scoring``; the other
+   three reach no kernel and launch none). Each family's score phase (one
+   ``score_all`` of 16 queries against every entity) is timed.
 4b. Semantic serving: builds H_sem for the graph with the stub PTE
    (PTEConfig(): d_l 1024) into a temporary fp32 store, then serves GQE at
    ModelConfig(semantic_dim=1024) from two layouts with phase 4's windows —
@@ -53,11 +64,25 @@ non-zero (printing no result) on any failed check:
    agrees with the CPU plain path, the first out-of-core batch agrees with
    the resident layout within 1e-5, and the ``gather_fuse`` and ``scoring``
    launches equal what the recorded batches call for.
-5. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   serving path gave it most often; ``scoring`` has one entry for each path
-   that launches it (GQE, ComplEx, GQE+H_sem resident and out of core) and
-   ``gather_fuse`` one for each semantic layout, each with its own launches.
-6. The last line: ``{"ok": true, "device": {...}}``.
+5. Train at ``ModelConfig()`` with ``TrainConfig()``'s defaults (batch 512,
+   64 negatives, b_max 512, all 14 patterns, lr 1e-4) on phase 4's graph.
+   BetaE and GQE: the first step's loss (rtol 1e-4) and gradients (the CPU
+   parity tests' rtol, norm-wise against the CPU path's fp64 step) against
+   the CPU path on the same parameters and batch, then two warm-up and 20
+   timed fresh steps pooled and 20 query-level (steps/s,
+   queries/s, losses, all finite), with the ``intersect`` forward and
+   backward launches equal to what the prepared plans call for; then
+   ``evaluate`` on 256 sampled queries (GQE's ``scoring`` launches equal its
+   eval batches). Whether two runs of one seed give the same loss bits is
+   reported (not a gate). ComplEx, Q2B, Q2P and FuzzQE: three pooled steps
+   with finite losses.
+6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
+   main path gave it most often; ``scoring`` has one entry for each path
+   that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
+   GQE's ``evaluate``), ``gather_fuse`` one for each semantic layout, and
+   ``intersect`` one for serving and one for training, beside
+   ``intersect_backward`` for training, each with its own launches.
+7. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -86,6 +111,10 @@ TOP_K = 10
 SEM_DIM = 1024             # PTEConfig().d_l: Qwen3-Embedding-0.6B's width
 SEM_BUDGET = 2048          # out-of-core hot-set rows
 CHUNK = 4096               # score_all_chunked's default chunk
+FAMILIES = ("betae", "gqe", "complex", "q2b", "q2p", "fuzzqe")
+TRAIN_WARMUP = 2           # warm-up steps before each timed training run
+TRAIN_STEPS = 20           # timed steps, pooled and query-level
+EVAL_QUERIES = 256
 
 
 def fail(msg: str) -> None:
@@ -104,7 +133,7 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.core import TEMPLATES, OpType, PooledExecutor
+    from repro_torch.core import TEMPLATES, OpType, PooledExecutor, QueryLevelExecutor
     from repro_torch.data import generate_synthetic_kg
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
@@ -120,6 +149,7 @@ def main() -> None:
     from repro_torch.serving import (ServingConfig, ServingEngine,
                                      check_against_offline, latency_summary,
                                      run_closed_loop)
+    from repro_torch.training import NGDBTrainer, TrainConfig, evaluate
 
     # ------------------------------------------------------------ 1. device
     dev = torch.device("cuda")
@@ -304,6 +334,57 @@ def main() -> None:
         for k in (1, 8, 12):
             check_intersect(intersect_inputs(16, k, 800, 800, fp[dtype], gen), dtype)
 
+    def measure_intersect_backward(n: int, k: int, d: int, hd: int) -> dict:
+        """The backward kernel against the plain version (autograd through
+        ``intersect_ref``) on fp64 inputs: each element within 1e-4·|exact|
+        + its allowance (``intersect_backward_allowance``: 1e-5 of the
+        magnitudes of the terms it adds up, and what a relu within rounding
+        of 0 may add; sums of dL/dlogit cancel, so an fp32 backward's error
+        is no small share of the result's own size). Two calls give the same
+        bits. ``max_abs_err`` is against the fp32 plain version;
+        ``share_of_allowance`` the largest |error| / (1e-4·|exact| +
+        allowance) of the kernel and of the fp32 plain version."""
+        args = intersect_inputs(n, k, d, hd, torch.float32, gen)
+        g = torch.randn((n, d), generator=gen, device=dev)
+        got = kops.intersect_backward(*args, g)
+        again = kops.intersect_backward(*args, g)
+        plain = kops.intersect_backward_ref(*args, g)
+        exact = kops.intersect_backward_ref(*(t.double() for t in (*args, g)))
+        allowed = kops.intersect_backward_allowance(*args, g)
+        torch.cuda.synchronize()
+        err, shares = 0.0, {}
+        for name, a, p, e, al, c in zip(("dx", "dw1", "db1", "dw2", "db2"), got, plain,
+                                        exact, allowed, again):
+            tol = (1e-4 * e.abs() + al).clamp_min(1e-300)
+            share = [float(((t.double() - e).abs() / tol).max()) for t in (a, p)]
+            if share[0] > 1:
+                fail(f"intersect_backward {(n, k, d, hd)}: {name} uses {share[0]:.3g} of "
+                     f"its tolerance (the fp32 plain version {share[1]:.3g})")
+            if not torch.equal(a, c):
+                fail(f"intersect_backward {(n, k, d, hd)}: {name} differs between two "
+                     f"calls on the same inputs")
+            err = max(err, float((a - p).abs().max()))
+            shares[name] = [f"{v:.3g}" for v in share]
+        # x, g, dx, W1 and dW1, each once.
+        nbytes = (2 * n * k * d + n * d + 2 * d * hd) * 4
+        # The recomputed x·W1, dh·W1ᵀ and xᵀ·dh.
+        flops = 3 * 2 * n * k * d * hd
+        # As for the forward: the card's fastest route at fp32 accuracy is
+        # 3xTF32 on the tensor cores (three products a multiply-add); the
+        # kernel's own route is fp32 FMAs on the CUDA cores.
+        b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+        b32_ms, b32_by = bound(nbytes, flops, "float32")
+        return {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: kops.intersect_backward(*args, g), flush),
+            "plain_ms": time_ms(lambda: kops.intersect_backward_ref(*args, g), flush),
+            "library_ms": None,  # no single PyTorch call computes this function
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_cuda_cores_ms": b32_ms, "bound_fp32_cuda_cores_by": b32_by,
+            "shape": {"n": n, "k": k, "d": d, "hd": hd}, "dtype": "float32",
+            "share_of_allowance": shares,  # per gradient: [kernel, fp32 plain]
+        }
+
     def measure_gather_fuse(n: int, d: int, dl: int, dp: int, dtype: str,
                             layout: str, E: int) -> dict:
         """Fusion of n rows out of an E-row graph, as the serving path calls
@@ -398,6 +479,9 @@ def main() -> None:
         if "bound_fp32_cuda_cores_ms" in r:
             more = (f" | fp32 CUDA-core bound {r['bound_fp32_cuda_cores_ms']:.4f} "
                     f"({r['bound_fp32_cuda_cores_by']})")
+        if "share_of_allowance" in r:
+            more += (f" | share of tolerance vs fp64 (kernel, plain): "
+                     f"{r['share_of_allowance']}")
         if "read_floor_ms" in r and "ms_by_tile" not in r:
             more += f" | read floor (W1) {r['read_floor_ms']:.4f}"
         if "ms_by_tile" in r:
@@ -431,6 +515,12 @@ def main() -> None:
         check_intersect_bitwise(dtype)
         print(f"  intersect {dtype}: rows bitwise alike alone and in pools of 1 to "
               f"512 at every place; k = 1, 8, 12 match plain")
+        if dtype == "float32":  # training is fp32; the backward takes nothing else
+            for n, k in ((64, 2), (64, 3), (256, 2), (256, 3), (512, 2), (512, 3),
+                         (77, 3), (16, 1), (16, 12)):
+                show("intersect_backward", measure_intersect_backward(n, k, 800, 800))
+            show("intersect_backward", measure_intersect_backward(70, 3, 96, 72))
+            print("  intersect_backward: every shape matches plain and repeats bitwise")
         for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
                                            (CHUNK, 400, SEM_DIM, 64, "chunk", E),
                                            (E % CHUNK, 400, SEM_DIM, 64, "chunk", E),
@@ -459,7 +549,7 @@ def main() -> None:
 
     cfg = ModelConfig()
     main_path = {}   # kernel name -> (launches, Counter of shapes)
-    for family in ("betae", "gqe", "complex"):
+    for family in FAMILIES:
         model = make_model(family, cfg, device=dev)
         params = model.init_params(
             torch.Generator(device=dev).manual_seed(1), E, R)
@@ -511,13 +601,18 @@ def main() -> None:
                      f"by {err.max():.3g}")
             worst = max(worst, float(err.max()))
 
+        # The score phase: one score_all of a micro-batch of 16 states.
+        with torch.no_grad():
+            states = executor.encode(params, engine.batch_log[-1].queries)
+            score_ms = time_ms(lambda: model.score_all(params, states), flush)  # noqa: B023
+        need = {"betae": "intersect", "gqe": "scoring", "complex": "scoring"}.get(family)
         shapes = collections.Counter()
         for rec in engine.batch_log:
             if family == "betae":
                 for op, card, pn in executor.prepare(rec.queries).meta:
                     if op in (int(OpType.INTERSECT), int(OpType.UNION)):
                         shapes[(pn, card)] += 1
-            else:
+            elif need:
                 shapes[(len(rec.queries), E)] += 1
         l = latency_summary([res["latency_ms"] for res in results])
         wall = sum(rep.wall_s for rep in reports)
@@ -530,18 +625,23 @@ def main() -> None:
               f"launches {launches}, "
               f"{checked} replayed identically through serve_batch, max "
               f"|GPU - CPU plain| at top-{TOP_K} {worst:.3g} | "
-              f"kernel shapes {dict(shapes)}")
-        need = "intersect" if family == "betae" else "scoring"
-        if launches[need] == 0:
-            fail(f"{family}: the {need} kernel was never launched")
-        # One launch per intersect/union op (BetaE) or per micro-batch's
-        # score_all (GQE, ComplEx) of the timed windows, and no other.
-        if launches[need] != sum(shapes.values()):
-            fail(f"{family}: {launches[need]} {need} launches for "
-                 f"{sum(shapes.values())} calls in the recorded batches")
-        key = "intersect" if family == "betae" else f"scoring[{model.score_mode}]"
-        main_path[key] = (launches[need], shapes)
-        del engine, executor, model, params
+              f"score phase (score_all of {len(states)} queries x {E} entities) "
+              f"{score_ms:.4f} ms | kernel shapes {dict(shapes)}")
+        if need is None:
+            # Q2B, Q2P and FuzzQE reach no kernel, in the reference as here.
+            if any(launches.values()):
+                fail(f"{family}: launched {launches}, but its operators reach no kernel")
+        else:
+            if launches[need] == 0:
+                fail(f"{family}: the {need} kernel was never launched")
+            # One launch per intersect/union op (BetaE) or per micro-batch's
+            # score_all (GQE, ComplEx) of the timed windows, and no other.
+            if launches[need] != sum(shapes.values()):
+                fail(f"{family}: {launches[need]} {need} launches for "
+                     f"{sum(shapes.values())} calls in the recorded batches")
+            key = "intersect" if family == "betae" else f"scoring[{model.score_mode}]"
+            main_path[key] = (launches[need], shapes)
+        del engine, executor, model, params, states
         torch.cuda.empty_cache()
 
     # ------------------------------------------------- 4b. semantic serving
@@ -713,7 +813,192 @@ def main() -> None:
     finally:
         shutil.rmtree(sem_dir, ignore_errors=True)
 
-    # ------------------------------------------------- 5. the kernels line
+    # ------------------------------------------------------------- 5. train
+    tcfg = TrainConfig()
+    t0 = time.perf_counter()
+    batch_sampler = OnlineSampler(kg, patterns=tcfg.patterns, seed=7)
+    batches = [batch_sampler.sample_batch(tcfg.batch_size)
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    eval_queries = [b.query for b in OnlineSampler(kg, seed=9).sample_batch(EVAL_QUERIES)]
+    print(f"training: TrainConfig() (batch {tcfg.batch_size}, {tcfg.n_negatives} negatives, "
+          f"b_max {tcfg.b_max}, {len(tcfg.patterns)} patterns, lr {tcfg.adam.lr}) at "
+          f"ModelConfig() (dim {cfg.dim}); {len(batches)} batches and {EVAL_QUERIES} eval "
+          f"queries sampled in {time.perf_counter() - t0:.1f} s")
+    attn_ops = (int(OpType.INTERSECT), int(OpType.UNION))
+
+    def attn_calls(executor, queries) -> list:
+        """The (n, k) of every intersection and union op a training step on
+        ``queries`` runs: one plan pooled, one per pattern group query-level."""
+        if isinstance(executor, QueryLevelExecutor):
+            groups, _ = executor.prepare_groups(queries)
+            plans = [executor.prepare(g) for g in groups.values()]
+        else:
+            plans = [executor.prepare(queries)]
+        return [(pn, card) for p in plans for op, card, pn in p.meta if op in attn_ops]
+
+    def check_first_step(family: str, trainer) -> str:
+        """The first step's loss and gradients on the card against the CPU
+        path on the same parameters and batch. The loss within rtol 1e-4.
+        Each parameter's gradient, norm-wise against the exact (fp64) value
+        the CPU path computes: within the CPU parity tests' rtol (1e-4;
+        BetaE 1e-3) of its norm, or no further from it than four times the
+        CPU path's own fp32 gradient is. Two things keep an elementwise
+        tolerance from holding at full width: a few of the millions of
+        pre-activations fall within rounding of 0 and take the other side of
+        a relu on one device, moving the rows they feed; and the attention
+        heads' w2 gradients sum dL/dlogit, which cancels where a pool row's
+        inputs are alike, so fp32 rounding on either device is a large share
+        of them. How many elements lie beyond the tests' elementwise
+        tolerance against the CPU fp32 gradient (rtol, atol 1e-6·max|g|;
+        BetaE 1e-4·max|g|), and in how many rows, is reported. The
+        softmax-shift-invariant biases, whose exact gradient is 0, lie
+        within 1e-6 of the largest gradient."""
+        cpu_tr = NGDBTrainer(make_model(family, cfg, device="cpu"), kg, tcfg)
+        cpu_tr.load_params({k: v.cpu().numpy() for k, v in trainer.params.items()})
+        queries, pos, neg = OnlineSampler(kg, seed=8).to_training_arrays(
+            batches[0], tcfg.n_negatives)
+        out = []
+        for tr, dtype in ((trainer, torch.float32), (cpu_tr, torch.float32),
+                          (cpu_tr, torch.float64)):
+            tr.params = {k: v.to(dtype) for k, v in tr.params.items()}
+            plan = tr.executor.prepare(queries)
+            loss, _, grads = tr.loss_and_grads(plan, pos[plan.order], neg[plan.order])
+            out.append((float(loss), {k: g.cpu().double() for k, g in grads.items()}))
+        (loss, grads), (closs, cgrads), (_, exact) = out
+        if not (np.isfinite(loss) and abs(loss - closs) <= 1e-4 * abs(closs)):
+            fail(f"train {family}: first-step loss {loss!r} on the card, {closs!r} on the CPU")
+        rtol, frac = (1e-3, 1e-4) if family == "betae" else (1e-4, 1e-6)
+        top = max(float(g.abs().max()) for g in cgrads.values())
+        report, worst = [], (0.0, "", 0.0)
+        for k, want in cgrads.items():
+            got = grads[k]
+            if k in ("att_b1", "uatt_b1"):
+                if float(got.abs().max()) > 1e-6 * top:
+                    fail(f"train {family}: {k}'s gradient {float(got.abs().max()):.3g} is "
+                         f"not rounding beside the largest gradient {top:.3g}")
+                continue
+            norm = float(exact[k].norm())
+            err, cpu_err = float((got - exact[k]).norm()), float((want - exact[k]).norm())
+            if err > max(rtol * norm, 4 * cpu_err):
+                fail(f"train {family}: {k}'s gradient lies {err / norm:.3g} of its norm from "
+                     f"the fp64 value, the CPU path's fp32 one {cpu_err / norm:.3g}")
+            worst = max(worst, (err / norm, k, cpu_err / norm))
+            beyond = (got - want).abs() > frac * float(want.abs().max()) + rtol * want.abs()
+            if beyond.any():
+                rows = beyond.reshape(beyond.shape[0], -1).any(1).sum()
+                report.append(f"{k} {int(beyond.sum())} in {int(rows)} row(s)")
+        del cpu_tr
+        return (f"first step: loss {loss:.9g} (CPU {closs:.9g}); gradients against fp64 "
+                f"norm-wise: the furthest {worst[1]} at {worst[0]:.3g} (CPU fp32 "
+                f"{worst[2]:.3g}); beyond the elementwise tolerance against the CPU: "
+                f"{', '.join(report) or 'none'}")
+
+    def timed_run(family: str, mode: str) -> tuple:
+        """A fresh trainer: warm-up, then TRAIN_STEPS timed steps on fresh
+        batches (each step draws its negatives and compiles its plan, as in
+        training), with the kernels' counts zeroed just before and read just
+        after. Returns the trainer, the launches and the intersect/union
+        calls the plans call for."""
+        trainer = NGDBTrainer(make_model(family, cfg, device=dev), kg,
+                              TrainConfig(executor=mode))
+        note = check_first_step(family, trainer) if mode == "pooled" else ""
+        trainer.train(TRAIN_WARMUP, log_every=0, batches=batches[:TRAIN_WARMUP])
+        torch.cuda.synchronize()
+        kops.intersect.launches = kops.intersect_backward.launches = 0
+        kops.scoring.launches = 0
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(b)["loss"] for b in batches[TRAIN_WARMUP:]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"intersect": kops.intersect.launches,
+                    "intersect_backward": kops.intersect_backward.launches,
+                    "scoring": kops.scoring.launches}
+        # After the timed steps, so that they compiled their own plans (every
+        # batch is fresh); these prepares find them cached.
+        calls = [c for b in batches[TRAIN_WARMUP:]
+                 for c in attn_calls(trainer.executor, [x.query for x in b])]
+        if not np.isfinite(losses).all():
+            fail(f"train {family} {mode}: a loss is not finite: {losses}")
+        want = len(calls) if family == "betae" else 0
+        if (launches["intersect"], launches["intersect_backward"]) != (want, want):
+            fail(f"train {family} {mode}: {launches} for {want} intersection and union "
+                 f"ops in the plans")
+        if launches["scoring"]:
+            fail(f"train {family} {mode}: the loss launched scoring {launches['scoring']} times")
+        n_q = TRAIN_STEPS * tcfg.batch_size
+        print(f"train {family} [{mode}]: {TRAIN_STEPS} steps in {wall:.3f} s, "
+              f"{TRAIN_STEPS / wall:.2f} steps/s, {n_q / wall:.1f} queries/s | losses "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f} ({' '.join(f'{l:.6f}' for l in losses)}) "
+              f"| launches {launches}" + (f" | {note}" if note else ""))
+        return trainer, launches, collections.Counter(calls)
+
+    train_path = {"intersect": [0, collections.Counter()],
+                  "intersect_backward": [0, collections.Counter()]}
+    for family in ("betae", "gqe"):
+        for mode in ("pooled", "query_level"):
+            trainer, launches, pools = timed_run(family, mode)
+            if family == "betae":
+                for name in train_path:
+                    train_path[name][0] += launches[name]
+                    train_path[name][1].update(pools)
+                print(f"  intersect pools (n, k) of betae [{mode}] training: "
+                      f"{dict(sorted(pools.items()))}")
+            if mode == "pooled":
+                kops.scoring.launches = kops.intersect.launches = 0
+                t0 = time.perf_counter()
+                metrics = evaluate(trainer.model, trainer.params, trainer.executor, kg,
+                                   eval_queries, batch_size=64)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_batches = -(-EVAL_QUERIES // 64)
+                if not all(np.isfinite(v) for v in metrics.values()):
+                    fail(f"evaluate {family}: {metrics}")
+                if family == "gqe":
+                    if kops.scoring.launches != n_batches:
+                        fail(f"evaluate gqe: {kops.scoring.launches} scoring launches for "
+                             f"{n_batches} eval batches")
+                    main_path["scoring[l1][evaluate]"] = (
+                        kops.scoring.launches, collections.Counter({(64, E): n_batches}))
+                print(f"evaluate {family}: {EVAL_QUERIES} queries in {wall:.3f} s, mrr "
+                      f"{metrics['mrr']:.5f}, hits@1 {metrics['hits@1']:.5f}, hits@10 "
+                      f"{metrics['hits@10']:.5f} | launches scoring {kops.scoring.launches}, "
+                      f"intersect {kops.intersect.launches}")
+            del trainer
+            torch.cuda.empty_cache()
+    main_path["intersect[training]"] = tuple(train_path["intersect"])
+    main_path["intersect_backward"] = tuple(train_path["intersect_backward"])
+
+    # Two runs of one seed: the same loss bits? (reported, not a gate)
+    runs = []
+    for _ in range(2):
+        tr = NGDBTrainer(make_model("betae", cfg, device=dev), kg, tcfg)
+        queries, pos, neg = OnlineSampler(kg, seed=8).to_training_arrays(
+            batches[0], tcfg.n_negatives)
+        plan = tr.executor.prepare(queries)
+        _, _, grads = tr.loss_and_grads(plan, pos[plan.order], neg[plan.order])
+        losses = [r["loss"] for r in tr.train(3, log_every=0, batches=batches[:3])]
+        runs.append((losses, {k: g.clone() for k, g in grads.items()}))
+        del tr
+    differ = sorted(k for k in runs[0][1] if not torch.equal(runs[0][1][k], runs[1][1][k]))
+    print(f"determinism (betae, two runs of seed 0): loss bits "
+          f"{'equal' if runs[0][0] == runs[1][0] else 'differ'} over 3 steps "
+          f"({runs[0][0]} vs {runs[1][0]}); first-step gradients that differ bitwise: "
+          f"{differ or 'none'}")
+    del runs
+
+    for family in ("complex", "q2b", "q2p", "fuzzqe"):
+        trainer = NGDBTrainer(make_model(family, cfg, device=dev), kg, tcfg)
+        t0 = time.perf_counter()
+        losses = [r["loss"] for r in trainer.train(3, log_every=0, batches=batches[:3])]
+        torch.cuda.synchronize()
+        if not np.isfinite(losses).all():
+            fail(f"train {family}: a loss is not finite: {losses}")
+        print(f"train {family} [pooled]: 3 steps in {time.perf_counter() - t0:.3f} s, "
+              f"losses {' '.join(f'{l:.6f}' for l in losses)}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 6. the kernels line
     entries = []
     for key, (launches, shapes) in main_path.items():
         shape = shapes.most_common(1)[0][0]
@@ -722,11 +1007,18 @@ def main() -> None:
             r = measure_gather_fuse(n, cfg.dim, SEM_DIM, cfg.semantic_proj_dim,
                                     "float32", layout, E)
             src, replaces = "gather_fuse.cu", "src/repro/kernels/gather_fuse.py:77"
-        elif key == "intersect":
+        elif key in ("intersect", "intersect[training]"):
             n, k = shape
             r = measure_intersect(n, k, 2 * cfg.dim, cfg.dim * cfg.hidden_mult,
                                   "float32", detail=True)
             src, replaces = "intersect.cu", "src/repro/kernels/intersect.py:50"
+        elif key == "intersect_backward":
+            n, k = shape
+            r = measure_intersect_backward(n, k, 2 * cfg.dim, cfg.dim * cfg.hidden_mult)
+            # No Pallas counterpart: the reference differentiates its jnp
+            # path. This is the gradient of the row above's TPU kernel.
+            src, replaces = ("intersect_backward.cu",
+                             "src/repro/kernels/intersect.py:50 (its gradient)")
         else:
             mode = key[len("scoring["):].split("]")[0]
             B, N = shape

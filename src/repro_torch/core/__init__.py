@@ -1,7 +1,7 @@
 # The paper's primary contribution: operator-level batched execution.
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.compiler import PlanCache, build_plan, compile_batch, plan_to_dag
-from repro_torch.core.executor import PooledExecutor
+from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
 from repro_torch.core.ops import OpType
 from repro_torch.core.plan import CompiledPlan, PlanGraph, PlanNode, SharingReport
 from repro_torch.core.patterns import (
@@ -29,6 +29,7 @@ __all__ = [
     "PoolStep",
     "schedule",
     "PooledExecutor",
+    "QueryLevelExecutor",
     "CompiledPlan",
     "PlanGraph",
     "PlanNode",

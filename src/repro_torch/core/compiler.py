@@ -279,6 +279,8 @@ def compile_batch(
     *,
     model_name: str,
     b_max: int = 512,
+    reuse_slots: bool = True,
+    policy: str = "max_fillness",
     cse: bool = True,
     sched_cache=None,
     plan_cache: Optional[PlanCache] = None,
@@ -291,7 +293,7 @@ def compile_batch(
     ``plan_cache`` (a ``PlanCache``) sits in front of ALL of that: a batch
     whose exact query-key tuple was compiled before returns its plan with
     zero host work beyond building the key tuple."""
-    cfg_key = (model_name, b_max, cse)
+    cfg_key = (model_name, b_max, reuse_slots, policy, cse)
     exact_key = None
     if plan_cache is not None:
         exact_key = (tuple(q.key() for q in queries), cfg_key)
@@ -322,19 +324,20 @@ def compile_batch(
         patterns = list(plan.patterns)
         report = SharingReport(nodes_before=plan.nodes_before,
                                nodes_after=n)
-        key = ("cse",) + plan.topology_key() + (b_max,)
+        key = ("cse",) + plan.topology_key() + (b_max, reuse_slots, policy)
         lower = lambda: plan_to_dag(plan)  # noqa: E731
     else:
         dag = build_batched_dag(qs)
         rel, anchor, patterns = dag.rel, dag.anchor, dag.patterns
         report = SharingReport(nodes_before=dag.n_nodes,
                                nodes_after=dag.n_nodes)
-        key = dag.structure_key() + (b_max,)
+        key = dag.structure_key() + (b_max, reuse_slots, policy)
         lower = lambda: dag  # noqa: E731
 
     cached = sched_cache.get(key) if sched_cache is not None else None
     if cached is None:
-        sched = schedule(lower(), b_max=b_max)
+        sched = schedule(lower(), b_max=b_max, reuse_slots=reuse_slots,
+                         policy=policy)
         trash = sched.padded_slots
         meta = tuple(s.signature() for s in sched.steps)
         slot_arrays = [

@@ -100,9 +100,13 @@ class _SlotAllocator:
 def schedule(
     dag: BatchedDAG,
     b_max: int = 512,
+    reuse_slots: bool = True,
+    policy: str = "max_fillness",
 ) -> ExecutionSchedule:
-    """Algorithm 1 with Max-Fillness pool selection and eager slot reuse;
-    pools pad to powers of two (``bucket_size``)."""
+    """Algorithm 1. ``policy`` ∈ {max_fillness, fifo} — fifo is the ablation
+    baseline (executes pools in discovery order regardless of fill).
+    ``reuse_slots=False`` never frees a slot (no Eq. 7 reclamation). Pools
+    pad to powers of two (``bucket_size``)."""
     n = dag.n_nodes
     indeg = np.array([len(inp) for inp in dag.inputs], dtype=np.int64)
     refcount = dag.n_consumers.copy()
@@ -127,8 +131,11 @@ def schedule(
     steps: List[PoolStep] = []
 
     while pools:
-        # Eq. 4: rho(tau) = |pool| / B_max; argmax with stable tie-break.
-        key = max(pools, key=lambda k: (min(len(pools[k]), b_max), -order_hint[k]))
+        if policy == "max_fillness":
+            # Eq. 4: rho(tau) = |pool| / B_max; argmax with stable tie-break.
+            key = max(pools, key=lambda k: (min(len(pools[k]), b_max), -order_hint[k]))
+        else:  # fifo ablation
+            key = min(pools, key=lambda k: order_hint[k])
         nodes = pools[key]
         batch = nodes[:b_max]
         rest = nodes[b_max:]
@@ -164,7 +171,7 @@ def schedule(
         for v in batch:
             for j in dag.inputs[v]:
                 refcount[j] -= 1
-                if refcount[j] == 0:
+                if refcount[j] == 0 and reuse_slots:
                     alloc.release(int(slot_of[j]))
             for c in consumers[v]:
                 indeg[c] -= 1

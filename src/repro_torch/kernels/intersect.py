@@ -26,7 +26,12 @@ k >= 1. The TPU wrapper pads the logit head to 128 lanes; this one does not
 need to.
 
 ``intersect`` dispatches on where its inputs lie: CPU tensors take the plain
-version ``intersect_ref``; CUDA tensors launch the kernel or raise.
+version ``intersect_ref``; CUDA tensors launch the kernel or raise. On CUDA
+it is a ``torch.autograd.Function`` whose backward is the hand-written kernel
+of ``csrc/intersect_backward.cu`` (``intersect_backward``, fp32 only): the
+JAX package differentiates its jnp path and has no backward kernel to port.
+The backward recomputes h and the logits from x and the weights, so the
+forward saves only its inputs, and its arrival counters are its own.
 """
 from __future__ import annotations
 
@@ -42,13 +47,19 @@ _lock = threading.Lock()
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
+def _compute_dtype(x) -> torch.dtype:
+    """fp32, or fp64 for an fp64 x (the exact value the checks compare to)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def intersect_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     """Plain PyTorch version: x [n, k, d] -> [n, d] in x's dtype, computed in
-    fp32. Attention logits from a 2-layer MLP, softmax over k, weighted
-    combine (BetaE/Q2B-style intersection)."""
-    xf = x.float()
-    h = torch.relu(xf @ w1.float() + b1.float())        # [n, k, hd]
-    logits = h @ w2.float() + b2.float()                 # [n, k, 1]
+    fp32 (fp64 for fp64 x). Attention logits from a 2-layer MLP, softmax over
+    k, weighted combine (BetaE/Q2B-style intersection)."""
+    dt = _compute_dtype(x)
+    xf = x.to(dt)
+    h = torch.relu(xf @ w1.to(dt) + b1.to(dt))          # [n, k, hd]
+    logits = h @ w2.to(dt) + b2.to(dt)                   # [n, k, 1]
     att = torch.softmax(logits, dim=1)
     return (att * xf).sum(dim=1).to(x.dtype)
 
@@ -84,21 +95,49 @@ def _arrival_counters(x: torch.Tensor, groups: int) -> torch.Tensor:
         return buf
 
 
-def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
-    Counts each launch of the kernel in ``intersect.launches``."""
-    n, k, d, hd = _check_shapes(x, w1, b1, w2, b2)
-    params = (w1, b1, w2, b2)
-    if x.device.type == "cpu" and all(p.device.type == "cpu" for p in params):
-        return intersect_ref(x, w1, b1, w2, b2)
-    if x.device.type != "cuda" or any(p.device != x.device for p in params):
+def _on_cpu(tensors) -> bool:
+    """True when every tensor lies on the CPU; raises unless they all lie on
+    one CUDA device instead."""
+    x = tensors[0]
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"intersect: inputs must all lie on the CPU or on "
                          f"one CUDA device, got x on {x.device}")
-    if x.dtype not in DTYPES or any(p.dtype != torch.float32 for p in params):
+    return False
+
+
+def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
+    Counts each launch of the kernel in ``intersect.launches``; under
+    autograd its backward launches ``intersect_backward``."""
+    _check_shapes(x, w1, b1, w2, b2)
+    if _on_cpu((x, w1, b1, w2, b2)):
+        return intersect_ref(x, w1, b1, w2, b2)
+    if x.dtype not in DTYPES or any(p.dtype != torch.float32 for p in (w1, b1, w2, b2)):
         raise TypeError(f"intersect: x must be one of {list(DTYPES)} and the "
                         f"MLP float32, got {x.dtype}")
-    if not (x.is_contiguous() and all(p.is_contiguous() for p in params)):
+    if not all(t.is_contiguous() for t in (x, w1, b1, w2, b2)):
         raise ValueError("intersect: inputs must be contiguous")
+    return _Intersect.apply(x, w1, b1, w2, b2)
+
+
+class _Intersect(torch.autograd.Function):
+    """The forward kernel, and the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = intersect_backward(*ctx.saved_tensors, g.contiguous())
+        return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
+
+
+def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
+    n, k, d, hd = x.shape[0], x.shape[1], x.shape[2], w1.shape[1]
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
@@ -118,3 +157,92 @@ def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 intersect.launches = 0
+
+
+def intersect_backward_ref(x, w1, b1, w2, b2, g):
+    """Plain PyTorch version of ``intersect_backward``: autograd through
+    ``intersect_ref``. Returns (dx, dw1, db1, dw2, db2) in fp32 (fp64 for
+    fp64 x, the value the checks hold a backward to)."""
+    dt = _compute_dtype(x)
+    with torch.enable_grad():
+        leaves = [t.detach().to(dt).requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        return torch.autograd.grad(intersect_ref(*leaves), leaves, g.to(dt))
+
+
+def intersect_backward_allowance(x, w1, b1, w2, b2, g):
+    """For each gradient of ``intersect_backward_ref``, elementwise and in
+    fp64, how far an fp32 backward may lie from the exact value on top of
+    1e-4 of it. Two parts:
+
+    * 1e-5 of the sum of the magnitudes of the terms the element adds up,
+      carried through every intermediate (an fp32 sum's rounding error is a
+      small multiple of fp32's epsilon times that, whatever its order). The
+      size of an element is no such scale: dL/dlogit_j = att_j (datt_j -
+      sum_i att_i datt_i) cancels where a pool row's inputs are alike
+      (BetaE's states lie near one another), so the gradients that sum it —
+      dw2, db1, dw1, and db2, which is 0 in exact arithmetic — carry rounding
+      far above 1e-5 of their own size in any fp32 backward.
+    * the whole contribution of each pre-activation within 1e-5 of its
+      terms' magnitudes of 0: fp32 may put it on either side of the relu.
+    """
+    X, W1, B1, W2, B2, G = (t.detach().double() for t in (x, w1, b1, w2, b2, g))
+    n, k, d = X.shape
+    pre = X @ W1 + B1                                     # [n, k, hd]
+    h = torch.relu(pre)
+    att = torch.softmax(h @ W2 + B2, dim=1)[..., 0]      # [n, k]
+    gx = G[:, None, :] * X
+    datt = gx.sum(-1)
+    dlogit = att * (datt - (att * datt).sum(1, keepdim=True))
+    A = gx.abs().sum(-1)                                  # datt's terms
+    Dl = att * (A + (att * A).sum(1, keepdim=True))      # dlogit's, through datt
+    H = X.abs() @ W1.abs() + B1.abs()                     # pre's terms
+    w2a = W2.abs()[:, 0]
+    Dh = Dl[..., None] * w2a * (pre > 0)                  # dh's
+    # The dh an uncertain relu may add or drop, whole.
+    J = dlogit.abs()[..., None] * w2a * (pre.abs() <= 1e-5 * H)
+    Xa, W1a = X.abs().reshape(n * k, d), W1.abs()
+    return (
+        1e-5 * (att[..., None] * G[:, None, :].abs() + Dh @ W1a.T) + J @ W1a.T,
+        1e-5 * (Xa.T @ Dh.reshape(n * k, -1)) + Xa.T @ J.reshape(n * k, -1),
+        1e-5 * Dh.sum((0, 1)) + J.sum((0, 1)),
+        1e-5 * (h * Dl[..., None] + H * dlogit.abs()[..., None]).sum((0, 1))[:, None],
+        1e-5 * Dl.sum().reshape(1),
+    )
+
+
+def intersect_backward(x, w1, b1, w2, b2, g):
+    """Gradients of ``intersect`` given g = dL/dout [n, d]: (dx [n, k, d],
+    dw1 [d, hd], db1 [hd], dw2 [hd, 1], db2 [1]). CPU tensors take
+    ``intersect_backward_ref``; CUDA tensors launch the kernel of
+    ``csrc/intersect_backward.cu`` (fp32 and contiguous only) or raise.
+    Counts each launch in ``intersect_backward.launches``."""
+    n, k, d, hd = _check_shapes(x, w1, b1, w2, b2)
+    if tuple(g.shape) != (n, d):
+        raise ValueError(f"intersect_backward: need g [{n}, {d}], got {tuple(g.shape)}")
+    tensors = (x, w1, b1, w2, b2, g)
+    if _on_cpu(tensors):
+        return intersect_backward_ref(x, w1, b1, w2, b2, g)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"intersect_backward: every input must be float32, got x "
+                        f"{x.dtype} and g {g.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("intersect_backward: inputs must be contiguous")
+    dx = torch.empty_like(x)
+    dw1, db1, dw2, db2 = (torch.zeros_like(t) for t in (w1, b1, w2, b2))
+    if n == 0:
+        return dx, dw1, db1, dw2, db2
+    lib = build.load_library()
+    pre = torch.empty((n * k, hd), dtype=torch.float32, device=x.device)
+    att, dlogit = (torch.empty(n * k, dtype=torch.float32, device=x.device) for _ in range(2))
+    with torch.cuda.device(x.device):
+        err = lib.repro_intersect_backward(
+            x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), pre.data_ptr(), att.data_ptr(), dlogit.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, k, d, hd,
+            build.stream_handle(x))
+    build.check(lib, err, "intersect_backward")
+    intersect_backward.launches += 1
+    return dx, dw1, db1, dw2, db2
+
+
+intersect_backward.launches = 0

@@ -1,6 +1,7 @@
-"""Where one serving micro-batch spends its time on the GPU.
+"""Where one serving micro-batch, and one training step, spend their time on
+the GPU.
 
-For BetaE, GQE and ComplEx at full width on FB15k's Table 4 shape, and for
+For all six families at full width on FB15k's Table 4 shape, and for
 GQE with H_sem (d_l 1024, built by the stub PTE into a temporary store) in
 its resident and out-of-core layouts, serves warm micro-batches of 16 (the
 engine's ``max_batch``) through ``serve_batch``'s phases (hot-set staging,
@@ -15,6 +16,12 @@ pooled encode, all-entity scoring, host top-k) and prints, per model:
 * out of core, what the chunked scorer's host side costs alone: reading
   every row from the store, and copying them to the card from pageable
   memory.
+
+Then, for BetaE and GQE at ``ModelConfig()`` with ``TrainConfig()``'s
+defaults (batch 512, 64 negatives, all 14 patterns), pooled and query-level:
+a training step's wall time (median over warm steps, each ending in the
+loss readback), the card's busy time per step from a trace of the same
+steps, and the kernels that take the most device time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 """
@@ -37,7 +44,7 @@ from repro_torch.semantic import (SemanticCache, StubPTE,
                                   precompute_semantic_table_to_store)
 from repro_torch.serving import make_workload, scorer_for, topk_desc
 
-FAMILIES = ("betae", "gqe", "complex")
+FAMILIES = ("betae", "gqe", "complex", "q2b", "q2p", "fuzzqe")
 BATCH = 16     # queries per micro-batch
 REPS = 10      # batches timed, then traced
 TOP = 12       # kernels listed by device time
@@ -145,9 +152,76 @@ def profile_family(family: str, kg, device, store=None,
             **out}
 
 
+def _top_kernels(events, per: int) -> None:
+    for e in sorted(events, key=_device_us, reverse=True)[:TOP]:
+        if _device_us(e) > 0:
+            print(f"    {_device_us(e) / 1e3 / per:8.4f} ms/step "
+                  f"{e.count // per:5d} calls/step  {e.key[:80]}")
+
+
+def profile_training(family: str, mode: str, kg, device) -> dict:
+    """Warm sync training steps of ``family`` with the ``mode`` executor,
+    split into the trainer's phases: negatives (``to_training_arrays`` on
+    the host), the plan (``prepare`` on the host: canonicalize, CSE,
+    Max-Fillness; every batch is fresh, so no plan is reused) and the device
+    step (encode, loss, backward, Adam, the loss readback)."""
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.training import NGDBTrainer, TrainConfig
+    from repro_torch.training.optim import adam_update
+
+    cfg = TrainConfig(executor=mode)
+    trainer = NGDBTrainer(make_model(family, ModelConfig(), device=device), kg, cfg)
+    sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=11)
+    batches = [sampler.sample_batch(cfg.batch_size) for _ in range(2 * REPS + 3)]
+    ex = trainer.executor
+    for b in batches[:3]:   # warm: closures, kernel library, allocator
+        trainer.train_step(b)
+    phases = []
+    for b in batches[3:3 + REPS]:
+        t0 = time.perf_counter()
+        queries, pos, neg = trainer.sampler.to_training_arrays(b, cfg.n_negatives)
+        t1 = time.perf_counter()
+        if mode == "pooled":
+            plan = ex.prepare(queries)
+            t2 = time.perf_counter()
+            loss, _, grads = trainer.loss_and_grads(plan, pos[plan.order], neg[plan.order])
+            adam_update(grads, trainer.opt_state, trainer.params, cfg.adam)
+            float(loss)
+        else:
+            for group in ex.prepare_groups(queries)[0].values():
+                ex.prepare(group)
+            t2 = time.perf_counter()
+            trainer._query_level_step(queries, pos, neg)   # its plans are cached now
+        t3 = time.perf_counter()
+        phases.append((t1 - t0, t2 - t1, t3 - t2))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    traced = batches[3 + REPS:]
+    with torch.profiler.profile(activities=acts) as prof:
+        for b in traced:
+            trainer.train_step(b)
+    events = [e for e in prof.key_averages() if _on_device(e)]
+    device_ms = sum(_device_us(e) for e in events) / 1e3 / len(traced)
+    med = [statistics.median(p[i] for p in phases) * 1e3 for i in range(3)]
+    wall_ms = statistics.median(sum(p) for p in phases) * 1e3
+    print(f"train {family} [{mode}] on {torch.cuda.get_device_name(device)}: "
+          f"{cfg.batch_size} queries per step, {REPS} steps; wall {wall_ms:.3f} ms/step: "
+          f"negatives {med[0]:.3f}, plan {med[1]:.3f}, device step {med[2]:.3f} (medians); "
+          f"device busy {device_ms:.3f} ms/step ({device_ms / wall_ms:.1%}, traced "
+          f"train_step)")
+    _top_kernels(events, len(traced))
+    return {"train": family, "executor": mode, "batch": cfg.batch_size,
+            "wall_ms_per_step": wall_ms, "negatives_ms": med[0], "plan_ms": med[1],
+            "device_step_ms": med[2], "device_ms_per_step": device_ms,
+            "device_busy": device_ms / wall_ms}
+
+
 def main() -> None:
     device = resolve_device(None)
     kg, _, _ = load_dataset("FB15k", reduced=False, seed=0)
+    for family in ("betae", "gqe"):
+        for mode in ("pooled", "query_level"):
+            print(json.dumps(profile_training(family, mode, kg, device)))
+            torch.cuda.empty_cache()
     for family in FAMILIES:
         print(json.dumps(profile_family(family, kg, device)))
         torch.cuda.empty_cache()

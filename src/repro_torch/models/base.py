@@ -30,6 +30,7 @@ Params = Mapping[str, torch.Tensor]
 class ModelConfig:
     dim: int = 400                 # latent dimension (Table 5)
     gamma: float = 12.0            # margin (Table 5)
+    n_particles: int = 2           # Q2P
     hidden_mult: int = 2           # operator MLP width multiplier
     semantic_dim: int = 0          # d_l of the PTE manifold; 0 = structural-only
     semantic_proj_dim: int = 64    # F: R^{d_l} -> R^{proj} before concat (Eq. 12)
@@ -50,6 +51,33 @@ def mlp_params(sizes, prefix: str, generator: torch.Generator, device) -> Dict:
         p[f"{prefix}_w{i}"] = glorot((a, b), generator, device)
         p[f"{prefix}_b{i}"] = torch.zeros((b,), device=device)
     return p
+
+
+_SCALARS: Dict[float, torch.Tensor] = {}
+
+
+def _scalar(v: float) -> torch.Tensor:
+    """``v`` as a 0-dim fp32 CPU tensor, which binary ops take beside a
+    tensor on any device without a copy to it."""
+    t = _SCALARS.get(v)
+    if t is None:
+        t = _SCALARS[v] = torch.tensor(v, dtype=torch.float32)
+    return t
+
+
+# The JAX package's elementwise bounds, with its gradient at a tie: jnp.maximum
+# and jnp.minimum give each side half, and jnp.clip is their composition.
+# (clamp would pass the whole gradient at the bound.)
+def maximum(x: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.maximum(x, _scalar(v))
+
+
+def minimum(x: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.minimum(x, _scalar(v))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    return minimum(maximum(x, lo), hi)
 
 
 def mlp_apply(p: Params, prefix: str, x: torch.Tensor, n_layers: int) -> torch.Tensor:
@@ -317,7 +345,10 @@ def register_model(name: str):
 def _load_builtin():
     import repro_torch.models.betae  # noqa: F401
     import repro_torch.models.complex_e  # noqa: F401
+    import repro_torch.models.fuzzqe  # noqa: F401
     import repro_torch.models.gqe  # noqa: F401
+    import repro_torch.models.q2b  # noqa: F401
+    import repro_torch.models.q2p  # noqa: F401
 
 
 def make_model(name: str, cfg: Optional[ModelConfig] = None,

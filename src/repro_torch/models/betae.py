@@ -15,14 +15,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.base import QueryEncoder, mlp_apply, mlp_params, register_model
+from repro_torch.models.base import (QueryEncoder, clip, maximum, mlp_apply, mlp_params,
+                                     register_model)
 
 _EPS = 0.05
 _MAXP = 40.0
 
 
 def _clip(p):
-    return p.clamp(_EPS, _MAXP)
+    return clip(p, _EPS, _MAXP)
 
 
 def betaln(a, b):
@@ -74,7 +75,7 @@ class BetaE(QueryEncoder):
         return self._attn_combine(params, X, "uatt")
 
     def negate(self, params, x):
-        return _clip(1.0 / x.clamp_min(_EPS))
+        return _clip(1.0 / maximum(x, _EPS))
 
     def distance(self, params, q, ent_vec):
         ae, be = self._split(self.entity_state(params, ent_vec))

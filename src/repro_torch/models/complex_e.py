@@ -37,10 +37,10 @@ class ComplExE(QueryEncoder):
         return torch.cat([xr * rr - xi * ri, xr * ri + xi * rr], dim=-1)
 
     def intersect(self, params, X):
-        return X.min(dim=1).values
+        return X.amin(dim=1)
 
     def union(self, params, X):
-        return X.max(dim=1).values
+        return X.amax(dim=1)
 
     def negate(self, params, x):
         return -x

@@ -129,3 +129,16 @@ class OnlineSampler:
             p = p / p.sum()
         picks = self.rng.choice(len(names), size=batch_size, p=p)
         return [self.sample(names[i]) for i in picks]
+
+    # --------------------------------------------------------- train tensors
+    def to_training_arrays(self, batch: List[SampledQuery], n_negatives: int):
+        """(queries, positives [B], negatives [B,K]) — negatives are uniform
+        corruptions filtered against the (sampled) answer set."""
+        pos = np.array([b.answers[self.rng.integers(len(b.answers))] for b in batch])
+        neg = self.rng.integers(0, self.kg.n_entities, size=(len(batch), n_negatives))
+        for i, b in enumerate(batch):
+            bad = np.isin(neg[i], b.answers)
+            while bad.any():  # resample collisions (rare on sparse graphs)
+                neg[i, bad] = self.rng.integers(0, self.kg.n_entities, bad.sum())
+                bad = np.isin(neg[i], b.answers)
+        return [b.query for b in batch], pos, neg

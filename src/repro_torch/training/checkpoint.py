@@ -1,0 +1,135 @@
+"""Fault-tolerant checkpointing, in the JAX package's on-disk format.
+
+  * atomic   — write to a temporary directory, fsync, rename; a crash
+               mid-write never corrupts the latest checkpoint.
+  * verified — a manifest with a SHA256 per array; load refuses silent
+               bitrot and falls back to the previous valid checkpoint.
+  * portable — ``arrays.npz`` holds host numpy arrays under slash-joined
+               keys of the nested dict (``params/entity``, ``opt/m/entity``,
+               ``opt/step``), the keys the reference's pytree paths give, so
+               a checkpoint written by either package loads in the other.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+import time
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """(key, leaf) pairs of a nested dict in sorted-key order (the
+    reference's pytree order)."""
+    if isinstance(tree, Mapping):
+        out = []
+        for k in sorted(tree):
+            out.extend(_flatten(tree[k], f"{prefix}{k}/"))
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree, metadata: Optional[Dict] = None) -> str:
+    os.makedirs(directory, exist_ok=True)
+    name = f"ckpt_{step:010d}"
+    tmp = tempfile.mkdtemp(dir=directory, prefix=f".{name}.tmp")
+    manifest = {"step": step, "time": time.time(), "metadata": metadata or {}, "arrays": {}}
+    arrays = {}
+    for key, leaf in _flatten(tree):
+        arr = _host(leaf)
+        arrays[key] = arr
+        manifest["arrays"][key] = {
+            "shape": list(arr.shape),
+            "dtype": str(arr.dtype),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+        }
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    final = os.path.join(directory, name)
+    if os.path.exists(final):  # same step already published (e.g. final save)
+        shutil.rmtree(tmp, ignore_errors=True)
+        return final
+    os.rename(tmp, final)  # atomic publish
+    return final
+
+
+def _verify(path: str) -> bool:
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            for key, info in manifest["arrays"].items():
+                if hashlib.sha256(z[key].tobytes()).hexdigest() != info["sha256"]:
+                    return False
+        return True
+    except Exception:
+        return False
+
+
+def list_checkpoints(directory: str) -> List[str]:
+    if not os.path.isdir(directory):
+        return []
+    names = sorted(n for n in os.listdir(directory) if n.startswith("ckpt_"))
+    return [os.path.join(directory, n) for n in names]
+
+
+def _unflatten(template, arrays: Mapping[str, np.ndarray], prefix: str = ""):
+    """``template``'s nested dict of tensors with each leaf replaced by the
+    array of its key, as a tensor on that leaf's device and in its dtype."""
+    if isinstance(template, Mapping):
+        return {k: _unflatten(v, arrays, f"{prefix}{k}/") for k, v in template.items()}
+    return torch.from_numpy(np.array(arrays[prefix[:-1]])).to(template.device, template.dtype)
+
+
+def load_checkpoint(directory: str, template=None):
+    """Load the newest VALID checkpoint. Returns (step, tree, metadata) or
+    None; ``tree`` is the flat {key: array} dict, or ``template``'s
+    structure of tensors."""
+    for path in reversed(list_checkpoints(directory)):
+        if not _verify(path):
+            continue  # corrupted (e.g. node died mid-write pre-rename) — skip
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        if template is None:
+            return manifest["step"], arrays, manifest["metadata"]
+        return manifest["step"], _unflatten(template, arrays), manifest["metadata"]
+    return None
+
+
+class CheckpointManager:
+    """Rolling checkpoints + auto-resume, with retention policy."""
+
+    def __init__(self, directory: str, keep: int = 3, every: int = 100):
+        self.directory = directory
+        self.keep = keep
+        self.every = every
+
+    def maybe_save(self, step: int, tree, metadata=None, force=False) -> Optional[str]:
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return None
+        path = save_checkpoint(self.directory, step, tree, metadata)
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        for old in list_checkpoints(self.directory)[: -self.keep]:
+            shutil.rmtree(old, ignore_errors=True)
+
+    def restore(self, template=None):
+        return load_checkpoint(self.directory, template)

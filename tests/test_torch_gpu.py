@@ -257,6 +257,89 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kops.intersect(torch.randn(3, 0, 8, device=dev), w1, b1, w2, b2)
 
 
+# The backward's shapes: training pools (n = 64, 256, 512; k = 2, 3; d = hd =
+# 800), a ragged n, k = 1 and k = 12, and widths that end inside a tile.
+BACKWARD_SHAPES = [(64, 2, 800, 800), (64, 3, 800, 800), (256, 2, 800, 800),
+                   (256, 3, 800, 800), (512, 2, 800, 800), (512, 3, 800, 800),
+                   (77, 3, 800, 800), (16, 1, 800, 800), (16, 12, 800, 800),
+                   (70, 3, 96, 72), (5, 2, 33, 40)]
+
+
+def _backward_inputs(dev, n, k, d, hd, seed=0):
+    x, w1, b1, w2, b2 = _intersect_inputs(dev, n, k, d, hd, torch.float32, seed=seed)
+    g = torch.randn((n, d), generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                    device=dev)
+    return x, w1, b1, w2, b2, g
+
+
+@pytest.mark.parametrize("n,k,d,hd", BACKWARD_SHAPES)
+def test_intersect_backward_matches_plain(dev, n, k, d, hd):
+    """Each gradient against the plain version on fp64 inputs within
+    1e-4·|exact| + the allowance of ``intersect_backward_allowance`` an
+    element (1e-5 of the magnitudes of the terms it adds up, and what a relu
+    within rounding of 0 may add: sums of dL/dlogit cancel, so an fp32
+    backward's error is no small share of the result's own size)."""
+    args = _backward_inputs(dev, n, k, d, hd)
+    before = kops.intersect_backward.launches
+    got = kops.intersect_backward(*args)
+    torch.cuda.synchronize()
+    assert kops.intersect_backward.launches == before + 1
+    exact = kops.intersect_backward_ref(*(t.double() for t in args))
+    allowed = kops.intersect_backward_allowance(*args)
+    for name, a, e, al in zip(("dx", "dw1", "db1", "dw2", "db2"), got, exact, allowed):
+        assert a.shape == e.shape and a.dtype == torch.float32, name
+        excess = (a.double() - e).abs() - (1e-4 * e.abs() + al)
+        assert float(excess.max()) <= 0, (name, float(excess.max()))
+
+
+@pytest.mark.parametrize("n,k", [(512, 3), (77, 3), (16, 12)])
+def test_intersect_backward_repeats_bitwise(dev, n, k):
+    args = _backward_inputs(dev, n, k, 800, 800, seed=3)
+    first = kops.intersect_backward(*args)
+    second = kops.intersect_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_intersect_autograd_runs_both_kernels(dev):
+    """On the card, autograd through ``intersect`` launches the forward
+    kernel once and the backward kernel once, and its gradients are the
+    backward kernel's."""
+    x, w1, b1, w2, b2, g = _backward_inputs(dev, 64, 3, 800, 800, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    f0, b0 = kops.intersect.launches, kops.intersect_backward.launches
+    out = kops.intersect(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (kops.intersect.launches - f0, kops.intersect_backward.launches - b0) == (1, 1)
+    for a, b in zip(grads, kops.intersect_backward(x, w1, b1, w2, b2, g)):
+        assert torch.equal(a, b)
+
+
+def test_intersect_backward_rejects_what_it_does_not_take(dev):
+    x, w1, b1, w2, b2, g = _backward_inputs(dev, 8, 2, 64, 32)
+    before = kops.intersect_backward.launches
+    with pytest.raises(TypeError, match="float32"):
+        kops.intersect_backward(x.bfloat16(), w1, b1, w2, b2, g)
+    with pytest.raises(TypeError, match="float32"):
+        kops.intersect_backward(x, w1, b1, w2, b2, g.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.intersect_backward(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                w1, b1, w2, b2, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.intersect_backward(x, w1, b1, w2, b2, g.T.contiguous().T)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kops.intersect_backward(x, w1, b1, w2, b2, g.cpu())
+    with pytest.raises(ValueError, match=r"need g \[8, 64\]"):
+        kops.intersect_backward(x, w1, b1, w2, b2, g[:4])
+    assert kops.intersect_backward.launches == before
+    # bf16 x trains nothing: its forward runs, its backward raises.
+    xb = x.bfloat16().requires_grad_(True)
+    with pytest.raises(TypeError, match="float32"):
+        kops.intersect(xb, w1, b1, w2, b2).float().sum().backward()
+
+
 def _fuse_inputs(dev, E, d, dl, dp, n, table_dtype=torch.float32, seed=0):
     """Tables, ids and the model's own initializers for gather_fuse."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -403,7 +486,7 @@ def test_gather_fuse_rejects_what_it_does_not_take(dev):
         kops.gather_fuse(ids, h_str, h_sem.cpu(), wp, bp, wf, bf)
 
 
-@pytest.mark.parametrize("name", ["betae", "gqe", "complex"])
+@pytest.mark.parametrize("name", ["betae", "gqe", "complex", "q2b", "q2p", "fuzzqe"])
 def test_engine_on_gpu_matches_cpu_plain_path(dev, name):
     """A small GPU engine run replays identically through serve_batch and
     agrees with the same weights served on the CPU through the plain
@@ -426,8 +509,11 @@ def test_engine_on_gpu_matches_cpu_plain_path(dev, name):
     with ServingEngine(model, params, executor=ex, device=dev,
                        cfg=ServingConfig(max_batch=8, record_batches=True)) as eng:
         results = [f.result(timeout=120) for f in eng.submit_many(queries)]
-    launched = kops.intersect.launches if name == "betae" else kops.scoring.launches
-    assert launched > 0
+    if name in ("betae", "gqe", "complex"):
+        # BetaE's set operators run intersect; GQE and ComplEx score with
+        # scoring; the other families reach no kernel.
+        launched = kops.intersect.launches if name == "betae" else kops.scoring.launches
+        assert launched > 0
     check_against_offline(eng.batch_log, lambda qs: serve_batch(
         model, params, ex, qs, top_k=10, device=dev)[0])
     cpu_model = make_model(name, cfg, device="cpu")
@@ -439,3 +525,45 @@ def test_engine_on_gpu_matches_cpu_plain_path(dev, name):
     for got, want in zip(results, cpu_res):
         np.testing.assert_allclose(got["scores"], want["scores"],
                                    rtol=1e-4, atol=2e-3)
+
+
+def test_betae_training_step_on_gpu_matches_cpu(dev):
+    """One BetaE training step on the card through the forward and backward
+    ``intersect`` kernels: one launch of each per intersection or union op of
+    the plan, and the loss and every gradient agree with the CPU path on the
+    same parameters and batch (the CPU parity tests' BetaE tolerance: rtol
+    1e-3, atol 1e-4·max|g|; the softmax-shift-invariant biases, whose exact
+    gradient is 0, within 1e-6 of the largest gradient)."""
+    from repro_torch.core import OpType
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.training import AdamConfig, NGDBTrainer, TrainConfig
+
+    kg = generate_synthetic_kg(300, 12, 3000, seed=0)
+    cfg = TrainConfig(batch_size=64, n_negatives=8, b_max=32, adam=AdamConfig(lr=3e-3))
+    gpu = NGDBTrainer(make_model("betae", ModelConfig(dim=32), device=dev), kg, cfg)
+    cpu = NGDBTrainer(make_model("betae", ModelConfig(dim=32), device="cpu"), kg, cfg)
+    cpu.load_params({k: v.cpu().numpy() for k, v in gpu.params.items()})
+    batch = OnlineSampler(kg, seed=3).sample_batch(64)
+    queries, pos, neg = OnlineSampler(kg, seed=4).to_training_arrays(batch, 8)
+    plan = gpu.executor.prepare(queries)
+    attn = sum(op in (int(OpType.INTERSECT), int(OpType.UNION)) for op, _, _ in plan.meta)
+    f0, b0 = kops.intersect.launches, kops.intersect_backward.launches
+    loss, _, grads = gpu.loss_and_grads(plan, pos[plan.order], neg[plan.order])
+    torch.cuda.synchronize()
+    assert attn > 0
+    assert (kops.intersect.launches - f0, kops.intersect_backward.launches - b0) == (attn, attn)
+    cplan = cpu.executor.prepare(queries)
+    closs, _, cgrads = cpu.loss_and_grads(cplan, pos[cplan.order], neg[cplan.order])
+    np.testing.assert_allclose(float(loss), float(closs), rtol=1e-4)
+    top = max(float(g.abs().max()) for g in cgrads.values())
+    for k, want in cgrads.items():
+        got = grads[k].cpu()
+        if k in ("att_b1", "uatt_b1"):
+            assert float(got.abs().max()) <= 1e-6 * top, k
+            continue
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * float(want.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    rec_gpu, rec_cpu = gpu.train_step(batch), cpu.train_step(batch)
+    assert rec_gpu["loss"] == pytest.approx(rec_cpu["loss"], rel=1e-4)

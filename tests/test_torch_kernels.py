@@ -213,7 +213,7 @@ def _gather_fuse_args(device):
             torch.empty(12, 8, device=device), torch.empty(8, device=device))
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect", "gather_fuse"])
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse"])
 def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
     meta = torch.empty((4, 2, 8), device="meta")
     if kernel == "scoring":
@@ -227,10 +227,13 @@ def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
         w1, b1, w2, b2 = (torch.zeros(8, 16), torch.zeros(16),
                           torch.zeros(16, 1), torch.zeros(1))
         with pytest.raises(ValueError):
-            tops.intersect(meta, w1, b1, w2, b2)
+            if kernel == "intersect":
+                tops.intersect(meta, w1, b1, w2, b2)
+            else:
+                tops.intersect_backward(meta, w1, b1, w2, b2, torch.zeros(4, 8))
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect", "gather_fuse"])
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
     """A wrapper handed CUDA tensors (fake ones: this machine has no card)
     asks for its kernel and raises; it never takes the plain version."""
@@ -239,7 +242,7 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     before = (tops.scoring.launches, tops.intersect.launches,
-              tops.gather_fuse.launches)
+              tops.intersect_backward.launches, tops.gather_fuse.launches)
     with FakeTensorMode(), pytest.raises(RuntimeError, match="CUDA is not available"):
         if kernel == "gather_fuse":
             tops.gather_fuse(*_gather_fuse_args("cuda"))
@@ -247,13 +250,15 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
             tops.scoring(torch.empty(4, 8, device="cuda"),
                          torch.empty(5, 8, device="cuda"), 1.0, "l1")
         else:
-            tops.intersect(torch.empty(3, 2, 8, device="cuda"),
-                           torch.empty(8, 16, device="cuda"),
-                           torch.empty(16, device="cuda"),
-                           torch.empty(16, 1, device="cuda"),
-                           torch.empty(1, device="cuda"))
+            args = (torch.empty(3, 2, 8, device="cuda"), torch.empty(8, 16, device="cuda"),
+                    torch.empty(16, device="cuda"), torch.empty(16, 1, device="cuda"),
+                    torch.empty(1, device="cuda"))
+            if kernel == "intersect":
+                tops.intersect(*args)
+            else:
+                tops.intersect_backward(*args, torch.empty(3, 8, device="cuda"))
     assert (tops.scoring.launches, tops.intersect.launches,
-            tops.gather_fuse.launches) == before
+            tops.intersect_backward.launches, tops.gather_fuse.launches) == before
 
 
 def test_kernel_library_needs_cuda():

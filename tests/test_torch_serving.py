@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (BETAE_DISTANCE, ENCODE, FAMILIES, FP32,
-                          carried_models, queries)
+from test_torch_models import FAMILIES
+from torch_parity import BETAE_DISTANCE, ENCODE, FP32, carried_models, queries
 
 torch.set_num_threads(1)
 
