@@ -36,9 +36,10 @@ non-zero (printing no result) on any failed check:
    that a bf16 output is the fp32 kernel's output on the same x rounded once;
    its main path entry is timed beside a plain read of W1 (``stream_read``).
    The ``intersect`` backward (``csrc/intersect_backward.cu``) runs
-   training's pools (n = 64, 256 and 512, k = 2 and 3, d = hd = 800), a
-   ragged n, k = 1 and k = 12 against autograd through the plain version on
-   fp64 inputs (each element within 1e-4·|exact| +
+   every pool BetaE training gives it (n = 32 to 512, k = 2 and 3, d = hd =
+   800), a ragged n, k = 1, k = 12 and narrow widths
+   (``launch/time_kernels.py::BACKWARD_SHAPES``) against autograd through the
+   plain version on fp64 inputs (each element within 1e-4·|exact| +
    ``intersect_backward_allowance``: sums of dL/dlogit cancel and relus
    within rounding of 0 flip, so no tolerance on a gradient's own size
    holds in fp32), repeats bitwise across two calls, and is timed beside its
@@ -71,7 +72,9 @@ non-zero (printing no result) on any failed check:
    the CPU path on the same parameters and batch, then two warm-up and 20
    timed fresh steps pooled and 20 query-level (steps/s,
    queries/s, losses, all finite), with the ``intersect`` forward and
-   backward launches equal to what the prepared plans call for; then
+   backward launches equal to what the prepared plans call for, and the
+   backward's device ms a BetaE step, pooled and query-level (calls × phase
+   3's time at each pool of the timed run, over its steps); then
    ``evaluate`` on 256 sampled queries (GQE's ``scoring`` launches equal its
    eval batches). Whether two runs of one seed give the same loss bits is
    reported (not a gate). ComplEx, Q2B, Q2P and FuzzQE: three pooled steps
@@ -137,10 +140,12 @@ def main() -> None:
     from repro_torch.data import generate_synthetic_kg
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.intersect import GRADIENTS, backward_shares
     from repro_torch.kernels.scoring import TILES
     from repro_torch.kernels.timing import (flush_buffer, intersect_inputs, stream_read,
                                             time_ms)
     from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.time_kernels import BACKWARD_SHAPES
     from repro_torch.models import ModelConfig, make_model, params_from_numpy
     from repro_torch.models.base import glorot
     from repro_torch.sampling import OnlineSampler
@@ -352,11 +357,10 @@ def main() -> None:
         exact = kops.intersect_backward_ref(*(t.double() for t in (*args, g)))
         allowed = kops.intersect_backward_allowance(*args, g)
         torch.cuda.synchronize()
+        used = [backward_shares(t, exact, allowed) for t in (got, plain)]
         err, shares = 0.0, {}
-        for name, a, p, e, al, c in zip(("dx", "dw1", "db1", "dw2", "db2"), got, plain,
-                                        exact, allowed, again):
-            tol = (1e-4 * e.abs() + al).clamp_min(1e-300)
-            share = [float(((t.double() - e).abs() / tol).max()) for t in (a, p)]
+        for name, a, p, c in zip(GRADIENTS, got, plain, again):
+            share = [used[0][name], used[1][name]]
             if share[0] > 1:
                 fail(f"intersect_backward {(n, k, d, hd)}: {name} uses {share[0]:.3g} of "
                      f"its tolerance (the fp32 plain version {share[1]:.3g})")
@@ -369,9 +373,9 @@ def main() -> None:
         nbytes = (2 * n * k * d + n * d + 2 * d * hd) * 4
         # The recomputed x·W1, dh·W1ᵀ and xᵀ·dh.
         flops = 3 * 2 * n * k * d * hd
-        # As for the forward: the card's fastest route at fp32 accuracy is
-        # 3xTF32 on the tensor cores (three products a multiply-add); the
-        # kernel's own route is fp32 FMAs on the CUDA cores.
+        # The card's fastest route at fp32 accuracy, and the kernel's: 3xTF32
+        # on the tensor cores (three products a multiply-add); beside it the
+        # same work as fp32 FMAs on the CUDA cores.
         b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
         b32_ms, b32_by = bound(nbytes, flops, "float32")
         return {
@@ -496,6 +500,7 @@ def main() -> None:
               f"{r['bound_ms']:.4f} ({r['bound_by']}){more}")
 
     E, R, T = FB15K
+    backward_ms = {}  # (n, k) at d = hd = 800 -> the backward's time
     print("kernels against their plain versions:")
     for dtype in ("float32", "bfloat16"):
         for mode in ("l1", "dot"):
@@ -516,10 +521,11 @@ def main() -> None:
         print(f"  intersect {dtype}: rows bitwise alike alone and in pools of 1 to "
               f"512 at every place; k = 1, 8, 12 match plain")
         if dtype == "float32":  # training is fp32; the backward takes nothing else
-            for n, k in ((64, 2), (64, 3), (256, 2), (256, 3), (512, 2), (512, 3),
-                         (77, 3), (16, 1), (16, 12)):
-                show("intersect_backward", measure_intersect_backward(n, k, 800, 800))
-            show("intersect_backward", measure_intersect_backward(70, 3, 96, 72))
+            for n, k, d, hd in BACKWARD_SHAPES:
+                r = measure_intersect_backward(n, k, d, hd)
+                if (d, hd) == (800, 800):
+                    backward_ms[n, k] = r["ms"]
+                show("intersect_backward", r)
             print("  intersect_backward: every shape matches plain and repeats bitwise")
         for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
                                            (CHUNK, 400, SEM_DIM, 64, "chunk", E),
@@ -943,6 +949,14 @@ def main() -> None:
                     train_path[name][1].update(pools)
                 print(f"  intersect pools (n, k) of betae [{mode}] training: "
                       f"{dict(sorted(pools.items()))}")
+                dim2, hid = 2 * cfg.dim, cfg.dim * cfg.hidden_mult
+                for n, k in pools:
+                    if (n, k) not in backward_ms:
+                        backward_ms[n, k] = measure_intersect_backward(n, k, dim2, hid)["ms"]
+                step_ms = sum(c * backward_ms[p] for p, c in pools.items()) / TRAIN_STEPS
+                print(f"  intersect_backward: {step_ms:.4f} ms of device time a betae "
+                      f"[{mode}] step ({sum(pools.values())} calls over {TRAIN_STEPS} steps, "
+                      f"each at its pool's time in phase 3)")
             if mode == "pooled":
                 kops.scoring.launches = kops.intersect.launches = 0
                 t0 = time.perf_counter()

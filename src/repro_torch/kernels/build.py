@@ -112,8 +112,12 @@ def load_library() -> ctypes.CDLL:
             lib.repro_scoring_aligned.restype = i
             lib.repro_intersect_fused.argtypes = [p] * 8 + [i] * 5 + [p]
             lib.repro_intersect_fused.restype = i
-            lib.repro_intersect_backward.argtypes = [p] * 14 + [i] * 4 + [p]
+            lib.repro_intersect_backward.argtypes = [p] * 13 + [i] * 4 + [p]
             lib.repro_intersect_backward.restype = i
+            lib.repro_intersect_backward_scratch.argtypes = [i, i, i]
+            lib.repro_intersect_backward_scratch.restype = ctypes.c_longlong
+            lib.repro_intersect_backward_groups.argtypes = [i, i]
+            lib.repro_intersect_backward_groups.restype = i
             lib.repro_intersect_groups.argtypes = [i, i]
             lib.repro_intersect_groups.restype = i
             ll = ctypes.c_longlong

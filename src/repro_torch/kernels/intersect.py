@@ -31,7 +31,12 @@ it is a ``torch.autograd.Function`` whose backward is the hand-written kernel
 of ``csrc/intersect_backward.cu`` (``intersect_backward``, fp32 only): the
 JAX package differentiates its jnp path and has no backward kernel to port.
 The backward recomputes h and the logits from x and the weights, so the
-forward saves only its inputs, and its arrival counters are its own.
+forward saves only its inputs. It is two launches of thread block clusters
+with its products on the tensor cores in 3xTF32: the first recomputes
+x·W1 + b1 into scratch and, in the cluster that arrives last for a row
+group, the softmax and dL/dlogit; the second takes dW1 (db1 as one more
+row; dw2 and db2 in its first row of tiles) and dx. Its arrival counters
+are its own, one buffer per (device, stream) apart from the forward's.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
+# Arrival counters per (device index, stream): the forward's, and the
+# backward's apart from them.
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+_backward_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _compute_dtype(x) -> torch.dtype:
@@ -81,17 +89,18 @@ def _check_shapes(x, w1, b1, w2, b2):
     return n, k, d, hd
 
 
-def _arrival_counters(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """The kernel's per-row-group arrival counters for PyTorch's current
-    stream on x's device: zero between launches (the last arrival resets
-    its counter), so one buffer serves every launch on that stream, and
-    launches on two streams never share one."""
+def _arrival_counters(x: torch.Tensor, groups: int, table=_counters) -> torch.Tensor:
+    """A kernel's per-row-group arrival counters for PyTorch's current
+    stream on x's device, from ``table`` (the forward's or the backward's):
+    zero between launches (the last arrival resets its counter), so one
+    buffer serves every launch of that kernel on that stream, and launches
+    on two streams never share one."""
     key = (x.device.index, build.stream_handle(x))
     with _lock:
-        buf = _counters.get(key)
+        buf = table.get(key)
         if buf is None or buf.numel() < groups:
             size = 1 << max(groups - 1, 0).bit_length()
-            buf = _counters[key] = torch.zeros(size, dtype=torch.int32, device=x.device)
+            buf = table[key] = torch.zeros(size, dtype=torch.int32, device=x.device)
         return buf
 
 
@@ -210,6 +219,18 @@ def intersect_backward_allowance(x, w1, b1, w2, b2, g):
     )
 
 
+GRADIENTS = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+def backward_shares(grads, exact, allowed) -> dict[str, float]:
+    """For each gradient of a backward, the largest |error| / (1e-4·|exact|
+    + allowance) over its elements against ``exact`` (the plain version on
+    fp64 inputs) and ``allowed`` (``intersect_backward_allowance``): the
+    share of its tolerance it uses, at most 1 to pass."""
+    return {name: float(((t.double() - e).abs() / (1e-4 * e.abs() + al).clamp_min(1e-300)).max())
+            for name, t, e, al in zip(GRADIENTS, grads, exact, allowed)}
+
+
 def intersect_backward(x, w1, b1, w2, b2, g):
     """Gradients of ``intersect`` given g = dL/dout [n, d]: (dx [n, k, d],
     dw1 [d, hd], db1 [hd], dw2 [hd, 1], db2 [1]). CPU tensors take
@@ -227,17 +248,21 @@ def intersect_backward(x, w1, b1, w2, b2, g):
                         f"{x.dtype} and g {g.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("intersect_backward: inputs must be contiguous")
-    dx = torch.empty_like(x)
-    dw1, db1, dw2, db2 = (torch.zeros_like(t) for t in (w1, b1, w2, b2))
     if n == 0:
-        return dx, dw1, db1, dw2, db2
+        return (torch.empty_like(x), *(torch.zeros_like(t) for t in (w1, b1, w2, b2)))
+    # The kernel writes every element of every gradient.
+    dx, dw1, db1, dw2, db2 = (torch.empty_like(t) for t in (x, w1, b1, w2, b2))
     lib = build.load_library()
-    pre = torch.empty((n * k, hd), dtype=torch.float32, device=x.device)
-    att, dlogit = (torch.empty(n * k, dtype=torch.float32, device=x.device) for _ in range(2))
+    # Scratch: x·W1 + b1, the partial logits and <g, x> of each depth chunk,
+    # attention weights and dL/dlogit.
+    scratch = torch.empty(lib.repro_intersect_backward_scratch(n, k, hd),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        counters = _arrival_counters(x, lib.repro_intersect_backward_groups(n, k),
+                                     _backward_counters)
         err = lib.repro_intersect_backward(
             x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), pre.data_ptr(), att.data_ptr(), dlogit.data_ptr(), dx.data_ptr(),
+            b2.data_ptr(), scratch.data_ptr(), counters.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, k, d, hd,
             build.stream_handle(x))
     build.check(lib, err, "intersect_backward")

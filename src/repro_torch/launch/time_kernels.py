@@ -2,7 +2,7 @@
 one process on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.time_kernels \\
-        --kernel scoring|gather_fuse|intersect --baseline DIR
+        --kernel scoring|gather_fuse|intersect|intersect_backward --baseline DIR
 
 DIR is the root of another checkout of the repository (for example a
 ``git archive`` of the parent commit, unpacked): its
@@ -27,6 +27,15 @@ once beside them. Both kernels are held to the plain version first.
   W1 once). The baseline is called through the
   parent's C entry ``repro_intersect`` (two launches, ``partial`` sized
   [repro_intersect_tiles(hd), n·k]), as that checkout has it.
+- ``intersect_backward`` (fp32): every shape of ``BACKWARD_SHAPES``, the
+  list ``chip_smoke.py`` checks too (every pool BetaE training gives it,
+  ragged and narrow ones). Both kernels are first held to the plain version
+  on fp64 inputs within 1e-4·|exact| + ``intersect_backward_allowance``.
+  Each row also splits one call of this checkout's kernel by launch
+  (``torch.profiler``, L2 warm). The baseline is called through the
+  five-launch C entry of the commits before the cluster design (14
+  pointers with ``pre`` [n·k, hd], ``att`` and ``dlogit`` [n·k] as its
+  scratch, 4 ints and the stream).
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line with every time.
@@ -61,23 +70,45 @@ SEM_BUDGET = 2048
 INTERSECT_SHAPES = ((8, 2), (4, 2), (1, 2), (2, 2), (4, 3), (1, 3), (2, 3), (16, 2), (8, 3),
                     (16, 3), (256, 2), (256, 3), (512, 3))
 INTERSECT_DIMS = (800, 800)  # d = 2·dim (BetaE's state), hd = dim·hidden_mult
+# (n, k, d, hd) at which chip_smoke.py and this CLI check and time the
+# intersect backward: every pool BetaE training gives it at d = hd = 800
+# (n = 32 to 512, k = 2 or 3), a ragged n, k = 1 and k = 12, and widths that
+# end inside a tile (d = 33: no 16-byte loads).
+BACKWARD_SHAPES = ((32, 2, 800, 800), (64, 2, 800, 800), (64, 3, 800, 800), (128, 2, 800, 800),
+                   (128, 3, 800, 800), (256, 2, 800, 800), (256, 3, 800, 800),
+                   (512, 2, 800, 800), (512, 3, 800, 800), (77, 3, 800, 800),
+                   (16, 1, 800, 800), (16, 12, 800, 800), (70, 3, 96, 72), (5, 2, 33, 40))
 
 
-def load_baseline(root: Path) -> ctypes.CDLL:
-    """The other checkout's kernel library, built from its sources."""
-    lib = ctypes.CDLL(str(build.build_library(root / "src" / "repro_torch" / "kernels" / "csrc")))
+def declare_baseline(lib, kernel: str):
+    """Declare the C signatures of the other library's entry for ``kernel``
+    (only those: an older checkout lacks the newer entries) and of its
+    error string."""
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
-    lib.repro_scoring.restype = i
-    lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
-    lib.repro_gather_fuse.restype = i
-    lib.repro_intersect.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.repro_intersect.restype = i
-    lib.repro_intersect_tiles.argtypes = [i]
-    lib.repro_intersect_tiles.restype = i
+    if kernel == "scoring":
+        lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
+        lib.repro_scoring.restype = i
+    elif kernel == "gather_fuse":
+        lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
+        lib.repro_gather_fuse.restype = i
+    elif kernel == "intersect":
+        lib.repro_intersect.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.repro_intersect.restype = i
+        lib.repro_intersect_tiles.argtypes = [i]
+        lib.repro_intersect_tiles.restype = i
+    else:  # the five-launch backward: x, g, w1, b1, w2, b2, pre, att, dlogit,
+        # dx, dw1, db1, dw2, db2; n, k, d, hd; the stream
+        lib.repro_intersect_backward.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.repro_intersect_backward.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def load_baseline(root: Path, kernel: str) -> ctypes.CDLL:
+    """The other checkout's kernel library, built from its sources."""
+    csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    return declare_baseline(ctypes.CDLL(str(build.build_library(csrc))), kernel)
 
 
 def baseline_scoring(lib, q, e, gamma, mode):
@@ -119,6 +150,23 @@ def baseline_intersect(lib, x, w1, b1, w2, b2):
                               its.DTYPES[x.dtype], build.stream_handle(x))
     build.check(lib, err, "baseline intersect")
     return out
+
+
+def baseline_intersect_backward(lib, x, w1, b1, w2, b2, g):
+    """The other library's backward through the five-launch C entry, with
+    its scratch pre [n·k, hd], att and dlogit [n·k]."""
+    n, k, d = x.shape
+    hd = w1.shape[1]
+    dx = torch.empty_like(x)
+    dw1, db1, dw2, db2 = (torch.zeros_like(t) for t in (w1, b1, w2, b2))
+    pre = torch.empty((n * k, hd), dtype=torch.float32, device=x.device)
+    att, dlogit = (torch.empty(n * k, dtype=torch.float32, device=x.device) for _ in range(2))
+    err = lib.repro_intersect_backward(
+        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        pre.data_ptr(), att.data_ptr(), dlogit.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, k, d, hd, build.stream_handle(x))
+    build.check(lib, err, "baseline intersect_backward")
+    return dx, dw1, db1, dw2, db2
 
 
 def ab(fn_base, fn_this, flush, reps):
@@ -230,13 +278,71 @@ def time_intersect(base, flush, gen, dev, reps):
     return rows
 
 
-def main(argv=None) -> None:
+def kernel_split(fn, reps: int) -> dict[str, float]:
+    """Device ms of each kernel one call of ``fn`` launches (by name), from
+    a ``torch.profiler`` trace of ``reps`` calls back to back (L2 warm: no
+    flush between them)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:  # "(anonymous namespace)::pre_kernel(...)" -> "pre_kernel"
+            name = e.key.split("(")[1].split("::")[-1] if e.key.startswith("(") else e.key[:48]
+            split[name] = us / 1e3 / reps
+    return split
+
+
+def time_intersect_backward(base, flush, gen, dev, reps):
+    rows = []
+    for n, k, d, hd in BACKWARD_SHAPES:
+        args = intersect_inputs(n, k, d, hd, torch.float32, gen)
+        g = torch.randn((n, d), generator=gen, device=dev)
+        exact = its.intersect_backward_ref(*(t.double() for t in (*args, g)))
+        allowed = its.intersect_backward_allowance(*args, g)
+        shares = {}
+        for name, grads in (("baseline", baseline_intersect_backward(base, *args, g)),
+                            ("this", its.intersect_backward(*args, g))):
+            shares[name] = its.backward_shares(grads, exact, allowed)
+            worst = max(shares[name], key=shares[name].get)
+            if shares[name][worst] > 1:
+                raise SystemExit(f"time_kernels: {name} intersect_backward {(n, k, d, hd)}: "
+                                 f"{worst} uses {shares[name][worst]:.3g} of its tolerance")
+        times = ab(lambda: baseline_intersect_backward(base, *args, g),  # noqa: B023
+                   lambda: its.intersect_backward(*args, g), flush, reps)  # noqa: B023
+        plain = time_ms(lambda: its.intersect_backward_ref(*args, g), flush, reps)  # noqa: B023
+        split = kernel_split(lambda: its.intersect_backward(*args, g), reps)  # noqa: B023
+        row = {"n": n, "k": k, "d": d, "hd": hd, "dtype": "float32",
+               "baseline_ms": times["baseline"], "ms": times["this"], "plain_ms": plain,
+               "share_of_allowance": shares, "kernels_ms_l2_warm": split}
+        rows.append(row)
+        print(f"intersect_backward {(n, k, d, hd)}: baseline {times['baseline']} ms, this "
+              f"{times['this']} ms, plain {plain:.4f} ms, share of allowance "
+              f"{max(shares['this'].values()):.3g} (baseline "
+              f"{max(shares['baseline'].values()):.3g}); per kernel, L2 warm: "
+              + ", ".join(f"{name} {v:.4f}" for name, v in split.items()))
+    return rows
+
+
+TIMERS = {"scoring": time_scoring, "gather_fuse": time_gather_fuse, "intersect": time_intersect,
+          "intersect_backward": time_intersect_backward}
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("scoring", "gather_fuse", "intersect"), required=True)
+    ap.add_argument("--kernel", choices=tuple(TIMERS), required=True)
     ap.add_argument("--baseline", required=True, type=Path,
                     help="root of the checkout whose kernel is timed against this one")
     ap.add_argument("--reps", type=int, default=25)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
     dev = torch.device("cuda")
@@ -246,13 +352,11 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    base = load_baseline(args.baseline.resolve())
+    base = load_baseline(args.baseline.resolve(), args.kernel)
     build.load_library()
     flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = {"scoring": time_scoring, "gather_fuse": time_gather_fuse,
-             "intersect": time_intersect}[args.kernel]
-    rows = timer(base, flush, gen, dev, args.reps)
+    rows = TIMERS[args.kernel](base, flush, gen, dev, args.reps)
     print(json.dumps({"card": card, args.kernel: rows}))
 
 

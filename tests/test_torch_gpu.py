@@ -257,12 +257,15 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kops.intersect(torch.randn(3, 0, 8, device=dev), w1, b1, w2, b2)
 
 
-# The backward's shapes: training pools (n = 64, 256, 512; k = 2, 3; d = hd =
-# 800), a ragged n, k = 1 and k = 12, and widths that end inside a tile.
-BACKWARD_SHAPES = [(64, 2, 800, 800), (64, 3, 800, 800), (256, 2, 800, 800),
+# The backward's shapes: the pools BetaE training gives it (n = 32 to 512;
+# k = 2, 3; d = hd = 800), a ragged n, k = 1 and k = 12, a pool row wider than
+# a 64-row group (k = 70), and widths that end inside a tile (d = 33: no
+# 16-byte loads).
+BACKWARD_SHAPES = [(32, 2, 800, 800), (64, 2, 800, 800), (64, 3, 800, 800),
+                   (128, 2, 800, 800), (128, 3, 800, 800), (256, 2, 800, 800),
                    (256, 3, 800, 800), (512, 2, 800, 800), (512, 3, 800, 800),
                    (77, 3, 800, 800), (16, 1, 800, 800), (16, 12, 800, 800),
-                   (70, 3, 96, 72), (5, 2, 33, 40)]
+                   (70, 3, 96, 72), (5, 2, 33, 40), (3, 70, 96, 64)]
 
 
 def _backward_inputs(dev, n, k, d, hd, seed=0):
@@ -300,6 +303,61 @@ def test_intersect_backward_repeats_bitwise(dev, n, k):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_intersect_backward_dx_rows_do_not_depend_on_their_pool(dev, k):
+    """A pool row's dx bits depend only on its own k inputs, its row of g and
+    the MLP (every sum's chunks are fixed by d and hd): alone, it equals
+    itself first, in the middle and last of pools of 64 and 512 rows."""
+    x, w1, b1, w2, b2, g = _backward_inputs(dev, 512, k, 800, 800, seed=11)
+    alone = kops.intersect_backward(x[:1].clone(), w1, b1, w2, b2, g[:1].clone())[0]
+    for n in (64, 512):
+        for place in sorted({0, n // 2, n - 1}):
+            xs, gs = x[:n].clone(), g[:n].clone()
+            xs[place], gs[place] = x[0], g[0]
+            dx = kops.intersect_backward(xs, w1, b1, w2, b2, gs)[0]
+            torch.cuda.synchronize()
+            assert torch.equal(dx[place:place + 1], alone), (n, place)
+
+
+def _counter_buffers():
+    from repro_torch.kernels import intersect as its
+    return [*its._counters.values(), *its._backward_counters.values()]
+
+
+@pytest.mark.parametrize("n,k", [(8, 2), (512, 3), (300, 12), (3, 70)])
+def test_intersect_backward_leaves_its_arrival_counters_zero(dev, n, k):
+    """The last cluster of each row group resets its counter: after any
+    launch every counter buffer, the backward's and the forward's, is zero."""
+    kops.intersect_backward(*_backward_inputs(dev, n, k, 96, 64))
+    torch.cuda.synchronize()
+    assert all(int(b.abs().sum()) == 0 for b in _counter_buffers())
+
+
+def test_intersect_backward_on_two_streams_matches_serial(dev):
+    """The backward on two streams at once, with the forward interleaved on
+    both, gives the bits of serial calls on one stream, and leaves every
+    counter buffer (per stream, the forward's and the backward's) at zero."""
+    cases = [_backward_inputs(dev, n, k, 800, 800, seed=7 + i)
+             for i, (n, k) in enumerate(((64, 2), (128, 3)))]
+    serial = [(kops.intersect(*c[:5]), kops.intersect_backward(*c)) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    runs = []
+    for _ in range(4):
+        for s, c in zip(streams, cases):
+            with torch.cuda.stream(s):
+                runs.append((kops.intersect(*c[:5]), kops.intersect_backward(*c)))
+    torch.cuda.synchronize()
+    for i, (fwd, grads) in enumerate(runs):
+        want_fwd, want_grads = serial[i % len(cases)]
+        assert torch.equal(fwd, want_fwd), i
+        for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want_grads):
+            assert torch.equal(a, b), (i, name)
+    assert all(int(b.abs().sum()) == 0 for b in _counter_buffers())
 
 
 def test_intersect_autograd_runs_both_kernels(dev):

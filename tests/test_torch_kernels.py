@@ -9,6 +9,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import build
+from repro_torch.kernels import intersect as its
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.scoring import TILES
 
@@ -204,6 +205,99 @@ def test_3xtf32_split():
     assert not (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
     assert np.abs(x - hi).max() <= np.abs(x).max() * 2.0 ** -11
     assert (np.abs(x.astype(np.float64) - hi - lo) <= np.abs(x) * 2.0 ** -22).all()
+
+
+def _fold(parts):
+    """Chunk partials added in order to 0 in fp32, as the clusters fold them."""
+    acc = np.zeros_like(parts[0])
+    for p in parts:
+        acc = (acc + p).astype(np.float32)
+    return acc
+
+
+def _chunked_3xtf32(a: np.ndarray, b: np.ndarray, parts: int) -> np.ndarray:
+    """a @ b with the depth cut in ``parts`` chunks of whole k8 steps, each a
+    3xTF32 chain, folded in order (csrc/intersect_backward.cu)."""
+    depth = a.shape[1]
+    ch = -(-(-(-depth // parts)) // 8) * 8
+    return _fold([_mm_3xtf32(a[:, c:c + ch], b[c:c + ch], 0)
+                  for c in range(0, depth, ch)])
+
+
+def _backward_model(x, w1, b1, w2, b2, g):
+    """A test-only model of csrc/intersect_backward.cu's arithmetic: the
+    three products in 3xTF32 with the kernel's depth chunks (x·W1 over 8
+    chunks of d, dh·W1ᵀ over 8 of hd, [xᵀ; 1]·dh over S chunks of n·k rows,
+    db1 its ones row), the rest in fp32."""
+    n, k, d = x.shape
+    M, f32 = n * k, np.float32
+    xm = x.reshape(M, d)
+    pre = (_chunked_3xtf32(xm, w1, 8) + b1).astype(f32)
+    logit = ((np.maximum(pre, 0) * w2[:, 0]).astype(f32).sum(1, dtype=f32) + b2).reshape(n, k)
+    e = np.exp(logit - logit.max(1, keepdims=True)).astype(f32)
+    att = (e / e.sum(1, keepdims=True, dtype=f32)).astype(f32)
+    datt = (xm * np.repeat(g, k, axis=0)).sum(1, dtype=f32).reshape(n, k)
+    dlogit = (att * (datt - (att * datt).sum(1, keepdims=True, dtype=f32))).astype(f32)
+    dl = dlogit.reshape(M)
+    dh = np.where(pre > 0, (dl[:, None] * w2[:, 0]).astype(f32), f32(0))
+    dx = (att.reshape(M, 1) * np.repeat(g, k, axis=0) + _chunked_3xtf32(dh, w1.T.copy(), 8))
+    S = 1
+    while S < 8 and -(-M // S) > 1024:
+        S *= 2
+    xt1 = np.concatenate([xm.T, np.ones((1, M), f32)]).astype(f32)
+    dw1 = _chunked_3xtf32(xt1, dh, S)
+    return (dx.astype(f32).reshape(n, k, d), dw1[:d], dw1[d],
+            (np.maximum(pre, 0) * dl[:, None]).sum(0, dtype=f32)[:, None], dl.sum(dtype=f32)[None])
+
+
+@pytest.mark.parametrize("n,k", [(64, 2), (128, 3)])
+def test_intersect_backward_3xtf32_model_holds_its_allowance(n, k):
+    """At BetaE's widths (d = hd = 800) and training pools, gradients taken in
+    the backward kernel's 3xTF32 order with its depth chunks stay within
+    1e-4·|exact| + ``intersect_backward_allowance`` of the plain version on
+    fp64 inputs, using no more than half of it."""
+    rng = np.random.default_rng(n + k)
+    d = hd = 800
+    x = (np.log1p(np.exp(rng.normal(size=(n, k, d)) / 10)) + 0.05).astype(np.float32)
+    w1 = (rng.normal(size=(d, hd)) * (2 / (d + hd)) ** 0.5).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=hd)).astype(np.float32)
+    w2 = (rng.normal(size=(hd, 1)) * (2 / (hd + 1)) ** 0.5).astype(np.float32)
+    b2 = np.zeros(1, np.float32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2, g)]
+    got = [torch.from_numpy(np.asarray(t)) for t in _backward_model(x, w1, b1, w2, b2, g)]
+    exact = tops.intersect_backward_ref(*(t.double() for t in args))
+    shares = its.backward_shares(got, exact, tops.intersect_backward_allowance(*args))
+    assert max(shares.values()) <= 0.5, shares
+
+
+def test_time_kernels_takes_the_backward_against_its_five_launch_baseline():
+    """``time_kernels --kernel intersect_backward --baseline DIR`` parses, and
+    the baseline library's entry is declared as the five-launch kernel's C
+    signature: 14 pointers (x, g, w1, b1, w2, b2, pre, att, dlogit, dx, dw1,
+    db1, dw2, db2), n, k, d, hd and the stream; no entry the older library
+    lacks is touched."""
+    import ctypes
+    import types
+
+    from repro_torch.launch import time_kernels as tk
+
+    args = tk.parser().parse_args(["--kernel", "intersect_backward", "--baseline", "b"])
+    assert args.kernel == "intersect_backward" and str(args.baseline) == "b"
+
+    class StandIn:  # a library whose entries exist only once declared
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = tk.declare_baseline(StandIn(), "intersect_backward")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert lib.repro_intersect_backward.argtypes == [p] * 14 + [i] * 4 + [p]
+    assert lib.repro_intersect_backward.restype is i
+    assert set(vars(lib)) == {"repro_intersect_backward", "repro_error_string"}
+    assert all((n, 2, 800, 800) in tk.BACKWARD_SHAPES for n in (32, 64, 128, 256, 512))
+    assert {(77, 3), (16, 1), (16, 12)} <= {(n, k) for n, k, _, _ in tk.BACKWARD_SHAPES}
 
 
 def _gather_fuse_args(device):
