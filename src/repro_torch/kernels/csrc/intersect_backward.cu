@@ -68,10 +68,10 @@
 //
 // What holds it now (PERF.md has the numbers): at small pools each block's
 // chain of latencies (the first slice's load, two barriers a slice, the
-// cluster folds, the ticket and the group's tail); at large ones the
-// traffic of 64 × 64 tiles: each operand slice is read from L2 by every
-// tile that needs it, and moves ~72 KB of shared memory a slice a block
-// (its copies, B's split, and wgmma's reads of the hi and lo tiles).
+// cluster folds, the ticket and the group's tail); at large ones the work
+// each slice puts on the SM's issue slots — A and B made (dh) and split in
+// software, about five operations a value, and the slice's barriers — not
+// its traffic: 128-row tiles on two warpgroups sharing B timed the same.
 //
 // Fixed-order sums: each wgmma accumulates in the order the hardware fixes,
 // the same for every row of a tile; a chunk's chain runs over its k8 steps
