@@ -43,7 +43,15 @@ non-zero (printing no result) on any failed check:
    ``intersect_backward_allowance``: sums of dL/dlogit cancel and relus
    within rounding of 0 flip, so no tolerance on a gradient's own size
    holds in fp32), repeats bitwise across two calls, and is timed beside its
-   bound and the fp32 plain version's time.
+   bound and the fp32 plain version's time. The ``gather_fuse`` backward
+   (``csrc/gather_fuse_backward.cu``) runs the loss's 33,280 rows with H_sem
+   resident and through hot-set slots, 1,024 rows, 48 anchors and narrow
+   widths (``launch/time_kernels.py::FUSE_BACKWARD_SHAPES``), ids repeated
+   as the loss repeats them, against autograd through the plain version on
+   fp64 inputs (each element within 1e-4·|exact| +
+   ``gather_fuse_backward_allowance``), repeats bitwise across two calls,
+   and is timed beside its 3xTF32 and CUDA-core bounds and the composition
+   (autograd through the plain version, cuBLAS in full fp32).
 4. Serve: all six families (BetaE, GQE, ComplEx, Q2B, Q2P, FuzzQE) at full
    width (dim 400) on a synthetic graph with FB15k's Table 4 shape, through
    ``ServingEngine.submit``: one warm-up window, then five timed closed-loop
@@ -79,16 +87,30 @@ non-zero (printing no result) on any failed check:
    eval batches). Whether two runs of one seed give the same loss bits is
    reported (not a gate). ComplEx, Q2B, Q2P and FuzzQE: three pooled steps
    with finite losses.
+5b. Semantic training: GQE at ModelConfig(semantic_dim=1024) with
+   ``TrainConfig()`` on phase 4b's H_sem, three runs — resident pooled,
+   resident query-level, and pooled through a hot set of the reference
+   launcher's budget, staged every step. Each: the first step as in
+   phase 5, norm-wise against the CPU path's fp64 step; two warm-up and
+   20 timed steps (steps/s, losses, all finite); ``gather_fuse`` and
+   ``gather_fuse_backward`` launches each equal to the plans' EMBED ops plus
+   one loss call a plan; ``evaluate`` on 256 queries (resident through
+   ``score_all``, the hot set through ``score_all_chunked``). The backward is
+   also checked and timed at the commonest EMBED pool. BetaE+H_sem: three
+   pooled steps, twice from one seed (whether the loss bits agree is
+   reported).
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
    main path gave it most often; ``scoring`` has one entry for each path
    that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
-   GQE's ``evaluate``), ``gather_fuse`` one for each semantic layout, and
-   ``intersect`` one for serving and one for training, beside
-   ``intersect_backward`` for training, each with its own launches.
+   GQE's ``evaluate``), ``gather_fuse`` one for each semantic serving
+   layout and one for training, ``intersect`` one for serving and one for
+   training, beside ``intersect_backward`` and ``gather_fuse_backward`` for
+   training, each with its own launches.
 7. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import json
 import shutil
@@ -137,20 +159,22 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
 
     from repro_torch.core import TEMPLATES, OpType, PooledExecutor, QueryLevelExecutor
-    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.data import batch_entity_ids, generate_synthetic_kg
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.gather_fuse import GRADIENTS as FUSE_GRADIENTS
     from repro_torch.kernels.intersect import GRADIENTS, backward_shares
     from repro_torch.kernels.scoring import TILES
-    from repro_torch.kernels.timing import (flush_buffer, intersect_inputs, stream_read,
-                                            time_ms)
+    from repro_torch.kernels.timing import (flush_buffer, fuse_backward_inputs, intersect_inputs,
+                                            stream_read, time_ms)
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.launch.time_kernels import BACKWARD_SHAPES
+    from repro_torch.launch.time_kernels import BACKWARD_SHAPES, FUSE_BACKWARD_SHAPES
     from repro_torch.models import ModelConfig, make_model, params_from_numpy
     from repro_torch.models.base import glorot
     from repro_torch.sampling import OnlineSampler
     from repro_torch.semantic import (PTEConfig, SemanticCache, StubPTE,
-                                      precompute_semantic_table_to_store)
+                                      precompute_semantic_table_to_store,
+                                      training_budget_rows)
     from repro_torch.serving import (ServingConfig, ServingEngine,
                                      check_against_offline, latency_summary,
                                      run_closed_loop)
@@ -477,6 +501,63 @@ def main() -> None:
             "dtype": dtype,
         }
 
+    def measure_gather_fuse_backward(n: int, layout: str, E: int, d: int = 400,
+                                     dl: int = SEM_DIM, dp: int = 64) -> dict:
+        """The backward kernel (from the forward's saved output) against the
+        plain version (autograd through ``gather_fuse_ref``) on fp64 inputs:
+        each element within 1e-4·|exact| + ``gather_fuse_backward_allowance``
+        (1e-5 of the magnitudes of the terms it adds up, carried through; the
+        sigmoid's 1 − o² cancels near ±1). Two calls give the same bits.
+        ``max_abs_err`` is against the fp32 plain version, which is also the
+        composition's time (cuBLAS in full fp32); ``share_of_allowance`` the
+        largest |error| / (1e-4·|exact| + allowance) of the kernel and of
+        the fp32 plain version."""
+        args, g, sem_ids, out = fuse_backward_inputs(n, layout, E, d, dl, dp, gen)
+        got = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)
+        again = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)
+        plain = kops.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids)
+        exact = kops.gather_fuse_backward_ref(args[0], *(t.double() for t in args[1:]),
+                                              g.double(), sem_ids=sem_ids)
+        allowed = kops.gather_fuse_backward_allowance(*args, g, sem_ids=sem_ids)
+        torch.cuda.synchronize()
+        used = [backward_shares(t, exact, allowed, names=FUSE_GRADIENTS) for t in (got, plain)]
+        err, shares = 0.0, {}
+        for name, a, p, c in zip(FUSE_GRADIENTS, got, plain, again):
+            share = [used[0][name], used[1][name]]
+            if share[0] > 1:
+                fail(f"gather_fuse_backward {(n, layout)}: {name} uses {share[0]:.3g} of "
+                     f"its tolerance (the fp32 plain version {share[1]:.3g})")
+            if not torch.equal(a, c):
+                fail(f"gather_fuse_backward {(n, layout)}: {name} differs between two "
+                     f"calls on the same inputs")
+            err = max(err, float((a - p).abs().max()))
+            shares[name] = [f"{v:.3g}" for v in share]
+        del plain, exact, allowed, again
+        # Each input read once (ids, sem_ids and their sorted copies; h, z, o
+        # and g rows; the weights), each gradient written once (dh_str whole).
+        nbytes = (n * 8 * 4 + n * (3 * d + dl) * 4 + E * d * 4
+                  + 2 * (dl * dp + dp + (d + dp) * d + d) * 4)
+        # zp recomputed, t·Wfᵀ, [h ⊕ zp]ᵀ·t, zᵀ·dzp; t and the two bias sums.
+        flops = n * (4 * dl * dp + 4 * d * (d + dp) + 3 * d + d + dp)
+        # The card's fastest route at fp32 accuracy, 3xTF32 on the tensor
+        # cores (three TF32 products a multiply-add); beside it the kernel's
+        # route, fp32 FMAs on the CUDA cores.
+        b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
+        b32_ms, b32_by = bound(nbytes, flops, "float32")
+        kernel = lambda: kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)  # noqa: E731
+        return {
+            "max_abs_err": err,
+            "ms": time_ms(kernel, flush),
+            "plain_ms": time_ms(lambda: kops.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids),
+                                flush),
+            "library_ms": None,  # no single PyTorch call computes this function
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_cuda_cores_ms": b32_ms, "bound_fp32_cuda_cores_by": b32_by,
+            "shape": {"n": n, "E": E, "d": d, "dl": dl, "dp": dp, "layout": layout},
+            "dtype": "float32",
+            "share_of_allowance": shares,  # per gradient: [kernel, fp32 plain]
+        }
+
     def show(name: str, r: dict) -> None:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         more = ""
@@ -527,6 +608,9 @@ def main() -> None:
                     backward_ms[n, k] = r["ms"]
                 show("intersect_backward", r)
             print("  intersect_backward: every shape matches plain and repeats bitwise")
+            for n, layout, rows, d, dl, dp in FUSE_BACKWARD_SHAPES:
+                show("gather_fuse_backward", measure_gather_fuse_backward(n, layout, rows, d, dl, dp))
+            print("  gather_fuse_backward: every shape matches plain and repeats bitwise")
         for n, d, dl, dp, layout, rows in ((E, 400, SEM_DIM, 64, "resident", E),
                                            (CHUNK, 400, SEM_DIM, 64, "chunk", E),
                                            (E % CHUNK, 400, SEM_DIM, 64, "chunk", E),
@@ -805,19 +889,19 @@ def main() -> None:
         torch.cuda.empty_cache()
         return per_layout
 
+    # The store serves phase 4b and semantic training (5b); it is removed
+    # when the script exits, whichever way.
     sem_dir = tempfile.mkdtemp(prefix="chip_smoke_semstore_")
-    try:
-        t0 = time.perf_counter()
-        store = precompute_semantic_table_to_store(
-            kg, sem_dir, StubPTE(PTEConfig(), device=dev))
-        print(f"semantic store: {store.n_rows} x {store.dim} {store.quant} in "
-              f"{len(list(store.iter_shards()))} shard(s), "
-              f"{store.disk_nbytes / 1e6:.1f} MB, built in "
-              f"{time.perf_counter() - t0:.1f} s (stub PTE on the card, "
-              f"normalisation and neighbour smoothing on the host)")
-        main_path.update(serve_semantic(store))
-    finally:
-        shutil.rmtree(sem_dir, ignore_errors=True)
+    atexit.register(shutil.rmtree, sem_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    store = precompute_semantic_table_to_store(
+        kg, sem_dir, StubPTE(PTEConfig(), device=dev))
+    print(f"semantic store: {store.n_rows} x {store.dim} {store.quant} in "
+          f"{len(list(store.iter_shards()))} shard(s), "
+          f"{store.disk_nbytes / 1e6:.1f} MB, built in "
+          f"{time.perf_counter() - t0:.1f} s (stub PTE on the card, "
+          f"normalisation and neighbour smoothing on the host)")
+    main_path.update(serve_semantic(store))
 
     # ------------------------------------------------------------- 5. train
     tcfg = TrainConfig()
@@ -842,7 +926,7 @@ def main() -> None:
             plans = [executor.prepare(queries)]
         return [(pn, card) for p in plans for op, card, pn in p.meta if op in attn_ops]
 
-    def check_first_step(family: str, trainer) -> str:
+    def check_first_step(family: str, trainer, mcfg=cfg, table=None) -> str:
         """The first step's loss and gradients on the card against the CPU
         path on the same parameters and batch. The loss within rtol 1e-4.
         Each parameter's gradient, norm-wise against the exact (fp64) value
@@ -858,15 +942,23 @@ def main() -> None:
         tolerance against the CPU fp32 gradient (rtol, atol 1e-6·max|g|;
         BetaE 1e-4·max|g|), and in how many rows, is reported. The
         softmax-shift-invariant biases, whose exact gradient is 0, lie
-        within 1e-6 of the largest gradient."""
-        cpu_tr = NGDBTrainer(make_model(family, cfg, device="cpu"), kg, tcfg)
-        cpu_tr.load_params({k: v.cpu().numpy() for k, v in trainer.params.items()})
+        within 1e-6 of the largest gradient. A semantic model (``mcfg``,
+        H_sem ``table``) has the batch's rows staged first when it trains
+        through a hot set, and the CPU path takes the card's hot set."""
         queries, pos, neg = OnlineSampler(kg, seed=8).to_training_arrays(
             batches[0], tcfg.n_negatives)
+        if trainer.sem_cache is not None:
+            stage = trainer.sem_cache.plan(batch_entity_ids(queries, pos, neg))
+            if stage is not None:
+                trainer.sem_cache.apply_to(trainer.params, stage)
+        cpu_tr = NGDBTrainer(make_model(family, mcfg, device="cpu"), kg, tcfg,
+                             **({} if table is None else {"semantic_table": table}))
+        cpu_tr.load_params({k: v.cpu().numpy() for k, v in trainer.params.items()})
         out = []
         for tr, dtype in ((trainer, torch.float32), (cpu_tr, torch.float32),
                           (cpu_tr, torch.float64)):
-            tr.params = {k: v.to(dtype) for k, v in tr.params.items()}
+            tr.params = {k: v.to(dtype) if v.is_floating_point() else v
+                         for k, v in tr.params.items()}
             plan = tr.executor.prepare(queries)
             loss, _, grads = tr.loss_and_grads(plan, pos[plan.order], neg[plan.order])
             out.append((float(loss), {k: g.cpu().double() for k, g in grads.items()}))
@@ -876,8 +968,13 @@ def main() -> None:
         rtol, frac = (1e-3, 1e-4) if family == "betae" else (1e-4, 1e-6)
         top = max(float(g.abs().max()) for g in cgrads.values())
         report, worst = [], (0.0, "", 0.0)
+        frozen = trainer.model.frozen_param_names()
         for k, want in cgrads.items():
             got = grads[k]
+            if k in frozen:  # H_sem: a (1,) zero token, as the reference gives
+                if got.shape != (1,) or got.any():
+                    fail(f"train {family}: the frozen {k} got a gradient")
+                continue
             if k in ("att_b1", "uatt_b1"):
                 if float(got.abs().max()) > 1e-6 * top:
                     fail(f"train {family}: {k}'s gradient {float(got.abs().max()):.3g} is "
@@ -1012,12 +1109,153 @@ def main() -> None:
         del trainer
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 5b. semantic training
+    sem_cfg = ModelConfig(semantic_dim=SEM_DIM)
+    table = np.concatenate([rows for _, rows in store.iter_shards()])
+    budget = training_budget_rows(E, tcfg.batch_size, tcfg.n_negatives)
+    n_cand = 1 + tcfg.n_negatives
+
+    def fuse_calls(executor, queries) -> tuple:
+        """The n of every gather_fuse call a training step on ``queries``
+        makes: one per EMBED op of each plan (its pool), and one for each
+        plan's loss (its queries × (1 + K) candidates); one plan pooled, one
+        per pattern group query-level. Returns (EMBED pools, loss calls)."""
+        if isinstance(executor, QueryLevelExecutor):
+            groups, _ = executor.prepare_groups(queries)
+            plans = [(executor.prepare(g), len(g)) for g in groups.values()]
+        else:
+            plans = [(executor.prepare(queries), len(queries))]
+        return ([pn for p, _ in plans for op, _c, pn in p.meta if op == int(OpType.EMBED)],
+                [b * n_cand for _, b in plans])
+
+    def semantic_run(layout: str, mode: str) -> tuple:
+        """Semantic GQE, H_sem ``resident`` or behind a ``hot set`` of the
+        launcher's budget staged every step: the first step against the CPU
+        path (query-level too: its step's gradient, the groups' weighted by
+        their size over B, is the whole batch's mean loss's, which the check
+        takes through the executor's plan), warm-up, TRAIN_STEPS timed steps
+        with the counts zeroed just before and read just after, then
+        ``evaluate``. Returns
+        the launches and Counters of the gather_fuse calls' n: EMBED pools
+        and loss calls."""
+        cache = SemanticCache(store, budget, device=dev) if layout == "hot set" else None
+        sem = {"semantic_table": table} if cache is None else {"semantic_cache": cache}
+        trainer = NGDBTrainer(make_model("gqe", sem_cfg, device=dev), kg,
+                              TrainConfig(executor=mode), **sem)
+        note = check_first_step("gqe", trainer, sem_cfg, table)
+        trainer.train(TRAIN_WARMUP, log_every=0, batches=batches[:TRAIN_WARMUP])
+        torch.cuda.synchronize()
+        kops.gather_fuse.launches = kops.gather_fuse_backward.launches = 0
+        kops.scoring.launches = 0
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(b)["loss"] for b in batches[TRAIN_WARMUP:]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"gather_fuse": kops.gather_fuse.launches,
+                    "gather_fuse_backward": kops.gather_fuse_backward.launches,
+                    "scoring": kops.scoring.launches}
+        embeds, loss_calls = collections.Counter(), collections.Counter()
+        for b in batches[TRAIN_WARMUP:]:
+            e, lc = fuse_calls(trainer.executor, [x.query for x in b])
+            embeds.update(e)
+            loss_calls.update(lc)
+        calls = list((embeds + loss_calls).elements())
+        name = f"gqe+semantic [{layout}, {mode}]"
+        if not np.isfinite(losses).all():
+            fail(f"train {name}: a loss is not finite: {losses}")
+        if (launches["gather_fuse"], launches["gather_fuse_backward"]) != (len(calls),) * 2:
+            fail(f"train {name}: {launches} for {len(calls)} EMBED ops and loss calls in "
+                 f"the plans")
+        if launches["scoring"]:
+            fail(f"train {name}: the loss launched scoring {launches['scoring']} times")
+        hot = ""
+        if cache is not None:
+            cs = cache.stats()
+            hot = (f" | hot set of {budget} rows: hit rate {cs['hit_rate']:.2%}, "
+                   f"{cs['rows_staged']} rows staged, {cs['evictions']} evictions")
+        n_q = TRAIN_STEPS * tcfg.batch_size
+        print(f"train {name}: {TRAIN_STEPS} steps in {wall:.3f} s (staging included, "
+              f"outside queries_per_sec), {TRAIN_STEPS / wall:.2f} steps/s, "
+              f"{n_q / wall:.1f} queries/s | losses {losses[0]:.6f} -> {losses[-1]:.6f} "
+              f"({' '.join(f'{l:.6f}' for l in losses)}) | launches {launches}{hot} | {note}")
+        # evaluate: resident through score_all, the hot set through the
+        # chunked scorer with the eval queries' anchors staged.
+        fn = None
+        if cache is not None:
+            stage = cache.plan(np.concatenate([q.anchors for q in eval_queries]))
+            if stage is not None:
+                cache.apply_to(trainer.params, stage)
+            fn = lambda p, q: trainer.model.score_all_chunked(p, q, store.read_rows)  # noqa: E731
+        kops.scoring.launches = kops.gather_fuse.launches = 0
+        t0 = time.perf_counter()
+        metrics = evaluate(trainer.model, trainer.params, trainer.executor, kg, eval_queries,
+                           batch_size=64, score_all_fn=fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_batches = -(-EVAL_QUERIES // 64)
+        per_batch_scores = 1 if cache is None else -(-E // CHUNK)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"evaluate {name}: {metrics}")
+        if kops.scoring.launches != n_batches * per_batch_scores:
+            fail(f"evaluate {name}: {kops.scoring.launches} scoring launches for "
+                 f"{n_batches} eval batches")
+        print(f"evaluate {name}: {EVAL_QUERIES} queries in {wall:.3f} s, mrr "
+              f"{metrics['mrr']:.5f}, hits@10 {metrics['hits@10']:.5f} | launches scoring "
+              f"{kops.scoring.launches}, gather_fuse {kops.gather_fuse.launches}")
+        del trainer, cache
+        torch.cuda.empty_cache()
+        return launches, embeds, loss_calls
+
+    print(f"semantic training: GQE at ModelConfig(semantic_dim={SEM_DIM}) with "
+          f"TrainConfig(); hot-set budget {budget} rows (launcher's rule)")
+    fuse_path = {"gather_fuse[training]": [0, collections.Counter()],
+                 "gather_fuse_backward": [0, collections.Counter()]}
+    anchor_pools = collections.Counter()
+    for layout, mode in (("resident", "pooled"), ("resident", "query_level"),
+                         ("hot set", "pooled")):
+        launches, embeds, loss_calls = semantic_run(layout, mode)
+        for key, counted in (("gather_fuse[training]", "gather_fuse"),
+                             ("gather_fuse_backward", "gather_fuse_backward")):
+            fuse_path[key][0] += launches[counted]
+            fuse_path[key][1].update(embeds + loss_calls)
+        anchor_pools.update(embeds)
+        print(f"  gather_fuse calls (n: count) of [{layout}, {mode}] over {TRAIN_STEPS} "
+              f"steps: EMBED pools {dict(sorted(embeds.items()))}, loss calls "
+              f"{dict(sorted(loss_calls.items()))}")
+    main_path.update({k: tuple(v) for k, v in fuse_path.items()})
+    pool = anchor_pools.most_common(1)[0][0]
+    show(f"gather_fuse_backward (commonest anchor pool, n={pool})",
+         measure_gather_fuse_backward(pool, "resident", E))
+
+    # BetaE with H_sem: three pooled steps, twice from one seed.
+    runs = []
+    for _ in range(2):
+        tr = NGDBTrainer(make_model("betae", sem_cfg, device=dev), kg, tcfg,
+                         semantic_table=table)
+        runs.append([r["loss"] for r in tr.train(3, log_every=0, batches=batches[:3])])
+        del tr
+        torch.cuda.empty_cache()
+    if not np.isfinite(runs).all():
+        fail(f"train betae+semantic: a loss is not finite: {runs}")
+    print(f"train betae+semantic [resident, pooled]: 3 steps, losses "
+          f"{' '.join(f'{l:.6f}' for l in runs[0])}; two runs of one seed: loss bits "
+          f"{'equal' if runs[0] == runs[1] else 'differ'} ({runs[0]} vs {runs[1]})")
+    del table
+
     # ------------------------------------------------- 6. the kernels line
     entries = []
     for key, (launches, shapes) in main_path.items():
         shape = shapes.most_common(1)[0][0]
-        if key.startswith("gather_fuse"):
-            layout, n = shape
+        if key == "gather_fuse_backward":
+            r = measure_gather_fuse_backward(shape, "resident", E)
+            # No Pallas counterpart: the reference differentiates its jnp
+            # fuse_semantic. This is the gradient of gather_fuse's TPU kernel.
+            src, replaces = ("gather_fuse_backward.cu",
+                             "src/repro/kernels/gather_fuse.py:77 (its gradient)")
+        elif key.startswith("gather_fuse"):
+            # Training's calls are counted by n alone, and timed resident: a
+            # hot set of E rows only renames the rows' slots.
+            layout, n = shape if isinstance(shape, tuple) else ("resident", shape)
             r = measure_gather_fuse(n, cfg.dim, SEM_DIM, cfg.semantic_proj_dim,
                                     "float32", layout, E)
             src, replaces = "gather_fuse.cu", "src/repro/kernels/gather_fuse.py:77"

@@ -7,10 +7,12 @@ from repro_torch.data.kg import (
     load_dataset,
     split_kg,
 )
+from repro_torch.data.pipeline import batch_entity_ids
 
 __all__ = [
     "REDUCED_SCALE",
     "TABLE4",
+    "batch_entity_ids",
     "KGStats",
     "KnowledgeGraph",
     "generate_synthetic_kg",

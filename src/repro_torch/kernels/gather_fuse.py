@@ -25,7 +25,22 @@ resident table, the hot-set cache and a streamed chunk give the same row
 bitwise.
 
 ``gather_fuse`` dispatches on where its inputs lie: CPU tensors take the
-plain version ``gather_fuse_ref``; CUDA tensors launch the kernel or raise.
+plain version ``gather_fuse_ref`` (and autograd through it); CUDA tensors
+launch the kernel or raise. On CUDA it is a ``torch.autograd.Function``
+whose backward is the hand-written kernel of ``csrc/gather_fuse_backward.cu``
+(``gather_fuse_backward``, fp32 only): the JAX package differentiates its
+jnp ``fuse_semantic`` and has no backward kernel to port. Gradients go to
+``h_str`` and the four weights; H_sem is frozen (as in the reference) and
+gets none, and the ids none. The forward saves its output, from which the
+backward takes the sigmoid's derivative; the backward recomputes zp.
+
+An id outside its table (``ids`` outside h_str's rows, or ``sem_ids``
+outside h_sem's): the reference's jnp gathers clamp it to the nearest row;
+the CUDA forward writes a NaN row (and reads nothing out of bounds); the CPU
+path (``gather_fuse_ref``) raises ``IndexError``; the CUDA backward reads
+such a row as zeros and writes no row of the ``h_str`` gradient for it, so
+it writes nothing outside the gradients (the weights' gradients then carry
+whatever the NaN output gives them).
 """
 from __future__ import annotations
 
@@ -35,16 +50,70 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INDEX_DTYPES = (torch.int32, torch.int64)
+# The gradients gather_fuse_backward returns, in order.
+GRADIENTS = ("dh_str", "dwp", "dbp", "dwf", "dbf")
+
+
+def _compute_dtype(t) -> torch.dtype:
+    """fp32, or fp64 for an fp64 table (the exact value the checks compare
+    to)."""
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor:
     """Plain PyTorch version: ids [n] -> [n, d] in h_str's dtype, computed in
-    fp32. ``sem_ids`` indexes ``h_sem`` (cache slots); None = ``ids``."""
+    fp32 (fp64 for an fp64 h_str). ``sem_ids`` indexes ``h_sem`` (cache
+    slots); None = ``ids``. Differentiable."""
     sem_ids = ids if sem_ids is None else sem_ids
-    h = h_str[ids].float()
-    z = h_sem[sem_ids].float() @ wp.float() + bp.float()
+    dt = _compute_dtype(h_str)
+    h = h_str[ids].to(dt)
+    z = h_sem[sem_ids].to(dt) @ wp.to(dt) + bp.to(dt)
     x = torch.cat([h, z], dim=-1)
-    return (torch.sigmoid(x @ wf.float() + bf.float()) * 2.0 - 1.0).to(h_str.dtype)
+    return (torch.sigmoid(x @ wf.to(dt) + bf.to(dt)) * 2.0 - 1.0).to(h_str.dtype)
+
+
+def _check_shapes(name, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids):
+    """The shapes both paths take. Returns (n, d, dl, dp)."""
+    if ids.dim() != 1 or h_str.dim() != 2 or h_sem.dim() != 2:
+        raise ValueError(f"{name}: need ids [n], h_str [E, d] and h_sem "
+                         f"[rows, dl], got {tuple(ids.shape)}, "
+                         f"{tuple(h_str.shape)} and {tuple(h_sem.shape)}")
+    n = ids.shape[0]
+    d, dl, dp = h_str.shape[1], h_sem.shape[1], wp.shape[-1]
+    if wf.dim() != 2 or wf.shape[0] != d + dp:
+        raise ValueError(
+            f"{name}: fuse weight rows {wf.shape[0]} != d+dp = "
+            f"{d}+{dp} = {d + dp}")
+    if (tuple(wp.shape) != (dl, dp) or bp.numel() != dp or wf.shape[1] != d
+            or bf.numel() != d):
+        raise ValueError(
+            f"{name}: weights wp {tuple(wp.shape)}, bp {tuple(bp.shape)}, "
+            f"wf {tuple(wf.shape)}, bf {tuple(bf.shape)} do not fit d={d}, "
+            f"dl={dl}")
+    if sem_ids is not None and sem_ids.shape != ids.shape:
+        raise ValueError(
+            f"{name}: sem_ids shape {tuple(sem_ids.shape)} != ids shape "
+            f"{tuple(ids.shape)}")
+    return n, d, dl, dp
+
+
+def _on_cpu(name, tensors) -> bool:
+    """True when every tensor lies on the CPU; raises unless they all lie on
+    one CUDA device instead."""
+    ids = tensors[0]
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if ids.device.type != "cuda" or any(t.device != ids.device for t in tensors):
+        raise ValueError(f"{name}: inputs must all lie on the CPU or on "
+                         f"one CUDA device, got ids on {ids.device}")
+    return False
+
+
+def _check_index_dtypes(name, ids, sem_ids):
+    if ids.dtype not in INDEX_DTYPES or (
+            sem_ids is not None and sem_ids.dtype not in INDEX_DTYPES):
+        raise TypeError(f"{name}: ids must be int32 or int64, got "
+                        f"{ids.dtype}")
 
 
 def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor:
@@ -52,47 +121,55 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
     h_str's dtype. h_sem is the full H_sem [E, dl] or the hot-set cache
     [budget, dl] with ``sem_ids`` its slots; wp [dl, dp], bp [dp],
     wf [d + dp, d], bf [d]. Counts each kernel launch in
-    ``gather_fuse.launches``."""
-    if ids.dim() != 1 or h_str.dim() != 2 or h_sem.dim() != 2:
-        raise ValueError(f"gather_fuse: need ids [n], h_str [E, d] and h_sem "
-                         f"[rows, dl], got {tuple(ids.shape)}, "
-                         f"{tuple(h_str.shape)} and {tuple(h_sem.shape)}")
-    n = ids.shape[0]
-    d, dl, dp = h_str.shape[1], h_sem.shape[1], wp.shape[-1]
-    if wf.dim() != 2 or wf.shape[0] != d + dp:
-        raise ValueError(
-            f"gather_fuse: fuse weight rows {wf.shape[0]} != d+dp = "
-            f"{d}+{dp} = {d + dp}")
-    if (tuple(wp.shape) != (dl, dp) or bp.numel() != dp or wf.shape[1] != d
-            or bf.numel() != d):
-        raise ValueError(
-            f"gather_fuse: weights wp {tuple(wp.shape)}, bp {tuple(bp.shape)}, "
-            f"wf {tuple(wf.shape)}, bf {tuple(bf.shape)} do not fit d={d}, "
-            f"dl={dl}")
-    if sem_ids is not None and sem_ids.shape != ids.shape:
-        raise ValueError(
-            f"gather_fuse: sem_ids shape {tuple(sem_ids.shape)} != ids shape "
-            f"{tuple(ids.shape)}")
+    ``gather_fuse.launches``; under autograd its backward launches
+    ``gather_fuse_backward`` (fp32 tables only; an h_sem that requires a
+    gradient raises, H_sem being frozen)."""
+    _check_shapes("gather_fuse", ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf]
     if sem_ids is not None:
         tensors.append(sem_ids)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu("gather_fuse", tensors):
         return gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
-    if ids.device.type != "cuda" or any(t.device != ids.device for t in tensors):
-        raise ValueError(f"gather_fuse: inputs must all lie on the CPU or on "
-                         f"one CUDA device, got ids on {ids.device}")
     weights = (wp, bp, wf, bf)
     if (h_str.dtype not in DTYPES or h_sem.dtype != h_str.dtype
             or any(w.dtype != torch.float32 for w in weights)):
         raise TypeError(f"gather_fuse: the tables must share a dtype in "
                         f"{list(DTYPES)} and the weights be float32, got "
                         f"h_str {h_str.dtype}, h_sem {h_sem.dtype}")
-    if ids.dtype not in INDEX_DTYPES or (
-            sem_ids is not None and sem_ids.dtype not in INDEX_DTYPES):
-        raise TypeError(f"gather_fuse: ids must be int32 or int64, got "
-                        f"{ids.dtype}")
+    _check_index_dtypes("gather_fuse", ids, sem_ids)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gather_fuse: inputs must be contiguous")
+    if not torch.is_grad_enabled():
+        return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+    if h_sem.requires_grad:
+        raise ValueError("gather_fuse: h_sem requires a gradient, but H_sem is "
+                         "frozen and its backward gives it none")
+    if h_str.dtype != torch.float32 and any(t.requires_grad for t in (h_str, *weights)):
+        raise TypeError(f"gather_fuse: the backward takes float32 tables only, "
+                        f"got {h_str.dtype} under autograd")
+    return _GatherFuse.apply(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+
+
+class _GatherFuse(torch.autograd.Function):
+    """The forward kernel, and the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids):
+        out = _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+        ctx.save_for_backward(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out = ctx.saved_tensors
+        dh, dwp, dbp, dwf, dbf = gather_fuse_backward(
+            ids, h_str, h_sem, wp, bp, wf, bf, g.contiguous(), sem_ids=sem_ids, out=out)
+        grads = (None, dh, None, dwp, dbp, dwf, dbf, None)
+        return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
+
+
+def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids) -> torch.Tensor:
+    n, d, dl, dp = ids.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[-1]
     out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
     if n == 0:
         return out
@@ -114,6 +191,107 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
 
 
 gather_fuse.launches = 0
+
+
+def gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None,
+                             out=None):
+    """Plain PyTorch version of ``gather_fuse_backward``: autograd through
+    ``gather_fuse_ref`` (``out`` is not needed: it recomputes the forward).
+    Returns (dh_str, dwp, dbp, dwf, dbf) in fp32 (fp64 for an fp64 h_str, the
+    value the checks hold a backward to)."""
+    del out
+    dt = _compute_dtype(h_str)
+    with torch.enable_grad():
+        leaves = [t.detach().to(dt).requires_grad_(True) for t in (h_str, wp, bp, wf, bf)]
+        y = gather_fuse_ref(ids, leaves[0], h_sem.detach().to(dt), *leaves[1:], sem_ids=sem_ids)
+        return torch.autograd.grad(y, leaves, g.to(dt))
+
+
+def gather_fuse_backward_allowance(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None):
+    """For each gradient of ``gather_fuse_backward_ref``, elementwise and in
+    fp64, how far an fp32 backward may lie from the exact value on top of
+    1e-4 of it: 1e-5 of the sum of the magnitudes of the terms the element
+    adds up, carried through every intermediate (an fp32 sum's rounding
+    error is a small multiple of fp32's epsilon times that, whatever its
+    order). So |X|ᵀ·|dpre| for dWf, with X = h ⊕ zp and dpre the gradient
+    at the sigmoid's input, t = g·(1 − o²)/2 for o the output. t's terms are
+    |g|·(1 + o²)/2, and it also carries the rounding of the forward's
+    pre-activation y through o (|dt/dy| times y's terms): near o = ±1 the
+    factor 1 − o² cancels, so no tolerance on t's own size holds."""
+    sem_ids = ids if sem_ids is None else sem_ids
+    H = h_str.detach().double()[ids]
+    Z = h_sem.detach().double()[sem_ids]
+    Wp, Bp, Wf, Bf, G = (t.detach().double() for t in (wp, bp, wf, bf, g))
+    d = H.shape[1]
+    Bp, Bf = Bp.reshape(-1), Bf.reshape(-1)
+    o = torch.sigmoid(torch.cat([H, Z @ Wp + Bp], -1) @ Wf + Bf) * 2 - 1
+    Zm = Z.abs() @ Wp.abs() + Bp.abs()                 # zp's terms
+    Xm = torch.cat([H.abs(), Zm], -1)                   # X's
+    Ym = Xm @ Wf.abs() + Bf.abs()                       # y's
+    Ga = G.abs()
+    Dt = Ga * (1 + o * o) / 2 + Ga * o.abs() * (1 - o * o) / 2 * Ym
+    DX = Dt @ Wf.abs().T                                # dX's: dh, then dzp
+    dh = torch.zeros(h_str.shape, dtype=torch.float64, device=H.device)
+    dh.index_add_(0, ids.long(), DX[:, :d])
+    return (1e-5 * dh, 1e-5 * (Z.abs().T @ DX[:, d:]),
+            1e-5 * DX[:, d:].sum(0).reshape(bp.shape), 1e-5 * (Xm.T @ Dt),
+            1e-5 * Dt.sum(0).reshape(bf.shape))
+
+
+def gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None, out=None):
+    """Gradients of ``gather_fuse`` given g = dL/dout [n, d]: (dh_str
+    [E, d], dwp [dl, dp], dbp [dp], dwf [d + dp, d], dbf [d]). dh_str is
+    zero but in the rows ``ids`` name, each the sum of its rows' gradients in
+    the order they come in ``ids``. ``out`` is the forward's output (the
+    backward recomputes it when None). CPU tensors take
+    ``gather_fuse_backward_ref``; CUDA tensors launch the kernels of
+    ``csrc/gather_fuse_backward.cu`` (fp32 and contiguous only) or raise.
+    Counts each launch in ``gather_fuse_backward.launches``."""
+    n, d, dl, dp = _check_shapes("gather_fuse_backward", ids, h_str, h_sem, wp, bp, wf,
+                                 bf, sem_ids)
+    if tuple(g.shape) != (n, d) or (out is not None and tuple(out.shape) != (n, d)):
+        raise ValueError(f"gather_fuse_backward: need g and out [{n}, {d}], got "
+                         f"{tuple(g.shape)} and "
+                         f"{None if out is None else tuple(out.shape)}")
+    tensors = [ids, h_str, h_sem, wp, bp, wf, bf, g]
+    tensors += [t for t in (sem_ids, out) if t is not None]
+    if _on_cpu("gather_fuse_backward", tensors):
+        return gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids)
+    floats = [t for t in tensors if t is not ids and t is not sem_ids]
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"gather_fuse_backward: tables, weights, g and out must be "
+                        f"float32, got h_str {h_str.dtype}, h_sem {h_sem.dtype} and "
+                        f"g {g.dtype}")
+    _check_index_dtypes("gather_fuse_backward", ids, sem_ids)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gather_fuse_backward: inputs must be contiguous")
+    # dh_str is zero outside the rows the ids name; the kernels write every
+    # element of the others.
+    grads = (torch.zeros_like(h_str), *(torch.empty_like(t) for t in (wp, bp, wf, bf)))
+    if n == 0:
+        return (grads[0], *(t.zero_() for t in grads[1:]))
+    ids64 = ids.long()
+    sem64 = ids64 if sem_ids is None else sem_ids.long()
+    # The order in which dh_str's segment sums add a row's repeats.
+    sorted_ids, order = torch.sort(ids64, stable=True)
+    lib = build.load_library()
+    # Scratch: the gathered rows [h | zp | 1] and [z | 1], t, dX = t·Wfᵀ and
+    # the weight gradients' chunk partials.
+    scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(n, d, dl, dp),
+                          dtype=torch.float32, device=ids.device)
+    with torch.cuda.device(ids.device):
+        err = lib.repro_gather_fuse_backward(
+            ids64.data_ptr(), sem64.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+            h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            wf.data_ptr(), bf.data_ptr(), None if out is None else out.data_ptr(),
+            g.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in grads), n,
+            h_str.shape[0], h_sem.shape[0], d, dl, dp, build.stream_handle(ids))
+    build.check(lib, err, "gather_fuse_backward")
+    gather_fuse_backward.launches += 1
+    return grads
+
+
+gather_fuse_backward.launches = 0
 
 
 def semantic_source(params, ids):

@@ -222,13 +222,15 @@ def intersect_backward_allowance(x, w1, b1, w2, b2, g):
 GRADIENTS = ("dx", "dw1", "db1", "dw2", "db2")
 
 
-def backward_shares(grads, exact, allowed) -> dict[str, float]:
-    """For each gradient of a backward, the largest |error| / (1e-4·|exact|
-    + allowance) over its elements against ``exact`` (the plain version on
-    fp64 inputs) and ``allowed`` (``intersect_backward_allowance``): the
-    share of its tolerance it uses, at most 1 to pass."""
+def backward_shares(grads, exact, allowed, names=GRADIENTS) -> dict[str, float]:
+    """For each gradient of a backward (named by ``names``: this module's
+    ``GRADIENTS``, or ``gather_fuse.GRADIENTS``), the largest |error| /
+    (1e-4·|exact| + allowance) over its elements against ``exact`` (the
+    plain version on fp64 inputs) and ``allowed`` (the backward's
+    ``*_allowance``): the share of its tolerance it uses, at most 1 to
+    pass."""
     return {name: float(((t.double() - e).abs() / (1e-4 * e.abs() + al).clamp_min(1e-300)).max())
-            for name, t, e, al in zip(GRADIENTS, grads, exact, allowed)}
+            for name, t, e, al in zip(names, grads, exact, allowed)}
 
 
 def intersect_backward(x, w1, b1, w2, b2, g):

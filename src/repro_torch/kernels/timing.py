@@ -1,6 +1,7 @@
 """Device time of one kernel call, as ``chip_smoke.py`` and
 ``launch/time_kernels.py`` measure it, the floor for reading a table that
-such a time is held against, and the inputs both time ``intersect`` on."""
+such a time is held against, and the inputs both time ``intersect`` and
+the ``gather_fuse`` backward on."""
 from __future__ import annotations
 
 import statistics
@@ -77,3 +78,32 @@ def intersect_inputs(n: int, k: int, d: int, hd: int, dtype: torch.dtype,
     b1 = 0.1 * torch.randn((hd,), generator=generator, device=dev)
     w2 = glorot((hd, 1), generator, dev)
     return x.to(dtype), w1, b1, w2, torch.zeros((1,), device=dev)
+
+
+def fuse_backward_inputs(n: int, layout: str, E: int, d: int, dl: int, dp: int,
+                         generator: torch.Generator):
+    """A ``gather_fuse`` backward's inputs as training gives them, on the
+    generator's device: ids drawn from min(E, n/2) entities (each about
+    twice, as the loss's candidates repeat), H_sem resident or (``cache``)
+    through a hot set of E rows at shuffled slots, g, and the forward
+    kernel's output. Returns (args, g, sem_ids, out), args being
+    ``gather_fuse``'s first seven."""
+    from repro_torch.kernels.gather_fuse import gather_fuse
+
+    dev = generator.device
+    h_str = torch.randn((E, d), generator=generator, device=dev) / d ** 0.5
+    table = torch.nn.functional.normalize(
+        torch.randn((E, dl), generator=generator, device=dev), dim=1)
+    wp, wf = glorot((dl, dp), generator, dev), glorot((d + dp, d), generator, dev)
+    bp = 0.1 * torch.randn((dp,), generator=generator, device=dev)
+    bf = 0.1 * torch.randn((d,), generator=generator, device=dev)
+    ids = torch.randint(0, min(E, max(n // 2, 1)), (n,), generator=generator, device=dev)
+    h_sem, sem_ids = table, None
+    if layout == "cache":
+        slot_of = torch.randperm(E, generator=generator, device=dev)
+        h_sem = torch.empty_like(table)
+        h_sem[slot_of] = table
+        sem_ids = slot_of[ids]
+    g = torch.randn((n, d), generator=generator, device=dev)
+    args = (ids, h_str, h_sem, wp, bp, wf, bf)
+    return args, g, sem_ids, gather_fuse(*args, sem_ids=sem_ids)

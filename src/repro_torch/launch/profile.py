@@ -18,10 +18,13 @@ pooled encode, all-entity scoring, host top-k) and prints, per model:
   memory.
 
 Then, for BetaE and GQE at ``ModelConfig()`` with ``TrainConfig()``'s
-defaults (batch 512, 64 negatives, all 14 patterns), pooled and query-level:
-a training step's wall time (median over warm steps, each ending in the
-loss readback), the card's busy time per step from a trace of the same
-steps, and the kernels that take the most device time.
+defaults (batch 512, 64 negatives, all 14 patterns), pooled and query-level,
+and for GQE with H_sem (the same store) resident, pooled and query-level,
+and behind a hot set of the reference launcher's budget, pooled: a training
+step's wall time (median over warm steps, each ending in the loss readback)
+and its phases (negatives, hot-set staging, plan, device step), the card's
+busy time per step from a trace of the same steps, and the kernels that
+take the most device time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 """
@@ -41,7 +44,8 @@ from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, make_model
 from repro_torch.semantic import (SemanticCache, StubPTE,
-                                  precompute_semantic_table_to_store)
+                                  precompute_semantic_table_to_store,
+                                  training_budget_rows)
 from repro_torch.serving import make_workload, scorer_for, topk_desc
 
 FAMILIES = ("betae", "gqe", "complex", "q2b", "q2p", "fuzzqe")
@@ -159,18 +163,33 @@ def _top_kernels(events, per: int) -> None:
                   f"{e.count // per:5d} calls/step  {e.key[:80]}")
 
 
-def profile_training(family: str, mode: str, kg, device) -> dict:
+def profile_training(family: str, mode: str, kg, device, store=None,
+                     layout: str = "") -> dict:
     """Warm sync training steps of ``family`` with the ``mode`` executor,
     split into the trainer's phases: negatives (``to_training_arrays`` on
-    the host), the plan (``prepare`` on the host: canonicalize, CSE,
-    Max-Fillness; every batch is fresh, so no plan is reused) and the device
-    step (encode, loss, backward, Adam, the loss readback)."""
+    the host), hot-set staging (``plan`` and ``apply_to``, out of core only),
+    the plan (``prepare`` on the host: canonicalize, CSE, Max-Fillness;
+    every batch is fresh, so no plan is reused) and the device step (encode,
+    loss, backward, Adam, the loss readback). With ``store``, the model
+    carries H_sem ``resident`` or behind a ``hot set`` of the reference
+    launcher's budget."""
+    from repro_torch.data import batch_entity_ids
     from repro_torch.sampling import OnlineSampler
     from repro_torch.training import NGDBTrainer, TrainConfig
     from repro_torch.training.optim import adam_update
 
     cfg = TrainConfig(executor=mode)
-    trainer = NGDBTrainer(make_model(family, ModelConfig(), device=device), kg, cfg)
+    sem, cache, mcfg, label = {}, None, ModelConfig(), family
+    if store is not None:
+        mcfg = ModelConfig(semantic_dim=store.dim)
+        if layout == "resident":
+            sem = {"semantic_table": np.concatenate([r for _, r in store.iter_shards()])}
+        else:
+            budget = training_budget_rows(kg.n_entities, cfg.batch_size, cfg.n_negatives)
+            cache = SemanticCache(store, budget_rows=budget, device=device)
+            sem = {"semantic_cache": cache}
+        label = f"{family}+semantic [{layout}]"
+    trainer = NGDBTrainer(make_model(family, mcfg, device=device), kg, cfg, **sem)
     sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=11)
     batches = [sampler.sample_batch(cfg.batch_size) for _ in range(2 * REPS + 3)]
     ex = trainer.executor
@@ -180,6 +199,12 @@ def profile_training(family: str, mode: str, kg, device) -> dict:
     for b in batches[3:3 + REPS]:
         t0 = time.perf_counter()
         queries, pos, neg = trainer.sampler.to_training_arrays(b, cfg.n_negatives)
+        ts = time.perf_counter()
+        if cache is not None:
+            stage = cache.plan(batch_entity_ids(queries, pos, neg))
+            if stage is not None:
+                cache.apply_to(trainer.params, stage)
+            torch.cuda.synchronize()
         t1 = time.perf_counter()
         if mode == "pooled":
             plan = ex.prepare(queries)
@@ -193,7 +218,7 @@ def profile_training(family: str, mode: str, kg, device) -> dict:
             t2 = time.perf_counter()
             trainer._query_level_step(queries, pos, neg)   # its plans are cached now
         t3 = time.perf_counter()
-        phases.append((t1 - t0, t2 - t1, t3 - t2))
+        phases.append((ts - t0, t2 - t1, t3 - t2, t1 - ts))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     traced = batches[3 + REPS:]
     with torch.profiler.profile(activities=acts) as prof:
@@ -201,17 +226,17 @@ def profile_training(family: str, mode: str, kg, device) -> dict:
             trainer.train_step(b)
     events = [e for e in prof.key_averages() if _on_device(e)]
     device_ms = sum(_device_us(e) for e in events) / 1e3 / len(traced)
-    med = [statistics.median(p[i] for p in phases) * 1e3 for i in range(3)]
+    med = [statistics.median(p[i] for p in phases) * 1e3 for i in range(4)]
     wall_ms = statistics.median(sum(p) for p in phases) * 1e3
-    print(f"train {family} [{mode}] on {torch.cuda.get_device_name(device)}: "
+    print(f"train {label} [{mode}] on {torch.cuda.get_device_name(device)}: "
           f"{cfg.batch_size} queries per step, {REPS} steps; wall {wall_ms:.3f} ms/step: "
-          f"negatives {med[0]:.3f}, plan {med[1]:.3f}, device step {med[2]:.3f} (medians); "
-          f"device busy {device_ms:.3f} ms/step ({device_ms / wall_ms:.1%}, traced "
-          f"train_step)")
+          f"negatives {med[0]:.3f}, staging {med[3]:.3f}, plan {med[1]:.3f}, device step "
+          f"{med[2]:.3f} (medians); device busy {device_ms:.3f} ms/step "
+          f"({device_ms / wall_ms:.1%}, traced train_step)")
     _top_kernels(events, len(traced))
-    return {"train": family, "executor": mode, "batch": cfg.batch_size,
-            "wall_ms_per_step": wall_ms, "negatives_ms": med[0], "plan_ms": med[1],
-            "device_step_ms": med[2], "device_ms_per_step": device_ms,
+    return {"train": label, "executor": mode, "batch": cfg.batch_size,
+            "wall_ms_per_step": wall_ms, "negatives_ms": med[0], "staging_ms": med[3],
+            "plan_ms": med[1], "device_step_ms": med[2], "device_ms_per_step": device_ms,
             "device_busy": device_ms / wall_ms}
 
 
@@ -231,6 +256,10 @@ def main() -> None:
                                                    StubPTE(device=device))
         for layout in ("resident", "out-of-core"):
             print(json.dumps(profile_family("gqe", kg, device, store, layout)))
+            torch.cuda.empty_cache()
+        for layout, mode in (("resident", "pooled"), ("resident", "query_level"),
+                             ("hot set", "pooled")):
+            print(json.dumps(profile_training("gqe", mode, kg, device, store, layout)))
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(directory, ignore_errors=True)

@@ -2,7 +2,8 @@
 one process on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.time_kernels \\
-        --kernel scoring|gather_fuse|intersect|intersect_backward --baseline DIR
+        --kernel scoring|gather_fuse|intersect|intersect_backward|gather_fuse_backward \\
+        --baseline DIR
 
 DIR is the root of another checkout of the repository (for example a
 ``git archive`` of the parent commit, unpacked): its
@@ -36,6 +37,16 @@ once beside them. Both kernels are held to the plain version first.
   five-launch C entry of the commits before the cluster design (14
   pointers with ``pre`` [n·k, hd], ``att`` and ``dlogit`` [n·k] as its
   scratch, 4 ints and the stream).
+- ``gather_fuse_backward`` (fp32): every shape of ``FUSE_BACKWARD_SHAPES``
+  (the loss's 33,280 rows in both layouts, 1,024 rows, 48 anchors, narrow
+  widths; the list ``chip_smoke.py`` checks too) and the EMBED pools
+  semantic GQE training gives it (``FUSE_BACKWARD_POOLS``). Commits before
+  it have no such kernel, so DIR is not read:
+  the baseline is the composition, autograd through the plain version
+  (cuBLAS in full fp32), timed in the same order. The kernel is first held
+  to the plain version on fp64 inputs within 1e-4·|exact| +
+  ``gather_fuse_backward_allowance``, and each row splits one call by
+  launch (``torch.profiler``, L2 warm).
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line with every time.
@@ -55,7 +66,8 @@ from repro_torch.kernels import gather_fuse as gf
 from repro_torch.kernels import intersect as its
 from repro_torch.kernels.scoring import (DTYPES, MODES, TILES, scoring,
                                          scoring_ref, scoring_tile)
-from repro_torch.kernels.timing import flush_buffer, intersect_inputs, stream_read, time_ms
+from repro_torch.kernels.timing import (flush_buffer, fuse_backward_inputs, intersect_inputs,
+                                        stream_read, time_ms)
 from repro_torch.models.base import glorot
 
 SCORING_SHAPES = ((16, 14_951, 400), (1, 14_951, 400), (16, 4_096, 400))
@@ -78,6 +90,18 @@ BACKWARD_SHAPES = ((32, 2, 800, 800), (64, 2, 800, 800), (64, 3, 800, 800), (128
                    (128, 3, 800, 800), (256, 2, 800, 800), (256, 3, 800, 800),
                    (512, 2, 800, 800), (512, 3, 800, 800), (77, 3, 800, 800),
                    (16, 1, 800, 800), (16, 12, 800, 800), (70, 3, 96, 72), (5, 2, 33, 40))
+# (n, layout, E, d, dl, dp) at which chip_smoke.py and this CLI check and time
+# the gather_fuse backward: the loss's 33,280 rows (512 queries × 65
+# candidates) with H_sem resident and through hot-set slots, 1,024 rows, 48
+# anchors through a hot set, and narrow widths.
+FUSE_BACKWARD_SHAPES = ((33_280, "resident", E, 400, 1024, 64),
+                        (33_280, "cache", E, 400, 1024, 64),
+                        (1_024, "resident", E, 400, 1024, 64),
+                        (48, "cache", E, 400, 1024, 64),
+                        (33, "resident", 100, 64, 128, 32))
+# The EMBED pools of semantic GQE training at TrainConfig() (pooled 256 and
+# 512, query-level 32 to 256; chip_smoke.py phase 5b).
+FUSE_BACKWARD_POOLS = (512, 256, 128, 64, 32)
 
 
 def declare_baseline(lib, kernel: str):
@@ -291,9 +315,11 @@ def kernel_split(fn, reps: int) -> dict[str, float]:
     split = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:  # "(anonymous namespace)::pre_kernel(...)" -> "pre_kernel"
-            name = e.key.split("(")[1].split("::")[-1] if e.key.startswith("(") else e.key[:48]
-            split[name] = us / 1e3 / reps
+        if us > 0:  # "void (anonymous namespace)::gemm_kernel<true, ...>(...)" ->
+            #         "gemm_kernel<true, ...>"; names that still agree add up
+            key = e.key.split("namespace)::", 1)[-1]
+            name = (key.split("(", 1)[0] if "(" in key[1:] else key)[:64].strip()
+            split[name] = split.get(name, 0.0) + us / 1e3 / reps
     return split
 
 
@@ -328,8 +354,40 @@ def time_intersect_backward(base, flush, gen, dev, reps):
     return rows
 
 
+def time_gather_fuse_backward(base, flush, gen, dev, reps):
+    del base, dev  # no earlier kernel: the composition is the baseline
+    rows = []
+    shapes = (list(FUSE_BACKWARD_SHAPES)
+              + [(n, "resident", E, 400, 1024, 64) for n in FUSE_BACKWARD_POOLS])
+    for n, layout, rows_e, d, dl, dp in shapes:
+        args, g, sem_ids, out = fuse_backward_inputs(n, layout, rows_e, d, dl, dp, gen)
+        kernel = lambda: gf.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)  # noqa: E731,B023
+        composition = lambda: gf.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids)  # noqa: E731,B023
+        exact = gf.gather_fuse_backward_ref(args[0], *(t.double() for t in args[1:]),
+                                            g.double(), sem_ids=sem_ids)
+        allowed = gf.gather_fuse_backward_allowance(*args, g, sem_ids=sem_ids)
+        shares = its.backward_shares(kernel(), exact, allowed, names=gf.GRADIENTS)
+        del exact, allowed
+        worst = max(shares, key=shares.get)
+        if shares[worst] > 1:
+            raise SystemExit(f"time_kernels: gather_fuse_backward {(n, layout, d, dl, dp)}: "
+                             f"{worst} uses {shares[worst]:.3g} of its tolerance")
+        times = ab(composition, kernel, flush, reps)
+        split = kernel_split(kernel, reps)
+        row = {"n": n, "layout": layout, "E": rows_e, "d": d, "dl": dl, "dp": dp,
+               "dtype": "float32", "composition_ms": times["baseline"], "ms": times["this"],
+               "share_of_allowance": shares, "kernels_ms_l2_warm": split}
+        rows.append(row)
+        print(f"gather_fuse_backward {(n, layout, d, dl, dp)}: composition "
+              f"{times['baseline']} ms, this {times['this']} ms, share of allowance "
+              f"{shares[worst]:.3g}; per kernel, L2 warm: "
+              + ", ".join(f"{name} {v:.4f}" for name, v in split.items()))
+    return rows
+
+
 TIMERS = {"scoring": time_scoring, "gather_fuse": time_gather_fuse, "intersect": time_intersect,
-          "intersect_backward": time_intersect_backward}
+          "intersect_backward": time_intersect_backward,
+          "gather_fuse_backward": time_gather_fuse_backward}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -352,7 +410,9 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    base = load_baseline(args.baseline.resolve(), args.kernel)
+    # The gather_fuse backward has no earlier kernel to load.
+    base = (None if args.kernel == "gather_fuse_backward"
+            else load_baseline(args.baseline.resolve(), args.kernel))
     build.load_library()
     flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)

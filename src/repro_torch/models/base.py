@@ -224,7 +224,8 @@ class QueryEncoder(nn.Module):
 
     def fuse_semantic(self, params: Params, h, z) -> torch.Tensor:
         """Eq. 12 on already-gathered rows in plain PyTorch (differentiable):
-        h [.., d] structural, z [.., d_l] semantic -> fused [.., d]."""
+        h [.., d] structural, z [.., d_l] semantic -> fused [.., d], computed
+        in fp32 (fp64 for fp64 rows, as ``gather_fuse_ref``)."""
         h2 = h.reshape(-1, h.shape[-1])
         out = kops.gather_fuse_ref(
             torch.arange(h2.shape[0], device=h.device), h2,
@@ -234,7 +235,9 @@ class QueryEncoder(nn.Module):
 
     def fused_entity_vec(self, params: Params, ent_ids) -> torch.Tensor:
         """x_i = sigma(W [h_str ⊕ F(h_sem)] + b) — Eq. 12, through the
-        ``gather_fuse`` kernel (its plain version for CPU tensors)."""
+        ``gather_fuse`` kernel (its plain version for CPU tensors).
+        Differentiable in ``entity`` and the fusion weights: on the card
+        autograd runs the ``gather_fuse_backward`` kernel."""
         if self.cfg.semantic_dim == 0:
             return params["entity"][ent_ids]
         ids = torch.as_tensor(ent_ids, device=params["entity"].device)

@@ -8,7 +8,7 @@ from repro_torch.semantic.store import (SemanticCache, SemanticStore,
                                         SemanticStoreWriter, SemStage,
                                         dequantize_int8,
                                         precompute_semantic_table_to_store,
-                                        quantize_int8)
+                                        quantize_int8, training_budget_rows)
 
 __all__ = [
     "PTEConfig",
@@ -23,4 +23,5 @@ __all__ = [
     "quantize_int8",
     "dequantize_int8",
     "precompute_semantic_table_to_store",
+    "training_budget_rows",
 ]

@@ -347,6 +347,15 @@ class SemStage:
     n_rows: int
 
 
+def training_budget_rows(n_entities: int, batch_size: int, n_negatives: int) -> int:
+    """The hot-set budget the reference's training launcher gives a cache
+    (``src/repro/launch/train.py``): four steps' working sets (at most 3
+    anchors a query, the positive and the negatives), at least one step's,
+    at most every entity."""
+    per_batch = batch_size * (4 + n_negatives)
+    return max(min(n_entities, 4 * per_batch), min(n_entities, per_batch))
+
+
 class SemanticCache:
     """Bounded device-resident hot set of H_sem rows + id->slot indirection.
 
@@ -488,6 +497,13 @@ class SemanticCache:
         with self._lock:
             if self._planned_seq != self._applied_seq:
                 self._reset_locked()
+
+    def reset(self) -> None:
+        """Drop all residency, so that the next plan restages every row it
+        needs from the store (after the cache's tensors were overwritten, as
+        a resumed checkpoint does)."""
+        with self._lock:
+            self._reset_locked()
 
     def _reset_locked(self) -> None:
         self._slot_of[:] = -1

@@ -31,19 +31,28 @@ def evaluate(
     queries: Sequence[QueryInstance],
     train_kg: KnowledgeGraph = None,
     batch_size: int = 64,
+    score_all_fn=None,
 ) -> Dict[str, float]:
     """Filtered MRR / Hits over the *full* graph answers, each batch encoded
     by ``executor.encode`` and scored by ``model.score_all`` (the ``scoring``
     kernel for GQE and ComplEx on the card). If ``train_kg`` is given,
     metrics are also split into easy (observed) vs hard (predictive) answers
-    — the paper's A_obs vs A_miss distinction."""
+    — the paper's A_obs vs A_miss distinction.
+
+    ``score_all_fn(params, states)`` overrides the all-entity scorer: the
+    semantic-store path passes ``lambda p, q: model.score_all_chunked(p, q,
+    store.read_rows)`` so that evaluation streams H_sem from the store
+    instead of needing it resident (the queries' anchors must be staged in
+    the hot set first)."""
+    score_all = score_all_fn or model.score_all
     mrr, h1, h3, h10, n = 0.0, 0.0, 0.0, 0.0, 0
     hard_mrr, hard_n = 0.0, 0
     per_pattern: Dict[str, List[float]] = {}
     for lo in range(0, len(queries), batch_size):
         chunk = list(queries[lo : lo + batch_size])
         states = executor.encode(params, chunk)
-        scores = np.asarray(model.score_all(params, states).cpu())
+        scores = score_all(params, states)
+        scores = np.asarray(scores.cpu() if torch.is_tensor(scores) else scores)
         for i, q in enumerate(chunk):
             full_ans = np.fromiter(answer_query(eval_kg, q), dtype=np.int64)
             if len(full_ans) == 0:

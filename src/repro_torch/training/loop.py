@@ -19,11 +19,19 @@ executor keeps its signature-keyed encode closures. On CUDA, BetaE's
 intersection and union go through the ``intersect`` kernel and its
 hand-written backward (``kernels/intersect.py``).
 
+Semantic augmentation (§4.4, Eq. 11+12): with ``semantic_table=`` (H_sem
+resident on the device) or ``semantic_cache=`` (a bounded hot set of a
+``SemanticStore``), a model with ``semantic_dim > 0`` fuses every entity it
+gathers through ``gather_fuse`` — on CUDA the kernel, and its hand-written
+backward (``kernels/gather_fuse.py``). H_sem is frozen. Under a cache, each
+step first stages the rows it gathers (``cache.plan`` of
+``batch_entity_ids``, then ``apply_to``), outside the step's timing window,
+as the reference's sync mode does.
+
 Later slices bring the rest of the reference trainer; each raises
 ``NotImplementedError`` here: ``pipeline=True`` (slice 4),
-``semantic_table=``/``semantic_cache=`` or a semantic model (semantic
-training, with a ``gather_fuse`` backward), ``materialized_rows > 0``
-(slice 5), ``metrics_path`` (slice 6) and a mesh ``ctx`` (slice 9).
+``materialized_rows > 0`` (slice 5), ``metrics_path`` (slice 6) and a mesh
+``ctx`` (slice 9).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
 from repro_torch.core.patterns import TEMPLATES
+from repro_torch.data.pipeline import batch_entity_ids
 from repro_torch.sampling.adaptive import AdaptiveDistribution, pattern_losses_from_batch
 from repro_torch.sampling.online import OnlineSampler, SampledQuery
 from repro_torch.training.checkpoint import CheckpointManager
@@ -74,16 +83,14 @@ def _later(what: str, where: str):
 class NGDBTrainer:
     """Sync-mode trainer on the model's device. Parameters are drawn from a
     ``torch.Generator`` seeded with ``cfg.seed``; ``params`` and
-    ``opt_state`` are updated in place each step."""
+    ``opt_state`` are updated in place each step. ``semantic_table`` or
+    ``semantic_cache`` carry H_sem for a model with ``semantic_dim > 0``
+    (``QueryEncoder.init_params``)."""
 
     def __init__(self, model, kg, cfg: TrainConfig, semantic_table=None,
                  semantic_cache=None, ctx=None):
         if cfg.pipeline:
             _later("pipeline=True", "slice 4 (pipelined training)")
-        if (semantic_table is not None or semantic_cache is not None
-                or model.cfg.semantic_dim > 0):
-            _later("semantic training", "the semantic-training slice "
-                   "(a gather_fuse backward)")
         if cfg.materialized_rows > 0:
             _later("materialized_rows > 0", "slice 5 (caches)")
         if cfg.metrics_path is not None:
@@ -103,8 +110,13 @@ class NGDBTrainer:
                                            device=self.device)
         else:
             self.executor = QueryLevelExecutor(model, b_max=cfg.b_max, device=self.device)
+        # Out of core, the params carry the cache's bounded hot set and its
+        # id -> slot map instead of H_sem; every step stages its rows first.
+        self.sem_cache = semantic_cache
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.params = model.init_params(gen, kg.n_entities, kg.n_relations)
+        self.params = model.init_params(gen, kg.n_entities, kg.n_relations,
+                                        semantic_table=semantic_table,
+                                        semantic_cache=semantic_cache)
         self.opt_state = adam_init(self.params, cfg.adam)
         self.sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=cfg.seed)
         self.adaptive = AdaptiveDistribution(cfg.patterns) if cfg.adaptive else None
@@ -115,11 +127,23 @@ class NGDBTrainer:
 
     def load_params(self, arrays) -> None:
         """Replace the parameters with ``arrays`` ({name: numpy array}, e.g.
-        another trainer's) and start the optimizer afresh."""
+        another trainer's) and start the optimizer afresh. Under a semantic
+        cache, the hot set and slot map are copied into the cache's own
+        tensors (the ones staging writes), and its residency is reset, so
+        the next step restages its rows from the store."""
         from repro_torch.models.base import params_from_numpy
 
+        n = self.kg.n_entities
         self.params = params_from_numpy(self.model, arrays, device=self.device,
-                                        n_entities=self.kg.n_entities)
+                                        n_entities=n)
+        if self.sem_cache is not None:
+            cache = self.sem_cache
+            with torch.no_grad():
+                cache.buffer.copy_(self.params["sem_cache"])
+                cache.slot_map.copy_(self.params["sem_slot"])
+            self.params = self.model._set_params(
+                {**self.params, "sem_cache": cache.buffer, "sem_slot": cache.slot_map}, n)
+            cache.reset()
         self.opt_state = adam_init(self.params, self.cfg.adam)
 
     # ------------------------------------------------------------------ fns
@@ -158,6 +182,11 @@ class NGDBTrainer:
             dist = self.adaptive.distribution() if self.adaptive else None
             batch = self.sampler.sample_batch(self.cfg.batch_size, dist)
         queries, pos, neg = self.sampler.to_training_arrays(batch, self.cfg.n_negatives)
+        if self.sem_cache is not None:
+            # Sync staging, before the step and outside its timing window.
+            stage = self.sem_cache.plan(batch_entity_ids(queries, pos, neg))
+            if stage is not None:
+                self.sem_cache.apply_to(self.params, stage)
         t0 = time.perf_counter()
         if isinstance(self.executor, PooledExecutor):
             prepared = self.executor.prepare(queries)
@@ -234,7 +263,9 @@ class NGDBTrainer:
     # ---------------------------------------------------------------- resume
     def resume(self) -> bool:
         """Restore the newest valid checkpoint into the parameters and
-        optimizer state (in place). False when there is none."""
+        optimizer state (in place). False when there is none. Under a
+        semantic cache its residency is reset: the restored hot set does not
+        match the metadata, so the next step restages its rows."""
         if not self.ckpt:
             return False
         restored = self.ckpt.restore(template={"params": self.params, "opt": self.opt_state})
@@ -248,4 +279,6 @@ class NGDBTrainer:
                 for k, v in tree["opt"][part].items():
                     self.opt_state[part][k].copy_(v)
         self.opt_state["step"] = tree["opt"]["step"]
+        if self.sem_cache is not None:
+            self.sem_cache.reset()
         return True

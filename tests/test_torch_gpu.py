@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import gather_fuse as gf
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.intersect import backward_shares
 from repro_torch.kernels.scoring import TILES
-from repro_torch.kernels.timing import intersect_inputs, stream_read
+from repro_torch.kernels.timing import fuse_backward_inputs, intersect_inputs, stream_read
 from repro_torch.models.base import glorot
 
 pytestmark = pytest.mark.gpu
@@ -542,6 +544,198 @@ def test_gather_fuse_rejects_what_it_does_not_take(dev):
         kops.gather_fuse(ids, h_str.T.contiguous().T, h_sem, wp, bp, wf, bf)
     with pytest.raises(ValueError, match="one CUDA device"):
         kops.gather_fuse(ids, h_str, h_sem.cpu(), wp, bp, wf, bf)
+
+
+# ------------------------------------------------------ gather_fuse backward
+
+
+def _fuse_backward_inputs(dev, n, layout, seed=0, E=14951, d=400, dl=1024, dp=64):
+    """``kernels.timing.fuse_backward_inputs`` (as chip_smoke.py and
+    time_kernels take them) from a seeded generator on the card."""
+    return fuse_backward_inputs(n, layout, E, d, dl, dp,
+                                torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("n,layout,saved", [(48, "resident", True), (48, "cache", True),
+                                            (1024, "resident", True), (1024, "cache", False),
+                                            (33280, "resident", True), (33280, "cache", True)])
+def test_gather_fuse_backward_matches_plain(dev, n, layout, saved):
+    """Each gradient against the plain version (autograd through
+    ``gather_fuse_ref``) on fp64 inputs within 1e-4·|exact| + the allowance
+    of ``gather_fuse_backward_allowance`` an element, at 48 anchors, 1,024
+    rows and the loss's 33,280 (512 queries × 65 candidates), H_sem resident
+    or through hot-set slots, from the forward's saved output or with it
+    recomputed."""
+    args, g, sem_ids, out = _fuse_backward_inputs(dev, n, layout)
+    before = kops.gather_fuse_backward.launches
+    got = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out if saved else None)
+    torch.cuda.synchronize()
+    assert kops.gather_fuse_backward.launches == before + 1
+    exact = kops.gather_fuse_backward_ref(args[0], *(t.double() for t in (*args[1:], g)),
+                                          sem_ids=sem_ids)
+    allowed = kops.gather_fuse_backward_allowance(*args, g, sem_ids=sem_ids)
+    shares = backward_shares(got, exact, allowed, names=gf.GRADIENTS)
+    for a, e in zip(got, exact):
+        assert a.shape == e.shape and a.dtype == torch.float32
+    assert max(shares.values()) <= 1, shares
+    untouched = torch.ones(args[1].shape[0], dtype=torch.bool, device=dev)
+    untouched[args[0]] = False
+    assert not got[0][untouched].any()
+
+
+def test_gather_fuse_backward_repeats_bitwise(dev):
+    """Two calls on the same inputs, and calls on two streams at once (with
+    the forward interleaved), give the same bits as serial calls."""
+    cases = [_fuse_backward_inputs(dev, n, layout, seed=s)
+             for s, (n, layout) in enumerate(((33280, "resident"), (1024, "cache")))]
+    serial = [kops.gather_fuse_backward(*a, g, sem_ids=s, out=o) for a, g, s, o in cases]
+    a, g, s, o = cases[0]
+    again = kops.gather_fuse_backward(*a, g, sem_ids=s, out=o)
+    torch.cuda.synchronize()
+    for a, b in zip(serial[0], again):
+        assert torch.equal(a, b)
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    runs = []
+    for _ in range(3):
+        for st, (a, g, s, o) in zip(streams, cases):
+            with torch.cuda.stream(st):
+                kops.gather_fuse(*a, sem_ids=s)
+                runs.append(kops.gather_fuse_backward(*a, g, sem_ids=s, out=o))
+    torch.cuda.synchronize()
+    for i, grads in enumerate(runs):
+        for name, a, b in zip(gf.GRADIENTS, grads, serial[i % len(cases)]):
+            assert torch.equal(a, b), (i, name)
+
+
+def test_gather_fuse_autograd_runs_both_kernels(dev):
+    """On the card, autograd through ``gather_fuse`` launches the forward
+    kernel once and the backward kernel once; its gradients are the backward
+    kernel's from the saved output, and H_sem and the ids get none."""
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, sem_ids, _ = _fuse_backward_inputs(dev, 1024, "cache")
+    leaves = [t.clone().requires_grad_(True) for t in (h_str, wp, bp, wf, bf)]
+    f0, b0 = kops.gather_fuse.launches, kops.gather_fuse_backward.launches
+    out = kops.gather_fuse(ids, leaves[0], h_sem, *leaves[1:], sem_ids=sem_ids)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (kops.gather_fuse.launches - f0, kops.gather_fuse_backward.launches - b0) == (1, 1)
+    want = kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=sem_ids,
+                                     out=out.detach())
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+def test_gather_fuse_backward_rejects_what_it_does_not_take(dev):
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _ = _fuse_backward_inputs(
+        dev, 10, "resident", E=50, d=16, dl=32, dp=8)
+    before = kops.gather_fuse_backward.launches
+    with pytest.raises(TypeError, match="float32"):
+        kops.gather_fuse_backward(ids, h_str.bfloat16(), h_sem.bfloat16(), wp, bp, wf, bf, g)
+    with pytest.raises(TypeError, match="float32"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g.bfloat16())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g.T.contiguous().T)
+    with pytest.raises(ValueError, match=r"need g and out \[10, 16\]"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g[:4])
+    assert kops.gather_fuse_backward.launches == before
+    f0 = kops.gather_fuse.launches
+    # H_sem is frozen: a semantic table that asks for a gradient raises.
+    with pytest.raises(ValueError, match="frozen"):
+        kops.gather_fuse(ids, h_str, h_sem.clone().requires_grad_(True), wp, bp, wf, bf)
+    # bf16 tables train nothing: under autograd the forward raises.
+    with pytest.raises(TypeError, match="float32"):
+        kops.gather_fuse(ids, h_str.bfloat16().requires_grad_(True), h_sem.bfloat16(),
+                         wp, bp, wf, bf)
+    assert kops.gather_fuse.launches == f0
+    with torch.no_grad():  # serving bf16 tables still runs
+        kops.gather_fuse(ids, h_str.bfloat16().requires_grad_(True), h_sem.bfloat16(),
+                         wp, bp, wf, bf)
+    assert kops.gather_fuse.launches == f0 + 1
+
+
+def test_gather_fuse_backward_out_of_range_id_writes_nothing_outside(dev):
+    """An id outside its table (either index) writes no row outside the
+    h_str gradient: its gradient lies between guard rows of one buffer,
+    which stay zero; the rows of the ids in range are bitwise those of a call
+    without the bad rows."""
+    from repro_torch.kernels import build
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _ = _fuse_backward_inputs(dev, 2048, "resident")
+    E, d, dl, dp = h_str.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[1]
+    sem_ids = ids.clone()
+    bad = torch.zeros(len(ids), dtype=torch.bool, device=dev)
+    bad[[3, 700, 2047]] = True
+    ids[3], ids[700], sem_ids[2047] = E + 7, -2, E
+    out = kops.gather_fuse(ids[~bad], h_str, h_sem, wp, bp, wf, bf, sem_ids=sem_ids[~bad])
+    want = kops.gather_fuse_backward(ids[~bad], h_str, h_sem, wp, bp, wf, bf, g[~bad],
+                                     sem_ids=sem_ids[~bad], out=out)
+    full_out = torch.zeros((len(ids), d), device=dev)
+    full_out[~bad] = out
+    guard = 64
+    buf = torch.zeros((E + 2 * guard, d), device=dev)
+    dh = buf[guard:guard + E]
+    grads = [torch.empty_like(t) for t in (wp, bp, wf, bf)]
+    sorted_ids, order = torch.sort(ids, stable=True)
+    lib = build.load_library()
+    scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(len(ids), d, dl, dp),
+                          device=dev)
+    err = lib.repro_gather_fuse_backward(
+        ids.data_ptr(), sem_ids.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+        h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
+        bf.data_ptr(), full_out.data_ptr(), g.data_ptr(), scratch.data_ptr(), dh.data_ptr(),
+        *(t.data_ptr() for t in grads), len(ids), E, E, d, dl, dp, build.stream_handle(ids))
+    build.check(lib, err, "gather_fuse_backward")
+    torch.cuda.synchronize()
+    assert not buf[:guard].any() and not buf[guard + E:].any()
+    # Row 2047's id is in range (its sem_id is not): its entity's row adds
+    # that row's gradient too.
+    good = ids[~bad]
+    good = good[good != ids[2047]]
+    assert torch.equal(dh[good], want[0][good])
+
+
+def test_semantic_training_step_on_gpu_matches_cpu(dev):
+    """One semantic GQE training step on the card, H_sem behind a hot set:
+    ``gather_fuse`` and its backward launch once per EMBED op and once for
+    the loss, and the loss and every gradient agree with the CPU path on the
+    same parameters, hot set and batch (the CPU parity tests' tolerance:
+    rtol 1e-4, atol 1e-6·max|g|)."""
+    from repro_torch.core import OpType
+    from repro_torch.data import batch_entity_ids, generate_synthetic_kg
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.training import AdamConfig, NGDBTrainer, TrainConfig
+
+    kg = generate_synthetic_kg(300, 12, 3000, seed=0)
+    table = torch.nn.functional.normalize(torch.randn((300, 64), generator=torch.Generator()
+                                                      .manual_seed(0)), dim=1).numpy()
+    mcfg = ModelConfig(dim=32, semantic_dim=64, semantic_proj_dim=16)
+    cfg = TrainConfig(batch_size=64, n_negatives=8, b_max=32, adam=AdamConfig(lr=3e-3))
+    cache = SemanticCache(table, budget_rows=280, device=dev)
+    gpu = NGDBTrainer(make_model("gqe", mcfg, device=dev), kg, cfg, semantic_cache=cache)
+    cpu = NGDBTrainer(make_model("gqe", mcfg, device="cpu"), kg, cfg, semantic_table=table)
+    batch = OnlineSampler(kg, seed=3).sample_batch(64)
+    queries, pos, neg = OnlineSampler(kg, seed=4).to_training_arrays(batch, 8)
+    cache.apply_to(gpu.params, cache.plan(batch_entity_ids(queries, pos, neg)))
+    cpu.load_params({k: v.cpu().numpy() for k, v in gpu.params.items()})
+    plan = gpu.executor.prepare(queries)
+    embeds = sum(op == int(OpType.EMBED) for op, _, _ in plan.meta)
+    f0, b0 = kops.gather_fuse.launches, kops.gather_fuse_backward.launches
+    loss, _, grads = gpu.loss_and_grads(plan, pos[plan.order], neg[plan.order])
+    torch.cuda.synchronize()
+    assert embeds > 0
+    assert (kops.gather_fuse.launches - f0,
+            kops.gather_fuse_backward.launches - b0) == (embeds + 1, embeds + 1)
+    cplan = cpu.executor.prepare(queries)
+    closs, _, cgrads = cpu.loss_and_grads(cplan, pos[cplan.order], neg[cplan.order])
+    np.testing.assert_allclose(float(loss), float(closs), rtol=1e-4)
+    for k, want in cgrads.items():
+        torch.testing.assert_close(grads[k].cpu(), want, rtol=1e-4,
+                                   atol=1e-6 * float(want.abs().max()) + 1e-30,
+                                   msg=lambda m, k=k: f"{k}: {m}")
 
 
 @pytest.mark.parametrize("name", ["betae", "gqe", "complex", "q2b", "q2p", "fuzzqe"])

@@ -248,16 +248,17 @@ def test_stage_apply_out_of_order_rejected(table):
 SEM_CFG = dict(dim=16, semantic_dim=SMALL["d_l"], semantic_proj_dim=8)
 
 
-def _models(name, table, budget=None, stage_ids=None):
-    """The JAX model's semantic params (resident, or through a JAX cache that
-    staged ``stage_ids``) carried into the port's model on the CPU."""
+def _models(name, table, budget=None, stage_ids=None, cfg=SEM_CFG):
+    """The JAX model's semantic params at ``cfg`` (resident, or through a JAX
+    cache that staged ``stage_ids``) carried into the port's model on the
+    CPU."""
     from repro.models import ModelConfig as JCfg, make_model as j_make
     from repro.semantic import SemanticCache as JCache
     from repro_torch.models import (ModelConfig as TCfg, make_model as t_make,
                                     params_from_numpy)
 
     jkg, _ = graphs()
-    jm = j_make(name, JCfg(**SEM_CFG))
+    jm = j_make(name, JCfg(**cfg))
     if budget is None:
         jp = jm.init_params(jax.random.PRNGKey(0), jkg.n_entities,
                             jkg.n_relations, semantic_table=table)
@@ -266,7 +267,7 @@ def _models(name, table, budget=None, stage_ids=None):
         jp = jm.init_params(jax.random.PRNGKey(0), jkg.n_entities,
                             jkg.n_relations, semantic_cache=cache)
         jp = cache.apply_to(jp, cache.plan(stage_ids))
-    tm = t_make(name, TCfg(**SEM_CFG), device="cpu")
+    tm = t_make(name, TCfg(**cfg), device="cpu")
     tp = params_from_numpy(tm, {k: np.asarray(v) for k, v in jp.items()})
     return jm, jp, tm, tp
 

@@ -39,7 +39,13 @@ def _batch(n: int, seed: int, k: int = 8):
     return jq, tq, rng.integers(0, 200, size=n), rng.integers(0, 200, size=(n, k))
 
 
+# H_sem in either layout: closed over by the loss, as both trainers do.
+FROZEN = ("sem_table", "sem_cache", "sem_slot")
+
+
 def _ref_grads(jm, jp, jq, pos, neg, b_max=16):
+    """``jax.value_and_grad`` of the reference's loss over the trainable
+    params (all but H_sem)."""
     from repro.core import PooledExecutor as JExecutor
     from repro.training.loss import negative_sampling_loss as j_loss
 
@@ -48,11 +54,14 @@ def _ref_grads(jm, jp, jq, pos, neg, b_max=16):
     enc = ex.encode_fn(prep)
     steps, ans = prep.device_args()
     p_pos, p_neg = jnp.asarray(pos[prep.order]), jnp.asarray(neg[prep.order])
+    frozen = {k: v for k, v in jp.items() if k in FROZEN}
 
-    def loss_fn(p):
+    def loss_fn(t):
+        p = {**t, **frozen}
         return j_loss(jm, p, enc(p, steps, ans), p_pos, p_neg)[0]
 
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(jp)
+    trainable = {k: v for k, v in jp.items() if k not in FROZEN}
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(trainable)
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}
 
 
@@ -63,9 +72,11 @@ def _port_grads(tm, tp, tq, pos, neg, b_max=16):
     ex = PooledExecutor(tm, b_max=b_max, device="cpu")
     prep = ex.prepare(tq)
     steps, ans = prep.device_args(torch.device("cpu"))
-    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
-    q = ex.encode_fn(prep)(leaves, steps, ans)
-    loss, _ = negative_sampling_loss(tm, leaves, q, torch.from_numpy(pos[prep.order]),
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tp.items() if k not in FROZEN}
+    p = {**leaves, **{k: v for k, v in tp.items() if k in FROZEN}}
+    q = ex.encode_fn(prep)(p, steps, ans)
+    loss, _ = negative_sampling_loss(tm, p, q, torch.from_numpy(pos[prep.order]),
                                      torch.from_numpy(neg[prep.order]))
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return loss.item(), {k: (np.zeros(v.shape, np.float32) if g is None else g.numpy())
@@ -285,8 +296,6 @@ def test_trainer_raises_for_later_slices():
                        (dict(metrics_path="m.jsonl"), "slice 6")):
         with pytest.raises(NotImplementedError, match=slice_):
             NGDBTrainer(model, kg, TrainConfig(**kw))
-    with pytest.raises(NotImplementedError, match="semantic"):
-        NGDBTrainer(model, kg, TrainConfig(), semantic_table=np.zeros((50, 4), np.float32))
     with pytest.raises(NotImplementedError, match="slice 9"):
         NGDBTrainer(model, kg, TrainConfig(), ctx=object())
 
