@@ -49,9 +49,11 @@ non-zero (printing no result) on any failed check:
    widths (``launch/time_kernels.py::FUSE_BACKWARD_SHAPES``), ids repeated
    as the loss repeats them, against autograd through the plain version on
    fp64 inputs (each element within 1e-4·|exact| +
-   ``gather_fuse_backward_allowance``), repeats bitwise across two calls,
-   and is timed beside its 3xTF32 and CUDA-core bounds and the composition
-   (autograd through the plain version, cuBLAS in full fp32).
+   ``gather_fuse_backward_allowance``) from the forward's saved zp and with
+   zp recomputed, repeats bitwise across two calls, and is timed both ways
+   beside its 3xTF32 and CUDA-core bounds (and the 3xTF32 bound of a
+   backward that recomputes zp) and the composition (autograd through the
+   plain version, cuBLAS in full fp32).
 4. Serve: all six families (BetaE, GQE, ComplEx, Q2B, Q2P, FuzzQE) at full
    width (dim 400) on a synthetic graph with FB15k's Table 4 shape, through
    ``ServingEngine.submit``: one warm-up window, then five timed closed-loop
@@ -96,7 +98,9 @@ non-zero (printing no result) on any failed check:
    ``gather_fuse_backward`` launches each equal to the plans' EMBED ops plus
    one loss call a plan; ``evaluate`` on 256 queries (resident through
    ``score_all``, the hot set through ``score_all_chunked``). The backward is
-   also checked and timed at the commonest EMBED pool. BetaE+H_sem: three
+   also checked and timed at the commonest EMBED pool, and its device ms a
+   step is printed for each run: every n the run called it at, timed alone,
+   times its calls. BetaE+H_sem: three
    pooled steps, twice from one seed (whether the loss bits agree is
    reported).
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
@@ -163,6 +167,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.gather_fuse import GRADIENTS as FUSE_GRADIENTS
+    from repro_torch.kernels.gather_fuse import UNSORTED_ROWS
     from repro_torch.kernels.intersect import GRADIENTS, backward_shares
     from repro_torch.kernels.scoring import TILES
     from repro_torch.kernels.timing import (flush_buffer, fuse_backward_inputs, intersect_inputs,
@@ -502,60 +507,80 @@ def main() -> None:
         }
 
     def measure_gather_fuse_backward(n: int, layout: str, E: int, d: int = 400,
-                                     dl: int = SEM_DIM, dp: int = 64) -> dict:
-        """The backward kernel (from the forward's saved output) against the
-        plain version (autograd through ``gather_fuse_ref``) on fp64 inputs:
-        each element within 1e-4·|exact| + ``gather_fuse_backward_allowance``
-        (1e-5 of the magnitudes of the terms it adds up, carried through; the
-        sigmoid's 1 − o² cancels near ±1). Two calls give the same bits.
-        ``max_abs_err`` is against the fp32 plain version, which is also the
-        composition's time (cuBLAS in full fp32); ``share_of_allowance`` the
-        largest |error| / (1e-4·|exact| + allowance) of the kernel and of
-        the fp32 plain version."""
-        args, g, sem_ids, out = fuse_backward_inputs(n, layout, E, d, dl, dp, gen)
-        got = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)
-        again = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)
+                                     dl: int = SEM_DIM, dp: int = 64,
+                                     timing_only: bool = False) -> dict:
+        """The backward kernel (from the forward's saved output and zp, as
+        training calls it) against the plain version (autograd through
+        ``gather_fuse_ref``) on fp64 inputs: each element within
+        1e-4·|exact| + ``gather_fuse_backward_allowance`` (1e-5 of the
+        magnitudes of the terms it adds up, carried through; the sigmoid's
+        1 − o² cancels near ±1), with zp given and with zp recomputed. Two
+        calls give the same bits. ``max_abs_err`` is against the fp32 plain
+        version, which is also the composition's time (cuBLAS in full fp32);
+        ``share_of_allowance`` the largest |error| / (1e-4·|exact| +
+        allowance) of the kernel, of the kernel without zp, and of the fp32
+        plain version. ``timing_only``: the kernel's time alone."""
+        args, g, sem_ids, out, zp = fuse_backward_inputs(n, layout, E, d, dl, dp, gen)
+        kernel = lambda: kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out, zp=zp)  # noqa: E731
+        if timing_only:
+            return {"ms": time_ms(kernel, flush, reps=10)}
+        got = kernel()
+        again = kernel()
+        no_zp = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)
         plain = kops.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids)
         exact = kops.gather_fuse_backward_ref(args[0], *(t.double() for t in args[1:]),
                                               g.double(), sem_ids=sem_ids)
         allowed = kops.gather_fuse_backward_allowance(*args, g, sem_ids=sem_ids)
         torch.cuda.synchronize()
-        used = [backward_shares(t, exact, allowed, names=FUSE_GRADIENTS) for t in (got, plain)]
+        used = [backward_shares(t, exact, allowed, names=FUSE_GRADIENTS)
+                for t in (got, no_zp, plain)]
         err, shares = 0.0, {}
         for name, a, p, c in zip(FUSE_GRADIENTS, got, plain, again):
-            share = [used[0][name], used[1][name]]
-            if share[0] > 1:
+            share = [u[name] for u in used]
+            if max(share[:2]) > 1:
                 fail(f"gather_fuse_backward {(n, layout)}: {name} uses {share[0]:.3g} of "
-                     f"its tolerance (the fp32 plain version {share[1]:.3g})")
+                     f"its tolerance ({share[1]:.3g} without zp; the fp32 plain version "
+                     f"{share[2]:.3g})")
             if not torch.equal(a, c):
                 fail(f"gather_fuse_backward {(n, layout)}: {name} differs between two "
                      f"calls on the same inputs")
             err = max(err, float((a - p).abs().max()))
             shares[name] = [f"{v:.3g}" for v in share]
-        del plain, exact, allowed, again
-        # Each input read once (ids, sem_ids and their sorted copies; h, z, o
-        # and g rows; the weights), each gradient written once (dh_str whole).
-        nbytes = (n * 8 * 4 + n * (3 * d + dl) * 4 + E * d * 4
-                  + 2 * (dl * dp + dp + (d + dp) * d + d) * 4)
-        # zp recomputed, t·Wfᵀ, [h ⊕ zp]ᵀ·t, zᵀ·dzp; t and the two bias sums.
-        flops = n * (4 * dl * dp + 4 * d * (d + dp) + 3 * d + d + dp)
+        del plain, exact, allowed, again, no_zp
+        # Each input read once (ids, sem_ids and, above UNSORTED_ROWS, the
+        # sorted ids and their order; h, z, o, g and zp rows; the weights),
+        # each gradient written once (dh_str whole).
+        weights = 2 * (dl * dp + dp + (d + dp) * d + d) * 4
+        index_bytes = n * 8 * (4 if n > UNSORTED_ROWS else 2)
+        nbytes = index_bytes + n * (3 * d + dl + dp) * 4 + E * d * 4 + weights
+        # t·Wfᵀ, [h ⊕ zp]ᵀ·t, zᵀ·dzp; t and the two bias sums (zp is given).
+        flops = n * (2 * dl * dp + 4 * d * (d + dp) + 3 * d + d + dp)
+        # The count for a backward that recomputes zp (the kernel before the
+        # forward stored it): 2·dl·dp flops a row more, no zp read, the
+        # sorted ids always.
+        nbytes_rz = n * 8 * 4 + n * (3 * d + dl) * 4 + E * d * 4 + weights
+        flops_rz = flops + n * 2 * dl * dp
         # The card's fastest route at fp32 accuracy, 3xTF32 on the tensor
-        # cores (three TF32 products a multiply-add); beside it the kernel's
-        # route, fp32 FMAs on the CUDA cores.
+        # cores (three TF32 products a multiply-add), the kernel's route;
+        # beside it fp32 FMAs on the CUDA cores.
         b_ms, b_by = bound(nbytes, 3 * flops, "tf32")
         b32_ms, b32_by = bound(nbytes, flops, "float32")
-        kernel = lambda: kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)  # noqa: E731
+        brz_ms, brz_by = bound(nbytes_rz, 3 * flops_rz, "tf32")
         return {
             "max_abs_err": err,
             "ms": time_ms(kernel, flush),
+            "ms_without_zp": time_ms(
+                lambda: kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out), flush),
             "plain_ms": time_ms(lambda: kops.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids),
                                 flush),
             "library_ms": None,  # no single PyTorch call computes this function
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_fp32_cuda_cores_ms": b32_ms, "bound_fp32_cuda_cores_by": b32_by,
+            "bound_recomputing_zp_ms": brz_ms, "bound_recomputing_zp_by": brz_by,
             "shape": {"n": n, "E": E, "d": d, "dl": dl, "dp": dp, "layout": layout},
             "dtype": "float32",
-            "share_of_allowance": shares,  # per gradient: [kernel, fp32 plain]
+            # per gradient: [kernel, kernel without zp, fp32 plain]
+            "share_of_allowance": shares,
         }
 
     def show(name: str, r: dict) -> None:
@@ -564,8 +589,14 @@ def main() -> None:
         if "bound_fp32_cuda_cores_ms" in r:
             more = (f" | fp32 CUDA-core bound {r['bound_fp32_cuda_cores_ms']:.4f} "
                     f"({r['bound_fp32_cuda_cores_by']})")
+        if "bound_recomputing_zp_ms" in r:
+            more += (f" | without zp {r['ms_without_zp']:.4f} ms | bound of a backward "
+                     f"that recomputes zp {r['bound_recomputing_zp_ms']:.4f} "
+                     f"({r['bound_recomputing_zp_by']})")
         if "share_of_allowance" in r:
-            more += (f" | share of tolerance vs fp64 (kernel, plain): "
+            who = ("kernel, without zp, plain" if "bound_recomputing_zp_ms" in r
+                   else "kernel, plain")
+            more += (f" | share of tolerance vs fp64 ({who}): "
                      f"{r['share_of_allowance']}")
         if "read_floor_ms" in r and "ms_by_tile" not in r:
             more += f" | read floor (W1) {r['read_floor_ms']:.4f}"
@@ -1211,9 +1242,11 @@ def main() -> None:
     fuse_path = {"gather_fuse[training]": [0, collections.Counter()],
                  "gather_fuse_backward": [0, collections.Counter()]}
     anchor_pools = collections.Counter()
+    run_calls = {}  # (layout, mode) -> the gather_fuse calls' n over the timed steps
     for layout, mode in (("resident", "pooled"), ("resident", "query_level"),
                          ("hot set", "pooled")):
         launches, embeds, loss_calls = semantic_run(layout, mode)
+        run_calls[layout, mode] = embeds + loss_calls
         for key, counted in (("gather_fuse[training]", "gather_fuse"),
                              ("gather_fuse_backward", "gather_fuse_backward")):
             fuse_path[key][0] += launches[counted]
@@ -1226,6 +1259,17 @@ def main() -> None:
     pool = anchor_pools.most_common(1)[0][0]
     show(f"gather_fuse_backward (commonest anchor pool, n={pool})",
          measure_gather_fuse_backward(pool, "resident", E))
+    # The backward's device ms a step: each n the timed runs called it at,
+    # timed alone (resident, from the forward's zp; median of 10 with the
+    # flush), times its calls, over the steps.
+    bwd_ms = {}
+    for (layout, mode), calls in run_calls.items():
+        for n in sorted(set(calls) - set(bwd_ms)):
+            bwd_ms[n] = measure_gather_fuse_backward(n, "resident", E, timing_only=True)["ms"]
+        per_step = sum(c * bwd_ms[n] for n, c in calls.items()) / TRAIN_STEPS
+        print(f"gather_fuse_backward a step of gqe+semantic [{layout}, {mode}]: "
+              f"{per_step:.4f} ms over {sum(calls.values()) / TRAIN_STEPS:.1f} calls a step "
+              f"({len(calls)} distinct n, each timed alone)")
 
     # BetaE with H_sem: three pooled steps, twice from one seed.
     runs = []

@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
             ll = ctypes.c_longlong
             lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
             lib.repro_gather_fuse.restype = i
-            lib.repro_gather_fuse_backward.argtypes = [p] * 18 + [i, ll, ll, i, i, i, p]
+            lib.repro_gather_fuse_backward.argtypes = [p] * 19 + [i, ll, ll, i, i, i, p]
             lib.repro_gather_fuse_backward.restype = i
             lib.repro_gather_fuse_backward_scratch.argtypes = [i, i, i, i]
             lib.repro_gather_fuse_backward_scratch.restype = ll

@@ -53,8 +53,10 @@
 //    projection (consumer c sums half c of dl) and consumer 0 fuses the
 //    pass, so that a block's chain of slices is shorter and more SMs take
 //    part.
-// One launch a call either way; the zp scratch of the C interface is not
-// used and may be null.
+// One launch a call either way. Given a zp buffer (training saves it for
+// the backward), each block also writes its rows' zp there from shared
+// memory (in the split kernel, the blocks of column pass 0); out's bits do
+// not change, and with a null zp nothing is written.
 //
 // Rows stay bitwise. zp = (p0 + p1) + bp, p0 and p1 each one chain over a
 // fixed half of dl (the split depends on dl only); an output element is one
@@ -131,6 +133,7 @@ struct Args {
   long long n_str, n_sem;
   int d, dl, dp;
   int vec;  // table rows take 16-byte copies
+  float* zp;  // [n, dp]: where to store zp, or null
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -524,6 +527,11 @@ __global__ void __launch_bounds__(THREADS, 1) gather_fuse_kernel(const Args a) {
       }
   }
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(WG) : "memory");  // zp of this tile stored
+  if (a.zp)
+    for (int idx = wt; idx < BM * dp; idx += WG) {
+      const int r = idx / dp, col = idx % dp, i = r0 + r;
+      if (i < a.n) a.zp[(size_t)i * dp + col] = my_zp[r * L.zp_pitch + col];
+    }
 
   // Fusion, pass by pass: one m64n200 accumulator chain over the k8 steps
   // of h (A from the ring), then of zp (A from shared memory).
@@ -769,6 +777,11 @@ __global__ void __launch_bounds__(2 * WG + 2 * SPT, 1) gather_fuse_split_kernel(
     *z = col < dp ? (*z + part[r * L.zp_pitch + col]) + a.bp[col] : 0.f;
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(2 * WG) : "memory");
+  if (a.zp && blockIdx.y == 0)
+    for (int idx = c * WG + wt; idx < BM * dp; idx += 2 * WG) {
+      const int r = idx / dp, col = idx % dp, i = r0 + r;
+      if (i < a.n) a.zp[(size_t)i * dp + col] = zps[r * L.zp_pitch + col];
+    }
   if (nproj == ns) return;  // no pass for this consumer
 
   const int c0 = c0_of(c);
@@ -884,8 +897,7 @@ int launch(Args a, cudaStream_t stream) {
 
 // ids, sem_ids [n] int64; h_str [n_str, d] and h_sem [n_sem, dl] of one
 // dtype (repro::DType); wp [dl, dp], bp [dp], wf [d + dp, d], bf [d] fp32;
-// zp: an [n, dp] fp32 scratch that this kernel does not use (it may be
-// null; kept so that other versions of the kernel take the same call);
+// zp: an [n, dp] fp32 buffer that receives z·Wp + bp of each row, or null;
 // out [n, d] in the tables' dtype. Returns the CUDA error of the launch
 // (0 = success).
 extern "C" int repro_gather_fuse(const long long* ids, const long long* sem_ids,
@@ -894,10 +906,9 @@ extern "C" int repro_gather_fuse(const long long* ids, const long long* sem_ids,
                                  const float* bf, float* zp, void* out, int n,
                                  long long n_str, long long n_sem, int d, int dl,
                                  int dp, int dtype, void* stream) {
-  (void)zp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  const Args a{ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, out, n, n_str, n_sem, d, dl, dp, 0};
+  const Args a{ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, out, n, n_str, n_sem, d, dl, dp, 0, zp};
   if (dtype == repro::kF32) return launch<float>(a, s);
   if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);

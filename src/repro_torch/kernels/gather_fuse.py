@@ -32,7 +32,9 @@ whose backward is the hand-written kernel of ``csrc/gather_fuse_backward.cu``
 jnp ``fuse_semantic`` and has no backward kernel to port. Gradients go to
 ``h_str`` and the four weights; H_sem is frozen (as in the reference) and
 gets none, and the ids none. The forward saves its output, from which the
-backward takes the sigmoid's derivative; the backward recomputes zp.
+backward takes the sigmoid's derivative, and zp = h_sem[sem_ids]·Wp + bp,
+which the forward kernel stores from its shared memory as it fuses, so the
+backward does not recompute it.
 
 An id outside its table (``ids`` outside h_str's rows, or ``sem_ids``
 outside h_sem's): the reference's jnp gathers clamp it to the nearest row;
@@ -49,6 +51,9 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Up to this many rows the backward's segment sum finds each id's rows by
+# scanning the ids (no sort launch); above it the wrapper sorts the ids.
+UNSORTED_ROWS = 4096
 INDEX_DTYPES = (torch.int32, torch.int64)
 # The gradients gather_fuse_backward returns, in order.
 GRADIENTS = ("dh_str", "dwp", "dbp", "dwf", "dbf")
@@ -116,6 +121,21 @@ def _check_index_dtypes(name, ids, sem_ids):
                         f"{ids.dtype}")
 
 
+def _check_kernel_inputs(name, tensors, sem_ids):
+    """What the forward kernel takes: tables of one dtype in DTYPES, fp32
+    weights, int32/int64 ids, everything contiguous. ``tensors`` are
+    (ids, h_str, h_sem, wp, bp, wf, bf[, sem_ids])."""
+    ids, h_str, h_sem, *weights = tensors[:7]
+    if (h_str.dtype not in DTYPES or h_sem.dtype != h_str.dtype
+            or any(w.dtype != torch.float32 for w in weights)):
+        raise TypeError(f"{name}: the tables must share a dtype in "
+                        f"{list(DTYPES)} and the weights be float32, got "
+                        f"h_str {h_str.dtype}, h_sem {h_sem.dtype}")
+    _check_index_dtypes(name, ids, sem_ids)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor:
     """ids [n] (rows of h_str [E, d]) -> fused entity vectors [n, d] in
     h_str's dtype. h_sem is the full H_sem [E, dl] or the hot-set cache
@@ -130,15 +150,8 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
         tensors.append(sem_ids)
     if _on_cpu("gather_fuse", tensors):
         return gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+    _check_kernel_inputs("gather_fuse", tensors, sem_ids)
     weights = (wp, bp, wf, bf)
-    if (h_str.dtype not in DTYPES or h_sem.dtype != h_str.dtype
-            or any(w.dtype != torch.float32 for w in weights)):
-        raise TypeError(f"gather_fuse: the tables must share a dtype in "
-                        f"{list(DTYPES)} and the weights be float32, got "
-                        f"h_str {h_str.dtype}, h_sem {h_sem.dtype}")
-    _check_index_dtypes("gather_fuse", ids, sem_ids)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gather_fuse: inputs must be contiguous")
     if not torch.is_grad_enabled():
         return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
     if h_sem.requires_grad:
@@ -155,20 +168,24 @@ class _GatherFuse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids):
-        out = _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
-        ctx.save_for_backward(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out)
+        zp = torch.empty((ids.shape[0], wp.shape[-1]), dtype=torch.float32, device=ids.device)
+        out = _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp)
+        ctx.save_for_backward(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out, zp)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out = ctx.saved_tensors
+        ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out, zp = ctx.saved_tensors
         dh, dwp, dbp, dwf, dbf = gather_fuse_backward(
-            ids, h_str, h_sem, wp, bp, wf, bf, g.contiguous(), sem_ids=sem_ids, out=out)
+            ids, h_str, h_sem, wp, bp, wf, bf, g.contiguous(), sem_ids=sem_ids, out=out,
+            zp=zp)
         grads = (None, dh, None, dwp, dbp, dwf, dbf, None)
         return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
 
 
-def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids) -> torch.Tensor:
+def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None) -> torch.Tensor:
+    """The forward kernel; given ``zp`` ([n, dp] fp32), it also stores each
+    row's z·Wp + bp there."""
     n, d, dl, dp = ids.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[-1]
     out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
     if n == 0:
@@ -176,14 +193,12 @@ def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids) -> torch.Tensor:
     ids64 = ids.long()
     sem64 = ids64 if sem_ids is None else sem_ids.long()
     lib = build.load_library()
-    # zp (the C interface's [n, dp] scratch) is null: the kernel projects
-    # each block's rows into its shared memory.
     with torch.cuda.device(ids.device):
         err = lib.repro_gather_fuse(
             ids64.data_ptr(), sem64.data_ptr(), h_str.data_ptr(),
             h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
-            bf.data_ptr(), None, out.data_ptr(), n, h_str.shape[0],
-            h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype],
+            bf.data_ptr(), None if zp is None else zp.data_ptr(), out.data_ptr(), n,
+            h_str.shape[0], h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype],
             build.stream_handle(ids))
     build.check(lib, err, "gather_fuse")
     gather_fuse.launches += 1
@@ -191,6 +206,24 @@ def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids) -> torch.Tensor:
 
 
 gather_fuse.launches = 0
+
+
+def gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
+    """(``gather_fuse``'s output, zp = h_sem[sem_ids]·Wp + bp [n, dp] fp32):
+    what training's forward saves for the backward. CPU tensors take the
+    plain versions; CUDA tensors launch the forward kernel once (counted in
+    ``gather_fuse.launches``), which stores zp as it fuses."""
+    n, _, _, dp = _check_shapes("gather_fuse_and_zp", ids, h_str, h_sem, wp, bp, wf, bf,
+                                sem_ids)
+    tensors = [ids, h_str, h_sem, wp, bp, wf, bf] + ([] if sem_ids is None else [sem_ids])
+    if _on_cpu("gather_fuse_and_zp", tensors):
+        dt = _compute_dtype(h_str)
+        z = h_sem[ids if sem_ids is None else sem_ids].to(dt)
+        return (gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids),
+                z @ wp.to(dt) + bp.to(dt))
+    _check_kernel_inputs("gather_fuse_and_zp", tensors, sem_ids)
+    zp = torch.empty((n, dp), dtype=torch.float32, device=ids.device)
+    return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp), zp
 
 
 def gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None,
@@ -238,28 +271,34 @@ def gather_fuse_backward_allowance(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids
             1e-5 * Dt.sum(0).reshape(bf.shape))
 
 
-def gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None, out=None):
+def gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None, out=None,
+                         zp=None):
     """Gradients of ``gather_fuse`` given g = dL/dout [n, d]: (dh_str
     [E, d], dwp [dl, dp], dbp [dp], dwf [d + dp, d], dbf [d]). dh_str is
     zero but in the rows ``ids`` name, each the sum of its rows' gradients in
-    the order they come in ``ids``. ``out`` is the forward's output (the
-    backward recomputes it when None). CPU tensors take
-    ``gather_fuse_backward_ref``; CUDA tensors launch the kernels of
-    ``csrc/gather_fuse_backward.cu`` (fp32 and contiguous only) or raise.
-    Counts each launch in ``gather_fuse_backward.launches``."""
+    the order they come in ``ids``. ``out`` is the forward's output and
+    ``zp`` [n, dp] its h_sem[sem_ids]·Wp + bp (``gather_fuse_and_zp``, as
+    training saves them): without ``zp`` the kernels recompute it; without
+    ``out`` the forward kernel runs first (counted in ``gather_fuse.launches``)
+    and gives both. CPU tensors take ``gather_fuse_backward_ref``; CUDA
+    tensors launch the kernels of ``csrc/gather_fuse_backward.cu`` (fp32 and
+    contiguous only) or raise. Counts each call in
+    ``gather_fuse_backward.launches``."""
     n, d, dl, dp = _check_shapes("gather_fuse_backward", ids, h_str, h_sem, wp, bp, wf,
                                  bf, sem_ids)
     if tuple(g.shape) != (n, d) or (out is not None and tuple(out.shape) != (n, d)):
         raise ValueError(f"gather_fuse_backward: need g and out [{n}, {d}], got "
                          f"{tuple(g.shape)} and "
                          f"{None if out is None else tuple(out.shape)}")
+    if zp is not None and tuple(zp.shape) != (n, dp):
+        raise ValueError(f"gather_fuse_backward: need zp [{n}, {dp}], got {tuple(zp.shape)}")
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf, g]
-    tensors += [t for t in (sem_ids, out) if t is not None]
+    tensors += [t for t in (sem_ids, out, zp) if t is not None]
     if _on_cpu("gather_fuse_backward", tensors):
         return gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids)
     floats = [t for t in tensors if t is not ids and t is not sem_ids]
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"gather_fuse_backward: tables, weights, g and out must be "
+        raise TypeError(f"gather_fuse_backward: tables, weights, g, out and zp must be "
                         f"float32, got h_str {h_str.dtype}, h_sem {h_sem.dtype} and "
                         f"g {g.dtype}")
     _check_index_dtypes("gather_fuse_backward", ids, sem_ids)
@@ -270,22 +309,29 @@ def gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None, out
     grads = (torch.zeros_like(h_str), *(torch.empty_like(t) for t in (wp, bp, wf, bf)))
     if n == 0:
         return (grads[0], *(t.zero_() for t in grads[1:]))
+    if out is None:
+        out, zp = gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
     ids64 = ids.long()
     sem64 = ids64 if sem_ids is None else sem_ids.long()
-    # The order in which dh_str's segment sums add a row's repeats.
-    sorted_ids, order = torch.sort(ids64, stable=True)
+    # The order in which dh_str's segment sums add a row's repeats: the order
+    # they come in (small n: the kernel scans the ids for them).
+    sorted_ids = order = None
+    if n > UNSORTED_ROWS:
+        sorted_ids, order = torch.sort(ids64, stable=True)
     lib = build.load_library()
-    # Scratch: the gathered rows [h | zp | 1] and [z | 1], t, dX = t·Wfᵀ and
-    # the weight gradients' chunk partials.
+    # Scratch: Wf and Wpᵀ split, zp (when recomputed), dh, tᵀ and dzpᵀ split,
+    # and the weight gradients' chunk partials.
     scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(n, d, dl, dp),
                           dtype=torch.float32, device=ids.device)
     with torch.cuda.device(ids.device):
         err = lib.repro_gather_fuse_backward(
-            ids64.data_ptr(), sem64.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+            ids64.data_ptr(), sem64.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (sorted_ids, order)),
             h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-            wf.data_ptr(), bf.data_ptr(), None if out is None else out.data_ptr(),
-            g.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in grads), n,
-            h_str.shape[0], h_sem.shape[0], d, dl, dp, build.stream_handle(ids))
+            wf.data_ptr(), bf.data_ptr(), None if zp is None else zp.data_ptr(),
+            out.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+            *(t.data_ptr() for t in grads), n, h_str.shape[0], h_sem.shape[0], d, dl, dp,
+            build.stream_handle(ids))
     build.check(lib, err, "gather_fuse_backward")
     gather_fuse_backward.launches += 1
     return grads

@@ -85,10 +85,10 @@ def fuse_backward_inputs(n: int, layout: str, E: int, d: int, dl: int, dp: int,
     """A ``gather_fuse`` backward's inputs as training gives them, on the
     generator's device: ids drawn from min(E, n/2) entities (each about
     twice, as the loss's candidates repeat), H_sem resident or (``cache``)
-    through a hot set of E rows at shuffled slots, g, and the forward
-    kernel's output. Returns (args, g, sem_ids, out), args being
-    ``gather_fuse``'s first seven."""
-    from repro_torch.kernels.gather_fuse import gather_fuse
+    through a hot set of E rows at shuffled slots, g, and what training's
+    forward saves: its output and zp (``gather_fuse_and_zp``). Returns (args,
+    g, sem_ids, out, zp), args being ``gather_fuse``'s first seven."""
+    from repro_torch.kernels.gather_fuse import gather_fuse_and_zp
 
     dev = generator.device
     h_str = torch.randn((E, d), generator=generator, device=dev) / d ** 0.5
@@ -106,4 +106,4 @@ def fuse_backward_inputs(n: int, layout: str, E: int, d: int, dl: int, dp: int,
         sem_ids = slot_of[ids]
     g = torch.randn((n, d), generator=generator, device=dev)
     args = (ids, h_str, h_sem, wp, bp, wf, bf)
-    return args, g, sem_ids, gather_fuse(*args, sem_ids=sem_ids)
+    return (args, g, sem_ids, *gather_fuse_and_zp(*args, sem_ids=sem_ids))

@@ -24,7 +24,8 @@ and behind a hot set of the reference launcher's budget, pooled: a training
 step's wall time (median over warm steps, each ending in the loss readback)
 and its phases (negatives, hot-set staging, plan, device step), the card's
 busy time per step from a trace of the same steps, and the kernels that
-take the most device time.
+take the most device time; for semantic training also the device ms a step
+of the ``gather_fuse`` backward's own kernels (``fuse_bwd_*``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 """
@@ -226,18 +227,23 @@ def profile_training(family: str, mode: str, kg, device, store=None,
             trainer.train_step(b)
     events = [e for e in prof.key_averages() if _on_device(e)]
     device_ms = sum(_device_us(e) for e in events) / 1e3 / len(traced)
+    # The gather_fuse backward's own launches (csrc/gather_fuse_backward.cu),
+    # without the id sort and the zeroed dh_str its wrapper adds.
+    fuse_bwd_ms = sum(_device_us(e) for e in events
+                      if "fuse_bwd_" in e.key) / 1e3 / len(traced)
     med = [statistics.median(p[i] for p in phases) * 1e3 for i in range(4)]
     wall_ms = statistics.median(sum(p) for p in phases) * 1e3
     print(f"train {label} [{mode}] on {torch.cuda.get_device_name(device)}: "
           f"{cfg.batch_size} queries per step, {REPS} steps; wall {wall_ms:.3f} ms/step: "
           f"negatives {med[0]:.3f}, staging {med[3]:.3f}, plan {med[1]:.3f}, device step "
           f"{med[2]:.3f} (medians); device busy {device_ms:.3f} ms/step "
-          f"({device_ms / wall_ms:.1%}, traced train_step)")
+          f"({device_ms / wall_ms:.1%}, traced train_step)"
+          + (f"; gather_fuse backward kernels {fuse_bwd_ms:.3f} ms/step" if fuse_bwd_ms else ""))
     _top_kernels(events, len(traced))
     return {"train": label, "executor": mode, "batch": cfg.batch_size,
             "wall_ms_per_step": wall_ms, "negatives_ms": med[0], "staging_ms": med[3],
             "plan_ms": med[1], "device_step_ms": med[2], "device_ms_per_step": device_ms,
-            "device_busy": device_ms / wall_ms}
+            "device_busy": device_ms / wall_ms, "gather_fuse_backward_ms_per_step": fuse_bwd_ms}
 
 
 def main() -> None:

@@ -18,9 +18,11 @@ once beside them. Both kernels are held to the plain version first.
   query, a 4,096-row store chunk; this checkout's kernel is also timed with
   each of its tilings forced.
 - ``gather_fuse`` (fp32 and bf16 tables, d = 400, dl = 1024, dp = 64, as
-  the serving path calls it): all 14,951 entities from the resident table,
-  a 4,096-row and the last 2,663-row store chunk, 48 anchors through a
-  hot set.
+  the serving path calls it, with a null zp): all 14,951 entities from the
+  resident table, a 4,096-row and the last 2,663-row store chunk, 48 anchors
+  through a hot set; beside it, this checkout's kernel once more storing zp
+  (``gather_fuse_and_zp``, as training's forward calls it), which must give
+  the same output bits.
 - ``intersect`` (fp32 and bf16 x, d = hd = 800, BetaE's attention MLP):
   every (n, k) BetaE serving gives it (n = 1 to 16, k = 2 or 3), n = 256
   and 512 pool rows of k = 2 or 3 inputs; beside ``stream_read(w1)``, a
@@ -40,13 +42,19 @@ once beside them. Both kernels are held to the plain version first.
 - ``gather_fuse_backward`` (fp32): every shape of ``FUSE_BACKWARD_SHAPES``
   (the loss's 33,280 rows in both layouts, 1,024 rows, 48 anchors, narrow
   widths; the list ``chip_smoke.py`` checks too) and the EMBED pools
-  semantic GQE training gives it (``FUSE_BACKWARD_POOLS``). Commits before
-  it have no such kernel, so DIR is not read:
-  the baseline is the composition, autograd through the plain version
-  (cuBLAS in full fp32), timed in the same order. The kernel is first held
-  to the plain version on fp64 inputs within 1e-4·|exact| +
-  ``gather_fuse_backward_allowance``, and each row splits one call by
-  launch (``torch.profiler``, L2 warm).
+  semantic GQE training gives it (``FUSE_BACKWARD_POOLS``). The baseline is
+  called through the C entry of the commits before the forward saved zp
+  (18 pointers — ids, sem_ids, sorted ids, order, h_str, h_sem, wp, bp, wf,
+  bf, out, g, scratch, dh_str, dwp, dbp, dwf, dbf —, n, n_str, n_sem, d,
+  dl, dp and the stream; scratch sized by that checkout's
+  ``repro_gather_fuse_backward_scratch(n, d, dl, dp)``); this checkout's
+  kernel is given the forward's zp, as training calls it, and is also timed
+  once without it (zp recomputed). The composition, autograd through the
+  plain version (cuBLAS in full fp32), is timed once beside them. Both
+  kernels are first held to the plain version on fp64 inputs within
+  1e-4·|exact| + ``gather_fuse_backward_allowance``, and each row splits
+  one call of this checkout's kernel by launch (``torch.profiler``, L2
+  warm).
 
 Prints the card's name and power limit, one line per shape, and one JSON
 line with every time.
@@ -120,10 +128,16 @@ def declare_baseline(lib, kernel: str):
         lib.repro_intersect.restype = i
         lib.repro_intersect_tiles.argtypes = [i]
         lib.repro_intersect_tiles.restype = i
-    else:  # the five-launch backward: x, g, w1, b1, w2, b2, pre, att, dlogit,
-        # dx, dw1, db1, dw2, db2; n, k, d, hd; the stream
+    elif kernel == "intersect_backward":  # the five-launch backward: x, g, w1,
+        # b1, w2, b2, pre, att, dlogit, dx, dw1, db1, dw2, db2; n, k, d, hd; the stream
         lib.repro_intersect_backward.argtypes = [p] * 14 + [i] * 4 + [p]
         lib.repro_intersect_backward.restype = i
+    else:  # the gather_fuse backward before the forward saved zp: 18 pointers,
+        # n, n_str, n_sem, d, dl, dp, the stream
+        lib.repro_gather_fuse_backward.argtypes = [p] * 18 + [i, ll, ll, i, i, i, p]
+        lib.repro_gather_fuse_backward.restype = i
+        lib.repro_gather_fuse_backward_scratch.argtypes = [i, i, i, i]
+        lib.repro_gather_fuse_backward_scratch.restype = ll
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -193,6 +207,26 @@ def baseline_intersect_backward(lib, x, w1, b1, w2, b2, g):
     return dx, dw1, db1, dw2, db2
 
 
+def baseline_gather_fuse_backward(lib, ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids, out):
+    """The other library's backward through its C entry (no zp argument),
+    with the id sort and zeroed dh_str the wrapper gives it."""
+    n, d, dl, dp = ids.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[1]
+    ids64 = ids.long()
+    sem64 = ids64 if sem_ids is None else sem_ids.long()
+    sorted_ids, order = torch.sort(ids64, stable=True)
+    grads = (torch.zeros_like(h_str), *(torch.empty_like(t) for t in (wp, bp, wf, bf)))
+    scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(n, d, dl, dp),
+                          dtype=torch.float32, device=ids.device)
+    err = lib.repro_gather_fuse_backward(
+        ids64.data_ptr(), sem64.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+        h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
+        bf.data_ptr(), out.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in grads), n, h_str.shape[0], h_sem.shape[0], d, dl, dp,
+        build.stream_handle(ids))
+    build.check(lib, err, "baseline gather_fuse_backward")
+    return grads
+
+
 def ab(fn_base, fn_this, flush, reps):
     """Times in the order baseline, this, this, baseline."""
     times = {"baseline": [], "this": []}
@@ -253,25 +287,40 @@ def fuse_inputs(n, layout, dtype, gen, dev):
 
 def time_gather_fuse(base, flush, gen, dev, reps):
     rows = []
+
+    def serve(args, sem_ids):  # the serving call: no autograd, a null zp
+        with torch.no_grad():
+            return gf.gather_fuse(*args, sem_ids=sem_ids)
+
     for dtype in (torch.float32, torch.bfloat16):
         for n, layout in FUSE_SHAPES:
             args, sem_ids = fuse_inputs(n, layout, dtype, gen, dev)
             want = gf.gather_fuse_ref(*args, sem_ids=sem_ids).float()
             tol = 1e-5 if dtype == torch.float32 else 1e-2
-            for name, got in (("baseline", baseline_gather_fuse(base, *args, sem_ids=sem_ids)),
-                              ("this", gf.gather_fuse(*args, sem_ids=sem_ids))):
-                torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+            got = {"baseline": baseline_gather_fuse(base, *args, sem_ids=sem_ids),
+                   "this": serve(args, sem_ids)}
+            for name, out in got.items():
+                torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol,
                                            msg=lambda m: f"{name} {n} {dtype}: {m}")
+            with_zp = lambda: gf.gather_fuse_and_zp(*args, sem_ids=sem_ids)  # noqa: E731,B023
+            if not torch.equal(with_zp()[0], got["this"]):
+                raise SystemExit(f"time_kernels: gather_fuse {n} {dtype}: the output differs "
+                                 f"with a zp buffer")
             times = ab(lambda: baseline_gather_fuse(base, *args, sem_ids=sem_ids),  # noqa: B023
-                       lambda: gf.gather_fuse(*args, sem_ids=sem_ids), flush, reps)  # noqa: B023
+                       lambda: serve(args, sem_ids), flush, reps)  # noqa: B023
             plain = time_ms(lambda: gf.gather_fuse_ref(*args, sem_ids=sem_ids),  # noqa: B023
                             flush, reps)
+            zp_ms = time_ms(with_zp, flush, reps)
             row = {"n": n, "layout": layout, "d": FUSE_DIMS[0], "dl": FUSE_DIMS[1],
                    "dp": FUSE_DIMS[2], "dtype": str(dtype).split(".")[-1],
-                   "baseline_ms": times["baseline"], "ms": times["this"], "plain_ms": plain}
+                   "baseline_ms": times["baseline"], "ms": times["this"],
+                   "ms_storing_zp": zp_ms, "plain_ms": plain,
+                   "bitwise_equal_to_baseline": torch.equal(got["baseline"], got["this"])}
             rows.append(row)
             print(f"gather_fuse n={n} {layout} {row['dtype']}: baseline "
-                  f"{times['baseline']} ms, this {times['this']} ms, plain {plain:.4f} ms")
+                  f"{times['baseline']} ms, this {times['this']} ms (storing zp "
+                  f"{zp_ms:.4f}), plain {plain:.4f} ms, bits equal to the baseline's: "
+                  f"{row['bitwise_equal_to_baseline']}")
     return rows
 
 
@@ -355,32 +404,43 @@ def time_intersect_backward(base, flush, gen, dev, reps):
 
 
 def time_gather_fuse_backward(base, flush, gen, dev, reps):
-    del base, dev  # no earlier kernel: the composition is the baseline
+    del dev
     rows = []
     shapes = (list(FUSE_BACKWARD_SHAPES)
               + [(n, "resident", E, 400, 1024, 64) for n in FUSE_BACKWARD_POOLS])
     for n, layout, rows_e, d, dl, dp in shapes:
-        args, g, sem_ids, out = fuse_backward_inputs(n, layout, rows_e, d, dl, dp, gen)
-        kernel = lambda: gf.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)  # noqa: E731,B023
+        args, g, sem_ids, out, zp = fuse_backward_inputs(n, layout, rows_e, d, dl, dp, gen)
+        kernel = lambda: gf.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out, zp=zp)  # noqa: E731,B023
+        no_zp = lambda: gf.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out)  # noqa: E731,B023
+        parent = lambda: baseline_gather_fuse_backward(base, *args, g, sem_ids, out)  # noqa: E731,B023
         composition = lambda: gf.gather_fuse_backward_ref(*args, g, sem_ids=sem_ids)  # noqa: E731,B023
         exact = gf.gather_fuse_backward_ref(args[0], *(t.double() for t in args[1:]),
                                             g.double(), sem_ids=sem_ids)
         allowed = gf.gather_fuse_backward_allowance(*args, g, sem_ids=sem_ids)
-        shares = its.backward_shares(kernel(), exact, allowed, names=gf.GRADIENTS)
+        shares = {name: its.backward_shares(fn(), exact, allowed, names=gf.GRADIENTS)
+                  for name, fn in (("baseline", parent), ("this", kernel), ("this_no_zp", no_zp))}
         del exact, allowed
-        worst = max(shares, key=shares.get)
-        if shares[worst] > 1:
-            raise SystemExit(f"time_kernels: gather_fuse_backward {(n, layout, d, dl, dp)}: "
-                             f"{worst} uses {shares[worst]:.3g} of its tolerance")
-        times = ab(composition, kernel, flush, reps)
+        for name, used in shares.items():
+            worst = max(used, key=used.get)
+            if used[worst] > 1:
+                raise SystemExit(f"time_kernels: {name} gather_fuse_backward "
+                                 f"{(n, layout, d, dl, dp)}: {worst} uses {used[worst]:.3g} "
+                                 f"of its tolerance")
+        times = ab(parent, kernel, flush, reps)
+        plain = time_ms(composition, flush, reps)
+        this_no_zp = time_ms(no_zp, flush, reps)
         split = kernel_split(kernel, reps)
         row = {"n": n, "layout": layout, "E": rows_e, "d": d, "dl": dl, "dp": dp,
-               "dtype": "float32", "composition_ms": times["baseline"], "ms": times["this"],
+               "dtype": "float32", "baseline_ms": times["baseline"], "ms": times["this"],
+               "ms_without_zp": this_no_zp, "composition_ms": plain,
                "share_of_allowance": shares, "kernels_ms_l2_warm": split}
         rows.append(row)
-        print(f"gather_fuse_backward {(n, layout, d, dl, dp)}: composition "
-              f"{times['baseline']} ms, this {times['this']} ms, share of allowance "
-              f"{shares[worst]:.3g}; per kernel, L2 warm: "
+        print(f"gather_fuse_backward {(n, layout, d, dl, dp)}: baseline {times['baseline']} "
+              f"ms, this {times['this']} ms (without zp {this_no_zp:.4f}), composition "
+              f"{plain:.4f} ms, share of allowance "
+              f"{max(shares['this'].values()):.3g} (without zp "
+              f"{max(shares['this_no_zp'].values()):.3g}, baseline "
+              f"{max(shares['baseline'].values()):.3g}); per kernel, L2 warm: "
               + ", ".join(f"{name} {v:.4f}" for name, v in split.items()))
     return rows
 
@@ -410,9 +470,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    # The gather_fuse backward has no earlier kernel to load.
-    base = (None if args.kernel == "gather_fuse_backward"
-            else load_baseline(args.baseline.resolve(), args.kernel))
+    base = load_baseline(args.baseline.resolve(), args.kernel)
     build.load_library()
     flush = flush_buffer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -507,8 +507,8 @@ def test_gather_fuse_out_of_range_id_gives_a_nan_row(dev):
 
 
 def test_gather_fuse_entry_takes_a_null_zp(dev):
-    """The C entry keeps its zp scratch argument but this kernel does not use
-    it: a null pointer and a real buffer give the same bits."""
+    """The C entry takes a null zp (serving) or a buffer that receives each
+    row's zp (training): the output has the same bits either way."""
     from repro_torch.kernels import build
     E, d, dl, dp, n = 14951, 400, 1024, 64, 4096
     ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, n)
@@ -526,6 +526,34 @@ def test_gather_fuse_entry_takes_a_null_zp(dev):
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf))
+
+
+@pytest.mark.parametrize("n,layout", [(14951, "resident"), (4096, "cache"), (48, "cache"),
+                                      (1, "resident")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_fuse_stores_zp_without_changing_out(dev, n, layout, dtype):
+    """Given a zp buffer, both forward kernels (two row tiles a block at
+    n = E; the split kernel's column pass 0 below) store each row's zp: within
+    1e-5 of the plain h_sem[sem_ids]·Wp + bp (on the same table values), and
+    the output has the bits of the call without the buffer."""
+    E, d, dl, dp = 14951, 400, 1024, 64
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, d, dl, dp, n, dtype)
+    sem_ids = None
+    if layout == "cache":
+        sem_ids = torch.randperm(E, generator=torch.Generator(device=dev).manual_seed(1),
+                                 device=dev)[ids]
+        h_sem = h_sem.clone()
+        h_sem[sem_ids] = h_sem[ids].clone()
+    with torch.no_grad():
+        plain_out = kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=sem_ids)
+    before = kops.gather_fuse.launches
+    out, zp = gf.gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=sem_ids)
+    torch.cuda.synchronize()
+    assert kops.gather_fuse.launches == before + 1
+    assert torch.equal(out, plain_out)
+    rows = h_sem[ids if sem_ids is None else sem_ids].float()
+    assert zp.shape == (n, dp) and zp.dtype == torch.float32
+    torch.testing.assert_close(zp, rows @ wp + bp, rtol=1e-5, atol=1e-5)
 
 
 def test_gather_fuse_rejects_what_it_does_not_take(dev):
@@ -556,19 +584,25 @@ def _fuse_backward_inputs(dev, n, layout, seed=0, E=14951, d=400, dl=1024, dp=64
                                 torch.Generator(device=dev).manual_seed(seed))
 
 
+@pytest.mark.parametrize("with_zp", [True, False])
 @pytest.mark.parametrize("n,layout,saved", [(48, "resident", True), (48, "cache", True),
                                             (1024, "resident", True), (1024, "cache", False),
-                                            (33280, "resident", True), (33280, "cache", True)])
-def test_gather_fuse_backward_matches_plain(dev, n, layout, saved):
+                                            (33280, "resident", True), (33280, "cache", True),
+                                            (32, "resident", True), (64, "resident", True),
+                                            (128, "resident", True), (256, "resident", True),
+                                            (512, "resident", True)])
+def test_gather_fuse_backward_matches_plain(dev, n, layout, saved, with_zp):
     """Each gradient against the plain version (autograd through
     ``gather_fuse_ref``) on fp64 inputs within 1e-4·|exact| + the allowance
-    of ``gather_fuse_backward_allowance`` an element, at 48 anchors, 1,024
-    rows and the loss's 33,280 (512 queries × 65 candidates), H_sem resident
-    or through hot-set slots, from the forward's saved output or with it
-    recomputed."""
-    args, g, sem_ids, out = _fuse_backward_inputs(dev, n, layout)
+    of ``gather_fuse_backward_allowance`` an element, at 48 anchors, the
+    EMBED pools of semantic training (32 to 512 rows), 1,024 rows and the
+    loss's 33,280 (512 queries × 65 candidates), H_sem resident or through
+    hot-set slots, from the forward's saved output or with it recomputed,
+    and from its saved zp or with zp recomputed."""
+    args, g, sem_ids, out, zp = _fuse_backward_inputs(dev, n, layout)
     before = kops.gather_fuse_backward.launches
-    got = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out if saved else None)
+    got = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out if saved else None,
+                                    zp=zp if with_zp else None)
     torch.cuda.synchronize()
     assert kops.gather_fuse_backward.launches == before + 1
     exact = kops.gather_fuse_backward_ref(args[0], *(t.double() for t in (*args[1:], g)),
@@ -587,10 +621,12 @@ def test_gather_fuse_backward_repeats_bitwise(dev):
     """Two calls on the same inputs, and calls on two streams at once (with
     the forward interleaved), give the same bits as serial calls."""
     cases = [_fuse_backward_inputs(dev, n, layout, seed=s)
-             for s, (n, layout) in enumerate(((33280, "resident"), (1024, "cache")))]
-    serial = [kops.gather_fuse_backward(*a, g, sem_ids=s, out=o) for a, g, s, o in cases]
-    a, g, s, o = cases[0]
-    again = kops.gather_fuse_backward(*a, g, sem_ids=s, out=o)
+             for s, (n, layout) in enumerate(((33280, "resident"), (1024, "cache"),
+                                              (128, "resident")))]
+    serial = [kops.gather_fuse_backward(*a, g, sem_ids=s, out=o, zp=z)
+              for a, g, s, o, z in cases]
+    a, g, s, o, z = cases[0]
+    again = kops.gather_fuse_backward(*a, g, sem_ids=s, out=o, zp=z)
     torch.cuda.synchronize()
     for a, b in zip(serial[0], again):
         assert torch.equal(a, b)
@@ -599,10 +635,10 @@ def test_gather_fuse_backward_repeats_bitwise(dev):
         s.wait_stream(torch.cuda.current_stream(dev))
     runs = []
     for _ in range(3):
-        for st, (a, g, s, o) in zip(streams, cases):
+        for st, (a, g, s, o, z) in zip(streams, cases):
             with torch.cuda.stream(st):
                 kops.gather_fuse(*a, sem_ids=s)
-                runs.append(kops.gather_fuse_backward(*a, g, sem_ids=s, out=o))
+                runs.append(kops.gather_fuse_backward(*a, g, sem_ids=s, out=o, zp=z))
     torch.cuda.synchronize()
     for i, grads in enumerate(runs):
         for name, a, b in zip(gf.GRADIENTS, grads, serial[i % len(cases)]):
@@ -612,22 +648,24 @@ def test_gather_fuse_backward_repeats_bitwise(dev):
 def test_gather_fuse_autograd_runs_both_kernels(dev):
     """On the card, autograd through ``gather_fuse`` launches the forward
     kernel once and the backward kernel once; its gradients are the backward
-    kernel's from the saved output, and H_sem and the ids get none."""
-    (ids, h_str, h_sem, wp, bp, wf, bf), g, sem_ids, _ = _fuse_backward_inputs(dev, 1024, "cache")
+    kernel's from the saved output and zp, and H_sem and the ids get none."""
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, sem_ids, _, _ = _fuse_backward_inputs(
+        dev, 1024, "cache")
     leaves = [t.clone().requires_grad_(True) for t in (h_str, wp, bp, wf, bf)]
     f0, b0 = kops.gather_fuse.launches, kops.gather_fuse_backward.launches
     out = kops.gather_fuse(ids, leaves[0], h_sem, *leaves[1:], sem_ids=sem_ids)
     grads = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
     assert (kops.gather_fuse.launches - f0, kops.gather_fuse_backward.launches - b0) == (1, 1)
+    _, zp = gf.gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=sem_ids)
     want = kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=sem_ids,
-                                     out=out.detach())
+                                     out=out.detach(), zp=zp)
     for a, b in zip(grads, want):
         assert torch.equal(a, b)
 
 
 def test_gather_fuse_backward_rejects_what_it_does_not_take(dev):
-    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _ = _fuse_backward_inputs(
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _, zp = _fuse_backward_inputs(
         dev, 10, "resident", E=50, d=16, dl=32, dp=8)
     before = kops.gather_fuse_backward.launches
     with pytest.raises(TypeError, match="float32"):
@@ -640,6 +678,10 @@ def test_gather_fuse_backward_rejects_what_it_does_not_take(dev):
         kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g.T.contiguous().T)
     with pytest.raises(ValueError, match=r"need g and out \[10, 16\]"):
         kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g[:4])
+    with pytest.raises(ValueError, match=r"need zp \[10, 8\]"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, zp=zp[:4])
+    with pytest.raises(TypeError, match="float32"):
+        kops.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, zp=zp.double())
     assert kops.gather_fuse_backward.launches == before
     f0 = kops.gather_fuse.launches
     # H_sem is frozen: a semantic table that asks for a gradient raises.
@@ -662,7 +704,8 @@ def test_gather_fuse_backward_out_of_range_id_writes_nothing_outside(dev):
     which stay zero; the rows of the ids in range are bitwise those of a call
     without the bad rows."""
     from repro_torch.kernels import build
-    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _ = _fuse_backward_inputs(dev, 2048, "resident")
+    (ids, h_str, h_sem, wp, bp, wf, bf), g, _, _, _ = _fuse_backward_inputs(
+        dev, 2048, "resident")
     E, d, dl, dp = h_str.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[1]
     sem_ids = ids.clone()
     bad = torch.zeros(len(ids), dtype=torch.bool, device=dev)
@@ -681,10 +724,10 @@ def test_gather_fuse_backward_out_of_range_id_writes_nothing_outside(dev):
     lib = build.load_library()
     scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(len(ids), d, dl, dp),
                           device=dev)
-    err = lib.repro_gather_fuse_backward(
+    err = lib.repro_gather_fuse_backward(  # zp null: recomputed from the bad rows too
         ids.data_ptr(), sem_ids.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
         h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
-        bf.data_ptr(), full_out.data_ptr(), g.data_ptr(), scratch.data_ptr(), dh.data_ptr(),
+        bf.data_ptr(), None, full_out.data_ptr(), g.data_ptr(), scratch.data_ptr(), dh.data_ptr(),
         *(t.data_ptr() for t in grads), len(ids), E, E, d, dl, dp, build.stream_handle(ids))
     build.check(lib, err, "gather_fuse_backward")
     torch.cuda.synchronize()
@@ -694,6 +737,34 @@ def test_gather_fuse_backward_out_of_range_id_writes_nothing_outside(dev):
     good = ids[~bad]
     good = good[good != ids[2047]]
     assert torch.equal(dh[good], want[0][good])
+
+
+@pytest.mark.parametrize("n", [48, 1024, 4096])
+def test_gather_fuse_backward_segment_sum_with_and_without_the_sort(dev, n):
+    """Up to ``UNSORTED_ROWS`` the wrapper passes no sorted ids and the
+    segment sum scans the ids for each id's rows; given the ids sorted
+    stably, it walks their runs: both add the same rows in the same order,
+    so every gradient has the same bits."""
+    from repro_torch.kernels import build
+    assert n <= gf.UNSORTED_ROWS
+    args, g, sem_ids, out, zp = _fuse_backward_inputs(dev, n, "cache")
+    ids, h_str, h_sem, wp, bp, wf, bf = args
+    E, d, dl, dp = h_str.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[1]
+    want = kops.gather_fuse_backward(*args, g, sem_ids=sem_ids, out=out, zp=zp)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    grads = [torch.zeros_like(h_str), *(torch.empty_like(t) for t in (wp, bp, wf, bf))]
+    lib = build.load_library()
+    scratch = torch.empty(lib.repro_gather_fuse_backward_scratch(n, d, dl, dp), device=dev)
+    err = lib.repro_gather_fuse_backward(
+        ids.data_ptr(), sem_ids.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+        h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
+        bf.data_ptr(), zp.data_ptr(), out.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in grads), n, E, h_sem.shape[0], d, dl, dp,
+        build.stream_handle(ids))
+    build.check(lib, err, "gather_fuse_backward")
+    torch.cuda.synchronize()
+    for name, a, b in zip(gf.GRADIENTS, grads, want):
+        assert torch.equal(a, b), name
 
 
 def test_semantic_training_step_on_gpu_matches_cpu(dev):

@@ -9,6 +9,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import build
+from repro_torch.kernels import gather_fuse as gf
 from repro_torch.kernels import intersect as its
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.scoring import TILES
@@ -298,6 +299,94 @@ def test_time_kernels_takes_the_backward_against_its_five_launch_baseline():
     assert set(vars(lib)) == {"repro_intersect_backward", "repro_error_string"}
     assert all((n, 2, 800, 800) in tk.BACKWARD_SHAPES for n in (32, 64, 128, 256, 512))
     assert {(77, 3), (16, 1), (16, 12)} <= {(n, k) for n, k, _, _ in tk.BACKWARD_SHAPES}
+
+
+def _fuse_backward_model(ids, h_str, z, zp, o, g, wp, wf):
+    """A test-only model of csrc/gather_fuse_backward.cu's arithmetic at
+    n <= 1,024 (one chunk of rows): t = g·(0.5·(1 − o²)); dX = t·Wfᵀ in
+    3xTF32 over depth chunks of d (d / 8 rounded up to whole 32-deep
+    slices), folded in order; [dWf; dbf] = [h | zp | 1]ᵀ·t and [dWp; dbp] =
+    [z | 1]ᵀ·dzp, each one 3xTF32 chain over the rows; dh_str the rows' dh
+    added in id order."""
+    f32 = np.float32
+    n, d = g.shape
+    t = (g * (f32(0.5) * (f32(1) - o * o))).astype(f32)
+    ch = -(-(-(-d // 8)) // 32) * 32
+    wft = wf.T.copy()
+    dx = _fold([_mm_3xtf32(t[:, c:c + ch], wft[c:c + ch], 0) for c in range(0, d, ch)])
+    ones = np.ones((n, 1), f32)
+    x1 = np.concatenate([h_str[ids], zp, ones], axis=1).astype(f32)
+    dwf = _mm_3xtf32(x1.T.copy(), t, 0)
+    dwp = _mm_3xtf32(np.concatenate([z, ones], axis=1).T.copy(), dx[:, d:].copy(), 0)
+    dh = np.zeros_like(h_str)
+    for i in np.argsort(ids, kind="stable"):
+        dh[ids[i]] = (dh[ids[i]] + dx[i, :d]).astype(f32)
+    return dh, dwp[:-1], dwp[-1], dwf[:-1], dwf[-1]
+
+
+@pytest.mark.parametrize("n", [48, 256])
+def test_gather_fuse_backward_3xtf32_model_holds_its_allowance(n):
+    """At semantic training's widths (d = 400, dl = 1024, dp = 64) and EMBED
+    pools, gradients taken in the backward kernel's 3xTF32 order with its
+    depth chunks, from the forward's zp, stay within 1e-4·|exact| +
+    ``gather_fuse_backward_allowance`` of the plain version on fp64 inputs,
+    using no more than half of it."""
+    rng = np.random.default_rng(n)
+    E, d, dl, dp = 300, 400, 1024, 64
+    ids = rng.integers(0, E // 2, size=n)
+    h_str = (rng.normal(size=(E, d)) / d ** 0.5).astype(np.float32)
+    table = rng.normal(size=(E, dl))
+    table = (table / np.linalg.norm(table, axis=1, keepdims=True)).astype(np.float32)
+    wp = (rng.normal(size=(dl, dp)) * (2 / (dl + dp)) ** 0.5).astype(np.float32)
+    wf = (rng.normal(size=(d + dp, d)) * (2 / (2 * d + dp)) ** 0.5).astype(np.float32)
+    bp = (0.1 * rng.normal(size=dp)).astype(np.float32)
+    bf = (0.1 * rng.normal(size=d)).astype(np.float32)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (h_str, table, wp, bp, wf, bf)]
+    tid = torch.from_numpy(ids)
+    out, zp = (t.numpy() for t in gf.gather_fuse_and_zp(tid, *args))
+    got = [torch.from_numpy(np.asarray(a)) for a in
+           _fuse_backward_model(ids, h_str, table[ids], zp.astype(np.float32), out, g, wp, wf)]
+    tg = torch.from_numpy(g)
+    exact = tops.gather_fuse_backward_ref(tid, *(a.double() for a in args), tg.double())
+    allowed = tops.gather_fuse_backward_allowance(tid, *args, tg)
+    shares = its.backward_shares(got, exact, allowed, names=gf.GRADIENTS)
+    assert max(shares.values()) <= 0.5, shares
+
+
+def test_time_kernels_takes_the_fuse_backward_against_its_parent_entry():
+    """``time_kernels --kernel gather_fuse_backward --baseline DIR`` parses, and
+    the baseline library's entry is declared as the C signature of the
+    backward before the forward saved zp: 18 pointers (ids, sem_ids, sorted
+    ids, order, h_str, h_sem, wp, bp, wf, bf, out, g, scratch, dh_str, dwp,
+    dbp, dwf, dbf), int n, long long n_str and n_sem, int d, dl, dp and the
+    stream, with its scratch size (n, d, dl, dp) -> long long; no entry the
+    older library lacks is touched. This checkout's entry takes one pointer
+    more (zp, after bf)."""
+    import ctypes
+    import types
+
+    from repro_torch.launch import time_kernels as tk
+
+    args = tk.parser().parse_args(["--kernel", "gather_fuse_backward", "--baseline", "b"])
+    assert args.kernel == "gather_fuse_backward" and str(args.baseline) == "b"
+
+    class StandIn:  # a library whose entries exist only once declared
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = tk.declare_baseline(StandIn(), "gather_fuse_backward")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert lib.repro_gather_fuse_backward.argtypes == [p] * 18 + [i, ll, ll, i, i, i, p]
+    assert lib.repro_gather_fuse_backward.restype is i
+    assert lib.repro_gather_fuse_backward_scratch.argtypes == [i] * 4
+    assert lib.repro_gather_fuse_backward_scratch.restype is ll
+    assert set(vars(lib)) == {"repro_gather_fuse_backward",
+                              "repro_gather_fuse_backward_scratch", "repro_error_string"}
+    assert {512, 256, 128, 64, 32} == set(tk.FUSE_BACKWARD_POOLS)
+    assert (33_280, "resident", tk.E, 400, 1024, 64) in tk.FUSE_BACKWARD_SHAPES
 
 
 def _gather_fuse_args(device):

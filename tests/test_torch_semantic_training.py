@@ -363,13 +363,13 @@ def test_training_budget_rows_is_the_reference_launchers_rule(E, batch, negative
 def test_fuse_backward_inputs_name_the_same_rows_in_both_layouts(layout):
     """The backward's timing inputs (``kernels.timing.fuse_backward_inputs``,
     as ``chip_smoke.py`` and ``time_kernels`` take them) on the CPU: ids
-    repeat, hot-set slots hold the rows the ids name, and the saved output is
-    the plain version's."""
+    repeat, hot-set slots hold the rows the ids name, and the saved output and
+    zp are the plain version's."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.timing import fuse_backward_inputs
 
-    args, g, sem_ids, out = fuse_backward_inputs(64, layout, 50, 8, 16, 4,
-                                                 torch.Generator().manual_seed(3))
+    args, g, sem_ids, out, zp = fuse_backward_inputs(64, layout, 50, 8, 16, 4,
+                                                     torch.Generator().manual_seed(3))
     ids, h_str, h_sem = args[:3]
     assert len(torch.unique(ids)) < len(ids) and int(ids.max()) < 32
     assert tuple(g.shape) == tuple(out.shape) == (64, 8)
@@ -379,3 +379,4 @@ def test_fuse_backward_inputs_name_the_same_rows_in_both_layouts(layout):
         same = ids[:, None] == ids[None, :]
         assert bool(((sem_ids[:, None] == sem_ids[None, :]) == same).all())
     torch.testing.assert_close(out, kops.gather_fuse_ref(*args, sem_ids=sem_ids), rtol=0, atol=0)
+    torch.testing.assert_close(zp, rows @ args[3] + args[4], rtol=0, atol=0)
