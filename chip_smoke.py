@@ -103,6 +103,22 @@ non-zero (printing no result) on any failed check:
    times its calls. BetaE+H_sem: three
    pooled steps, twice from one seed (whether the loss bits agree is
    reported).
+5c. Pipelined training: ``TrainConfig(pipeline=True)`` for BetaE, GQE and
+   GQE+H_sem behind the hot set (pooled, full width), each one
+   ``train(22, batches=...)`` call on the batches of that model's sync run
+   in phase 5 or 5b, timed from the retire of step 2 to that of step 22.
+   Gates: the losses bitwise the sync run's (held to 1e-6 relative instead,
+   with the reason printed, only where two sync runs of one seed differ
+   bitwise), all finite; ``intersect``/``gather_fuse`` and their backwards
+   launched as often as the plans call for; the hot set staged entirely in
+   the background (``stages_background == stages``, no sync stage,
+   ``prefetch_overlap_frac`` 1.0); one more dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")`` raises nothing, with the
+   scheduler thread running beside it. Printed: steps/s and queries/s beside
+   the sync run's, the bubble (``pipeline_wait``) and retire shares of the
+   wall, both threads' median phases and CPU time a step. GQE is evaluated
+   after it (``scoring`` launches equal its eval batches). Its launches are
+   added to the training entries of the kernels line.
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
    main path gave it most often; ``scoring`` has one entry for each path
    that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
@@ -118,6 +134,7 @@ import atexit
 import collections
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1060,12 +1077,14 @@ def main() -> None:
         if launches["scoring"]:
             fail(f"train {family} {mode}: the loss launched scoring {launches['scoring']} times")
         n_q = TRAIN_STEPS * tcfg.batch_size
+        sync_runs[family, mode] = ([r["loss"] for r in trainer.history], wall)
         print(f"train {family} [{mode}]: {TRAIN_STEPS} steps in {wall:.3f} s, "
               f"{TRAIN_STEPS / wall:.2f} steps/s, {n_q / wall:.1f} queries/s | losses "
               f"{losses[0]:.6f} -> {losses[-1]:.6f} ({' '.join(f'{l:.6f}' for l in losses)}) "
               f"| launches {launches}" + (f" | {note}" if note else ""))
         return trainer, launches, collections.Counter(calls)
 
+    sync_runs = {}   # (model, mode) -> (the losses of all its steps, wall of the timed ones)
     train_path = {"intersect": [0, collections.Counter()],
                   "intersect_backward": [0, collections.Counter()]}
     for family in ("betae", "gqe"):
@@ -1205,6 +1224,8 @@ def main() -> None:
             hot = (f" | hot set of {budget} rows: hit rate {cs['hit_rate']:.2%}, "
                    f"{cs['rows_staged']} rows staged, {cs['evictions']} evictions")
         n_q = TRAIN_STEPS * tcfg.batch_size
+        sync_runs[f"gqe+semantic [{layout}]", mode] = ([r["loss"] for r in trainer.history],
+                                                       wall)
         print(f"train {name}: {TRAIN_STEPS} steps in {wall:.3f} s (staging included, "
               f"outside queries_per_sec), {TRAIN_STEPS / wall:.2f} steps/s, "
               f"{n_q / wall:.1f} queries/s | losses {losses[0]:.6f} -> {losses[-1]:.6f} "
@@ -1285,6 +1306,172 @@ def main() -> None:
           f"{' '.join(f'{l:.6f}' for l in runs[0])}; two runs of one seed: loss bits "
           f"{'equal' if runs[0] == runs[1] else 'differ'} ({runs[0]} vs {runs[1]})")
     del table
+
+    # ------------------------------------------------ 5c. pipelined training
+    counted = ("intersect", "intersect_backward", "gather_fuse", "gather_fuse_backward",
+               "scoring")
+
+    def sync_losses(family: str, mcfg, cache=None) -> list:
+        """A fresh sync run's losses over the same batches (phase 5's warm-up
+        and timed steps in one call): whether two sync runs of one seed agree
+        bitwise, asked only when the pipelined run does not."""
+        sem = {} if cache is None else {"semantic_cache": cache}
+        tr = NGDBTrainer(make_model(family, mcfg, device=dev), kg, tcfg, **sem)
+        out = [r["loss"] for r in tr.train(len(batches), log_every=0, batches=batches)]
+        del tr
+        torch.cuda.empty_cache()
+        return out
+
+    def pipelined_run(label: str, family: str, mcfg, layout: str = "") -> dict:
+        """``TrainConfig(pipeline=True)`` on the sync run's batches (the warm-up
+        and the timed steps in one ``train`` call, so the trainer's sampler
+        draws the sync run's negatives), with the kernels' counts zeroed just
+        before and read just after. Gates: losses bitwise the sync run's,
+        all finite; launches equal to the plans' ops; a hot set staged
+        entirely in the background; one more dispatch under
+        ``set_sync_debug_mode("error")``. Returns the launches and Counters
+        of the calls' shapes."""
+        cache = SemanticCache(store, budget, device=dev) if layout == "hot set" else None
+        sem = {} if cache is None else {"semantic_cache": cache}
+        trainer = NGDBTrainer(make_model(family, mcfg, device=dev), kg,
+                              TrainConfig(pipeline=True), **sem)
+        torch.cuda.synchronize()
+        for name in counted:
+            getattr(kops, name).launches = 0
+        t0 = time.perf_counter()
+        losses = [r["loss"] for r in trainer.train(len(batches), log_every=0,
+                                                   batches=batches)]
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {name: getattr(kops, name).launches for name in counted}
+        sync, sync_wall = sync_runs[label, "pooled"]
+        if not np.isfinite(losses).all():
+            fail(f"train {label} [pipelined]: a loss is not finite: {losses}")
+        note = "losses bitwise the sync run's"
+        if losses != sync:
+            again = sync_losses(family, mcfg, None if cache is None else
+                                SemanticCache(store, budget, device=dev))
+            if again == sync:
+                fail(f"train {label} [pipelined]: losses {losses} differ from the sync "
+                     f"run's {sync}, and two sync runs agree bitwise")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, sync))
+            if rel > 1e-6:
+                fail(f"train {label} [pipelined]: losses {rel:.3g} relative from sync's")
+            note = (f"two sync runs of one seed differ bitwise here, so held to 1e-6 "
+                    f"relative: {rel:.3g}")
+        # The kernels' calls over every batch of the run, as phases 5 and 5b
+        # count them (after the run: its plans are cached).
+        pools = collections.Counter()
+        embeds, loss_calls = collections.Counter(), collections.Counter()
+        for b in batches:
+            queries = [x.query for x in b]
+            pools.update(attn_calls(trainer.executor, queries))
+            if layout:
+                e, lc = fuse_calls(trainer.executor, queries)
+                embeds.update(e)
+                loss_calls.update(lc)
+        n_attn = sum(pools.values()) if family == "betae" else 0
+        n_fuse = sum((embeds + loss_calls).values())
+        want = {"intersect": n_attn, "intersect_backward": n_attn, "gather_fuse": n_fuse,
+                "gather_fuse_backward": n_fuse, "scoring": 0}
+        if launches != want:
+            fail(f"train {label} [pipelined]: launches {launches}, the plans call for {want}")
+        hot = ""
+        if cache is not None:
+            cs = cache.stats()
+            if (cs["stages_background"], cs["sync_stages"],
+                    cs["prefetch_overlap_frac"]) != (cs["stages"], 0, 1.0):
+                fail(f"train {label} [pipelined]: the hot set was not staged in the "
+                     f"background alone: {cs}")
+            hot = (f" | hot set: {cs['stages']} stages, all in the background "
+                   f"(prefetch_overlap_frac {cs['prefetch_overlap_frac']}), "
+                   f"{cs['rows_staged']} rows staged")
+        phases = trainer.step_phases
+        timed = phases[TRAIN_WARMUP:]
+        wall = timed[-1]["t_retired"] - phases[TRAIN_WARMUP - 1]["t_retired"]
+
+        def med(key):
+            return statistics.median(p.get(key, 0.0) for p in timed) * 1e3
+
+        def mean(key):   # the thread clock may tick in ms: means, not medians
+            return statistics.fmean(p[key] for p in timed) * 1e3
+
+        def share(key):
+            return sum(p.get(key, 0.0) for p in timed) / wall
+
+        n_q = TRAIN_STEPS * tcfg.batch_size
+        sched = ("sample", "negatives", "sem_prefetch", "schedule", "transfer")
+        main_ = ("pipeline_wait", "sem_apply", "dispatch", "retire")
+        print(f"train {label} [pooled, pipelined]: {TRAIN_STEPS} steps in {wall:.3f} s "
+              f"(retire of step {TRAIN_WARMUP} to step {len(batches)}), "
+              f"{TRAIN_STEPS / wall:.2f} steps/s, {n_q / wall:.1f} queries/s against sync "
+              f"{TRAIN_STEPS / sync_wall:.2f} steps/s, {n_q / sync_wall:.1f} queries/s | "
+              f"bubble (pipeline_wait) {share('pipeline_wait_s'):.1%}, retire "
+              f"{share('retire_s'):.1%} of wall | scheduler thread medians (ms): "
+              + ", ".join(f"{k} {med(k + '_s'):.3f}" for k in sched)
+              + " | main thread medians (ms): "
+              + ", ".join(f"{k} {med(k + '_s'):.3f}" for k in main_)
+              + f" | thread CPU a step (means, ms): scheduler {mean('scheduler_cpu_s'):.3f}, "
+              f"dispatch {mean('dispatch_cpu_s'):.3f}, against {wall / TRAIN_STEPS * 1e3:.3f} "
+              f"wall | {note} | launches {launches}{hot} | {len(batches)} steps and "
+              f"set-up in {total:.3f} s")
+        # One more dispatch with any host sync an error (the retire, which
+        # reads the loss back, excluded): the scheduler thread runs beside it.
+        pf = trainer._prefetcher(batches)
+        try:
+            item = pf.next(timeout=120)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss, _ = trainer._dispatch(item)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            pf.next(timeout=120)   # raises if the scheduler thread failed meanwhile
+        except RuntimeError as e:
+            fail(f"train {label} [pipelined]: a dispatch under "
+                 f"set_sync_debug_mode('error') raised: {e!r} ({e.__cause__!r})")
+        finally:
+            pf.close()
+            if cache is not None:
+                cache.reconcile()
+        if not np.isfinite(float(loss)):
+            fail(f"train {label} [pipelined]: the checked dispatch's loss is {float(loss)}")
+        print(f"  one pipelined dispatch of {label} under set_sync_debug_mode('error'): "
+              f"no host sync")
+        if family == "gqe" and not layout:
+            kops.scoring.launches = 0
+            metrics = evaluate(trainer.model, trainer.params, trainer.executor, kg,
+                               eval_queries, batch_size=64)
+            n_batches = -(-EVAL_QUERIES // 64)
+            if kops.scoring.launches != n_batches or not all(
+                    np.isfinite(v) for v in metrics.values()):
+                fail(f"evaluate {label} after pipelined training: {metrics}, "
+                     f"{kops.scoring.launches} scoring launches for {n_batches} batches")
+            launches["scoring"] = kops.scoring.launches
+            print(f"evaluate {label} after pipelined training: mrr {metrics['mrr']:.5f}, "
+                  f"hits@10 {metrics['hits@10']:.5f} | scoring launches "
+                  f"{kops.scoring.launches}")
+        del trainer, cache
+        torch.cuda.empty_cache()
+        return {"launches": launches, "pools": pools, "fuse": embeds + loss_calls}
+
+    print(f"pipelined training: TrainConfig(pipeline=True) (prefetch {tcfg.prefetch}, "
+          f"max_inflight {tcfg.max_inflight}, gil_switch_interval "
+          f"{tcfg.gil_switch_interval}) on the sync runs' {len(batches)} batches")
+    for label, family, mcfg, layout in (("betae", "betae", cfg, ""), ("gqe", "gqe", cfg, ""),
+                                        ("gqe+semantic [hot set]", "gqe", sem_cfg,
+                                         "hot set")):
+        r = pipelined_run(label, family, mcfg, layout)
+        grown = {"intersect[training]": ("intersect", r["pools"]),
+                 "intersect_backward": ("intersect_backward", r["pools"]),
+                 "gather_fuse[training]": ("gather_fuse", r["fuse"]),
+                 "gather_fuse_backward": ("gather_fuse_backward", r["fuse"]),
+                 "scoring[l1][evaluate]": ("scoring", None)}
+        for key, (name, shapes) in grown.items():
+            if r["launches"][name]:
+                n, counter = main_path[key]
+                main_path[key] = (n + r["launches"][name],
+                                  counter + shapes if shapes else counter)
 
     # ------------------------------------------------- 6. the kernels line
     entries = []

@@ -149,15 +149,38 @@ class CompiledPlan:
         ONE host-to-device copy of a packed buffer; the per-step tensors are
         views into it."""
         steps = [{**s, **b} for s, b in zip(self.slot_arrays, self.bind_arrays)]
-        parts = [a.reshape(-1) for st in steps for a in st.values()]
-        parts.append(self.answer_slots)
-        flat = torch.from_numpy(np.concatenate(parts).astype(np.int64, copy=False))
-        flat = flat.to(device)
-        out, off = [], 0
+        views, _, _ = packed_to_device(
+            [a for st in steps for a in st.values()] + [self.answer_slots], device)
+        out, it = [], iter(views)
         for st in steps:
-            views = {}
-            for k, a in st.items():
-                views[k] = flat[off:off + a.size].view(a.shape)
-                off += a.size
-            out.append(views)
-        return out, flat[off:]
+            out.append({k: next(it) for k in st})
+        return out, next(it)
+
+
+def packed_to_device(arrays, device, stream=None):
+    """Integer arrays as int64 tensors on ``device``, each a view into one
+    buffer that ONE host-to-device copy fills. Returns ``(views, flat,
+    host)``: ``flat`` the device buffer, ``host`` the packed host buffer.
+
+    Without ``stream`` the copy blocks, as ``Tensor.to`` does from pageable
+    memory. With a CUDA ``stream`` the buffer is packed into pinned memory
+    and copied without blocking on that stream, where ``flat`` is allocated
+    too: the caller records an event there, and a consumer on another stream
+    waits on it and calls ``flat.record_stream`` before the first use."""
+    parts = [np.asarray(a).reshape(-1) for a in arrays]
+    if stream is None:
+        host = torch.from_numpy(np.concatenate(parts).astype(np.int64, copy=False))
+        flat = host.to(device)
+    else:
+        host = torch.empty(sum(p.size for p in parts), dtype=torch.int64,
+                           pin_memory=True)
+        np.concatenate(parts, out=host.numpy())
+        with torch.cuda.stream(stream):
+            flat = host.to(device, non_blocking=True)
+    views, off = [], 0
+    for a in arrays:
+        shape = np.shape(a)
+        size = int(np.prod(shape))
+        views.append(flat[off:off + size].view(shape))
+        off += size
+    return views, flat, host

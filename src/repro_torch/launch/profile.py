@@ -27,7 +27,20 @@ busy time per step from a trace of the same steps, and the kernels that
 take the most device time; for semantic training also the device ms a step
 of the ``gather_fuse`` backward's own kernels (``fuse_bwd_*``).
 
-    PYTHONPATH=src python -m repro_torch.launch.profile
+For BetaE and GQE pooled, and GQE with H_sem behind the hot set, the same
+training with ``TrainConfig(pipeline=True)`` follows each sync row: the
+wall a step (median of the intervals between retires), the scheduler
+thread's phases (raw batch, negatives, hot-set staging, plan, copies to the
+card) and the main thread's (waiting for an item, applying the hot-set
+stage, dispatching the step, reading its loss back), medians, each thread's
+CPU time a step (the two share one GIL), and the card's busy time per step
+from a trace of more pipelined steps.
+
+``--pipeline-ab`` runs only the sync against pipelined comparison of those
+three cells: alternating pairs of fresh trainers on the same batches in one
+process, steps/s of each run.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile [--pipeline-ab]
 """
 from __future__ import annotations
 
@@ -246,13 +259,142 @@ def profile_training(family: str, mode: str, kg, device, store=None,
             "device_busy": device_ms / wall_ms, "gather_fuse_backward_ms_per_step": fuse_bwd_ms}
 
 
-def main() -> None:
+PIPE_SCHEDULER = ("sample", "negatives", "sem_prefetch", "schedule", "transfer")
+PIPE_MAIN = ("pipeline_wait", "sem_apply", "dispatch", "retire")
+# Each thread's CPU time a step; means, since the thread clock may tick in ms.
+PIPE_CPU = ("scheduler_cpu", "dispatch_cpu")
+PAIRS = 10     # sync/pipelined pairs of --pipeline-ab, in alternating order
+
+
+def profile_pipelined(family: str, kg, device, store=None, layout: str = "") -> dict:
+    """Warm pipelined training steps of ``family`` (pooled), split into the
+    scheduler thread's phases and the main thread's, and the card's busy
+    time per step from a trace of ``REPS`` more steps. With ``store``, GQE
+    carries H_sem behind a hot set of the reference launcher's budget."""
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.training import NGDBTrainer, TrainConfig
+
+    cfg = TrainConfig(pipeline=True)
+    sem, mcfg, label = {}, ModelConfig(), family
+    if store is not None:
+        mcfg = ModelConfig(semantic_dim=store.dim)
+        budget = training_budget_rows(kg.n_entities, cfg.batch_size, cfg.n_negatives)
+        sem = {"semantic_cache": SemanticCache(store, budget_rows=budget, device=device)}
+        label = f"{family}+semantic [{layout}]"
+    trainer = NGDBTrainer(make_model(family, mcfg, device=device), kg, cfg, **sem)
+    sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=11)
+    batches = [sampler.sample_batch(cfg.batch_size) for _ in range(2 * REPS + 3)]
+    # Three warm steps (closures, kernel library, allocator), then REPS timed.
+    trainer.train(3 + REPS, log_every=0, batches=batches[:3 + REPS])
+    timed = trainer.step_phases[3:]
+    walls = np.diff([p["t_retired"] for p in trainer.step_phases[2:]]) * 1e3
+    med = {k: statistics.median(p.get(k + "_s", 0.0) for p in timed) * 1e3
+           for k in PIPE_SCHEDULER + PIPE_MAIN}
+    med.update({k: statistics.fmean(p[k + "_s"] for p in timed) * 1e3 for k in PIPE_CPU})
+    wall_ms = float(statistics.median(walls))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train(REPS, log_every=0, batches=batches[3 + REPS:])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if _on_device(e)]
+    device_ms = sum(_device_us(e) for e in events) / 1e3 / REPS
+    print(f"train {label} [pooled, pipelined] on {torch.cuda.get_device_name(device)}: "
+          f"{cfg.batch_size} queries per step, {REPS} steps; wall {wall_ms:.3f} ms/step "
+          f"(median between retires); scheduler thread "
+          + ", ".join(f"{k} {med[k]:.3f}" for k in PIPE_SCHEDULER)
+          + "; main thread " + ", ".join(f"{k} {med[k]:.3f}" for k in PIPE_MAIN)
+          + " (medians, ms); CPU time a step (means, ms) "
+          + ", ".join(f"{k} {med[k]:.3f}" for k in PIPE_CPU)
+          + f"; device busy {device_ms:.3f} ms/step "
+          f"({device_ms / wall_ms:.1%}, traced pipelined steps)")
+    _top_kernels(events, REPS)
+    return {"train": label, "executor": "pooled", "pipeline": True, "batch": cfg.batch_size,
+            "wall_ms_per_step": wall_ms, **{f"{k}_ms": med[k] for k in med},
+            "device_ms_per_step": device_ms, "device_busy": device_ms / wall_ms}
+
+
+def _trainer(family: str, kg, device, pipeline: bool, store=None):
+    from repro_torch.training import NGDBTrainer, TrainConfig
+
+    cfg = TrainConfig(pipeline=pipeline)
+    if store is None:
+        return NGDBTrainer(make_model(family, ModelConfig(), device=device), kg, cfg)
+    budget = training_budget_rows(kg.n_entities, cfg.batch_size, cfg.n_negatives)
+    return NGDBTrainer(make_model(family, ModelConfig(semantic_dim=store.dim), device=device),
+                       kg, cfg, semantic_cache=SemanticCache(store, budget, device=device))
+
+
+def compare_pipelined(family: str, kg, device, store=None, pairs: int = PAIRS) -> dict:
+    """Sync against pipelined steps/s in one process: ``pairs`` pairs of
+    fresh trainers on the same 22 fresh batches, the order alternating
+    (sync first in even pairs). Each run is timed as ``chip_smoke.py``
+    phase 5c times it: sync over 20 steps after 2 warm-up steps, pipelined
+    from the retire of step 2 to that of step 22 in one ``train`` call.
+    With ``store``, GQE carries H_sem behind a hot set of the reference
+    launcher's budget."""
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.training import TrainConfig
+
+    cfg = TrainConfig()
+    sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=13)
+    batches = [sampler.sample_batch(cfg.batch_size) for _ in range(22)]
+    rates = {False: [], True: []}
+    for i in range(pairs):
+        for pipeline in ((False, True) if i % 2 == 0 else (True, False)):
+            tr = _trainer(family, kg, device, pipeline, store)
+            if pipeline:
+                tr.train(22, log_every=0, batches=batches)
+                wall = tr.step_phases[-1]["t_retired"] - tr.step_phases[1]["t_retired"]
+            else:
+                tr.train(2, log_every=0, batches=batches[:2])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train(20, log_every=0, batches=batches[2:])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rates[pipeline].append(20 / wall)
+            del tr
+            torch.cuda.empty_cache()
+    ratio = [p / s for s, p in zip(rates[False], rates[True])]
+    q = np.percentile(rates[False], [25, 75])
+    label = family if store is None else f"{family}+semantic [hot set]"
+    print(f"train {label} [pooled] sync vs pipelined on {torch.cuda.get_device_name(device)}, "
+          f"{pairs} pairs (steps/s): sync " + " ".join(f"{r:.2f}" for r in rates[False])
+          + " | pipelined " + " ".join(f"{r:.2f}" for r in rates[True])
+          + f" | medians {statistics.median(rates[False]):.2f} / "
+          f"{statistics.median(rates[True]):.2f}, ratio median {statistics.median(ratio):.3f}, "
+          f"pipelined faster in {sum(r > 1 for r in ratio)} of {pairs} pairs, sync "
+          f"interquartile {q[0]:.2f}-{q[1]:.2f}")
+    return {"train": label, "pairs": pairs, "sync_steps_per_s": rates[False],
+            "pipelined_steps_per_s": rates[True], "ratio_median": statistics.median(ratio)}
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pipeline-ab", action="store_true",
+                    help="only sync against pipelined training, in alternating pairs")
+    args = ap.parse_args(argv)
     device = resolve_device(None)
     kg, _, _ = load_dataset("FB15k", reduced=False, seed=0)
+    if args.pipeline_ab:
+        for family in ("betae", "gqe"):
+            print(json.dumps(compare_pipelined(family, kg, device)))
+        directory = tempfile.mkdtemp(prefix="profile_semstore_")
+        try:
+            store = precompute_semantic_table_to_store(kg, directory, StubPTE(device=device))
+            print(json.dumps(compare_pipelined("gqe", kg, device, store)))
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        return
     for family in ("betae", "gqe"):
         for mode in ("pooled", "query_level"):
             print(json.dumps(profile_training(family, mode, kg, device)))
             torch.cuda.empty_cache()
+            if mode == "pooled":
+                print(json.dumps(profile_pipelined(family, kg, device)))
+                torch.cuda.empty_cache()
     for family in FAMILIES:
         print(json.dumps(profile_family(family, kg, device)))
         torch.cuda.empty_cache()
@@ -267,6 +409,8 @@ def main() -> None:
                              ("hot set", "pooled")):
             print(json.dumps(profile_training("gqe", mode, kg, device, store, layout)))
             torch.cuda.empty_cache()
+        print(json.dumps(profile_pipelined("gqe", kg, device, store, "hot set")))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(directory, ignore_errors=True)
 

@@ -22,11 +22,15 @@ the other.
 
 Threading contract: ``plan()`` does the store I/O, the dequantization and
 the single host->device copy of the missing rows; ``apply_to()`` writes them
-into the cache in place. Both run on the one thread that owns the device
-launches (the serving batcher), on its current CUDA stream. Because the
-stream executes in order, an apply enqueued after batch *k*'s kernels cannot
-clobber rows batch *k* reads, even when eviction reuses their slots for
-batch *k+1*.
+into the cache in place, on the current CUDA stream of the thread that owns
+the step launches (the serving batcher, the trainer's main thread). Because
+that stream executes in order, an apply enqueued after batch *k*'s kernels
+cannot clobber rows batch *k* reads, even when eviction reuses their slots
+for batch *k+1* (or for a batch still queued behind it). ``plan()`` runs
+either on that same thread (a sync stage) or on the training pipeline's
+scheduler thread (``plan(background=True, stream=side)``): then the rows are
+packed into pinned memory and copied on the side stream without blocking,
+and ``apply_to`` makes the current stream wait on the stage's event first.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.plan import packed_to_device
 from repro_torch.device import resolve_device
 from repro_torch.obs.registry import get_registry
 
@@ -338,13 +343,18 @@ class _ArrayReader:
 class SemStage:
     """One planned staging op: write ``rows`` into cache ``slots`` and point
     ``ids`` at them. The tensors already lie on the cache's device (the
-    single host->device copy happened in ``plan``)."""
+    single host->device copy happened in ``plan``). A background stage on
+    CUDA was copied on a side stream: ``event`` marks the copies' end, and
+    ``host`` holds the pinned buffers they read from."""
 
     seq: int
     slots: torch.Tensor     # int64 [m]
     ids: torch.Tensor       # int64 [m]
     rows: torch.Tensor      # fp32 [m, dim]
     n_rows: int
+    background: bool = False
+    event: Optional[torch.cuda.Event] = None
+    host: tuple = ()
 
 
 def training_budget_rows(n_entities: int, batch_size: int, n_negatives: int) -> int:
@@ -372,7 +382,7 @@ class SemanticCache:
 
     ``plan`` -> ``apply_to`` is an ordered handshake (``seq``): stages must be
     applied in plan order. ``reconcile()`` drops all residency if a planned
-    stage was never applied.
+    stage was never applied (a pipeline closed with stages still queued).
     """
 
     def __init__(self, store, budget_rows: int, n_rows: Optional[int] = None,
@@ -405,15 +415,30 @@ class SemanticCache:
         self.misses = self._metrics.counter("misses")
         self.evictions = self._metrics.counter("evictions")
         self.stages = self._metrics.counter("stages")
+        self.stages_background = self._metrics.counter("stages_background")
         self.rows_staged = self._metrics.counter("rows_staged")
         self.bytes_staged = self._metrics.counter("bytes_staged")
         self.resident_gauge = self._metrics.gauge("resident_rows")
 
     # ------------------------------------------------------------- planning
-    def plan(self, ent_ids) -> Optional[SemStage]:
+    def plan(self, ent_ids, background: bool = False,
+             stream=None) -> Optional[SemStage]:
         """Ensure every id in ``ent_ids`` is device-resident once the returned
         stage is applied: store reads, dequantize and the one host->device
-        copy happen here. Returns None on a full hit."""
+        copy happen here. Returns None on a full hit.
+
+        ``background=True`` counts the stage in ``stages_background`` (the
+        training pipeline's scheduler thread plans every stage so). On a
+        CUDA cache it then needs the scheduler thread's side ``stream``: the
+        rows and the slot/id pairs go through pinned buffers and copy on it
+        without blocking, and the stage carries an event that ``apply_to``
+        waits on. Staged sets are not padded to a power of two (the JAX
+        package pads them to close its scatter's jit signature set; eager
+        PyTorch has none)."""
+        on_cuda = self.device.type == "cuda"
+        if background and on_cuda and stream is None:
+            raise ValueError("a background stage on CUDA needs the side stream "
+                             "it copies on")
         with self._lock:
             ids = np.unique(np.asarray(ent_ids, dtype=np.int64).ravel())
             if len(ids) and (ids[0] < 0 or ids[-1] >= self.n_rows):
@@ -455,6 +480,8 @@ class SemanticCache:
                 slots[j] = s
             m = len(missing)
             self.stages += 1
+            if background:
+                self.stages_background += 1
             self.rows_staged += m
             self.bytes_staged += m * self.dim * 4
             self.resident_gauge.set(int((self._owner >= 0).sum()))
@@ -464,13 +491,24 @@ class SemanticCache:
         # above is already consistent, and apply_to's seq check must never
         # wait out a disk read.
         rows = self.store.read_rows(missing)  # host gather + dequantize
-        return SemStage(
-            seq=seq,
-            slots=torch.from_numpy(slots).to(self.device),
-            ids=torch.from_numpy(missing).to(self.device),
-            rows=torch.from_numpy(rows).to(self.device),
-            n_rows=m,
-        )
+        if not (background and on_cuda):
+            return SemStage(
+                seq=seq,
+                slots=torch.from_numpy(slots).to(self.device),
+                ids=torch.from_numpy(missing).to(self.device),
+                rows=torch.from_numpy(rows).to(self.device),
+                n_rows=m,
+                background=background,
+            )
+        (slots_d, ids_d), _, pairs = packed_to_device([slots, missing], self.device, stream)
+        host_rows = torch.empty(rows.shape, dtype=torch.float32, pin_memory=True)
+        host_rows.numpy()[...] = rows
+        with torch.cuda.stream(stream):
+            rows_d = host_rows.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return SemStage(seq=seq, slots=slots_d, ids=ids_d, rows=rows_d, n_rows=m,
+                        background=True, event=event, host=(pairs, host_rows))
 
     # -------------------------------------------------------------- applying
     def apply_to(self, params: Dict, stage: SemStage) -> Dict:
@@ -478,13 +516,22 @@ class SemanticCache:
         ``params["sem_cache"]`` and their slots into ``params["sem_slot"]``,
         in place. The writes are enqueued on the current stream after every
         kernel of the batches already dispatched, which is why reusing their
-        slots is safe (module docstring). Returns ``params``."""
+        slots is safe (module docstring). A stage copied on a side stream is
+        waited for on the current stream first, and its tensors are marked
+        as used there, so the allocator does not hand their memory back to
+        the side stream while these writes may still read it. Returns
+        ``params``."""
         with self._lock:
             if stage.seq != self._applied_seq + 1:
                 raise RuntimeError(
                     f"stage applied out of order (got seq {stage.seq}, "
                     f"expected {self._applied_seq + 1})")
             self._applied_seq = stage.seq
+        if stage.event is not None:
+            current = torch.cuda.current_stream(stage.rows.device)
+            current.wait_event(stage.event)
+            for t in (stage.slots, stage.ids, stage.rows):
+                t.record_stream(current)
         slot_map = params["sem_slot"]
         params["sem_cache"].index_copy_(0, stage.slots, stage.rows)
         slot_map.index_copy_(0, stage.ids, stage.slots.to(slot_map.dtype))
@@ -524,6 +571,13 @@ class SemanticCache:
         return int(self.hits) / n if n else 0.0
 
     @property
+    def prefetch_overlap_frac(self) -> float:
+        """The share of stages planned in the background (off the step's
+        critical path)."""
+        n = int(self.stages)
+        return int(self.stages_background) / n if n else 0.0
+
+    @property
     def device_resident_sem_bytes(self) -> int:
         """Device bytes pinned by the semantic subsystem: the hot-set buffer
         + the id->slot indirection (independent of E x d_l)."""
@@ -542,6 +596,9 @@ class SemanticCache:
             "evictions": int(self.evictions),
             "hit_rate": self.hit_rate,
             "stages": int(self.stages),
+            "stages_background": int(self.stages_background),
+            "sync_stages": int(self.stages) - int(self.stages_background),
+            "prefetch_overlap_frac": self.prefetch_overlap_frac,
             "rows_staged": int(self.rows_staged),
             "bytes_staged": int(self.bytes_staged),
             "device_resident_sem_bytes": self.device_resident_sem_bytes,

@@ -1,12 +1,31 @@
 """End-to-end NGDB training loop: online sampling → operator-level scheduling
 → pooled execution under autograd → vectorized loss → Adam, with adaptive
-sampling and fault-tolerant checkpointing.
+sampling, prefetch pipelining and fault-tolerant checkpointing.
 
-This is the reference trainer's **sync** mode (``pipeline=False``): each step
-runs sampling → Algorithm-1 scheduling → the device step → the loss readback
-in sequence. Batches are sampled inline on the calling thread, as the
-reference does with ``prefetch=0``; ``prefetch`` is kept as a field and not
-read. Two executors:
+Two execution modes, as in the JAX package's trainer:
+
+* **sync** (``pipeline=False``, the ablation baseline): each step runs
+  sampling → Algorithm-1 scheduling → the device step → the loss readback in
+  sequence, so the host idles while the card runs and the card idles while
+  the host schedules. With ``prefetch > 0`` and neither ``batches`` nor
+  adaptive sampling, raw batches come from a ``BatchPrefetcher``'s sampling
+  threads; otherwise they are sampled inline.
+* **pipelined** (``pipeline=True``, pooled executor only; ``query_level``
+  falls back to sync, as the reference does): a background scheduler thread
+  (``data/pipeline.py::PreparedBatchPrefetcher``) draws the negatives,
+  stages the hot set, compiles the plan and copies step *k+1*'s inputs to the
+  card on its own side stream while the main thread launches step *k*'s
+  kernels. The main thread takes no host sync from taking an item to the end
+  of Adam: a step's loss is read back only when the step leaves a window of
+  ``max_inflight`` dispatched steps (``_retire``), and adaptive sampling
+  (run in the scheduler thread) sees a π at most that many steps stale. Every
+  loss and parameter is bitwise the sync mode's on the same batches: the
+  scheduler thread draws the negatives in batch order from the trainer's
+  sampler, and every kernel runs on the main thread's stream in the same
+  order. Parameters are updated in place, so a checkpoint boundary inside
+  the window is snapshot by ``clone()`` right after that step's Adam.
+
+Two executors:
 
 * ``pooled`` — the paper's operator-level batching: one pooled encode of the
   whole batch (CSE-shared rows included), one loss, one Adam step;
@@ -15,9 +34,10 @@ read. Two executors:
   Adam step.
 
 PyTorch runs eagerly, so there is no step program to compile or cache; the
-executor keeps its signature-keyed encode closures. On CUDA, BetaE's
-intersection and union go through the ``intersect`` kernel and its
-hand-written backward (``kernels/intersect.py``).
+executor keeps its signature-keyed encode closures, and a cold signature's
+first dispatch is counted under ``dispatch``. On CUDA, BetaE's intersection
+and union go through the ``intersect`` kernel and its hand-written backward
+(``kernels/intersect.py``).
 
 Semantic augmentation (§4.4, Eq. 11+12): with ``semantic_table=`` (H_sem
 resident on the device) or ``semantic_cache=`` (a bounded hot set of a
@@ -25,18 +45,27 @@ resident on the device) or ``semantic_cache=`` (a bounded hot set of a
 gathers through ``gather_fuse`` — on CUDA the kernel, and its hand-written
 backward (``kernels/gather_fuse.py``). H_sem is frozen. Under a cache, each
 step first stages the rows it gathers (``cache.plan`` of
-``batch_entity_ids``, then ``apply_to``), outside the step's timing window,
-as the reference's sync mode does.
+``batch_entity_ids``, then ``apply_to``): sync mode outside the step's
+timing window, pipelined mode planned on the scheduler thread and applied on
+the main stream right before the step's dispatch.
+
+Telemetry: the registry group ``trainer`` holds ``steps``, ``inflight`` and
+``phase_seconds{phase=pipeline_wait|sem_apply|dispatch|retire}``;
+``step_phases`` keeps each retired step's phases, the scheduler thread's and
+the main thread's, in seconds, with each thread's CPU time for the step
+(``scheduler_cpu_s``, ``dispatch_cpu_s``): both threads share one GIL.
 
 Later slices bring the rest of the reference trainer; each raises
-``NotImplementedError`` here: ``pipeline=True`` (slice 4),
-``materialized_rows > 0`` (slice 5), ``metrics_path`` (slice 6) and a mesh
-``ctx`` (slice 9).
+``NotImplementedError`` here: ``materialized_rows > 0`` (slice 5),
+``metrics_path`` (slice 6) and a mesh ``ctx`` (slice 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import sys
 import time
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,7 +73,9 @@ import torch
 
 from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
 from repro_torch.core.patterns import TEMPLATES
-from repro_torch.data.pipeline import batch_entity_ids
+from repro_torch.data.pipeline import (BatchPrefetcher, PreparedBatchPrefetcher,
+                                       batch_entity_ids)
+from repro_torch.obs.registry import get_registry
 from repro_torch.sampling.adaptive import AdaptiveDistribution, pattern_losses_from_batch
 from repro_torch.sampling.online import OnlineSampler, SampledQuery
 from repro_torch.training.checkpoint import CheckpointManager
@@ -64,12 +95,12 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 200
     seed: int = 0
-    prefetch: int = 2               # kept for the reference's surface; the
-    #                                 port samples inline (slice 4 pipelines)
-    pipeline: bool = False          # slice 4
-    max_inflight: int = 2           # pipelined only (slice 4)
+    prefetch: int = 2               # producer/consumer queue depth (0 = sync
+    #                                 sampling inline)
+    pipeline: bool = False          # overlap host scheduling w/ device steps
+    max_inflight: int = 2           # pipelined: bounded dispatch window
     compile_cache_size: int = 128   # LRU capacity of the encode closures
-    gil_switch_interval: float = 2e-3  # pipelined only (slice 4)
+    gil_switch_interval: float = 2e-3  # pipelined: bound GIL handoff latency
     cse: bool = True                # cross-query subexpression sharing
     #                                 (False = --no-cse ablation baseline)
     materialized_rows: int = 0      # slice 5
@@ -81,7 +112,8 @@ def _later(what: str, where: str):
 
 
 class NGDBTrainer:
-    """Sync-mode trainer on the model's device. Parameters are drawn from a
+    """Trainer on the model's device (module docstring: sync and pipelined
+    modes). Parameters are drawn from a
     ``torch.Generator`` seeded with ``cfg.seed``; ``params`` and
     ``opt_state`` are updated in place each step. ``semantic_table`` or
     ``semantic_cache`` carry H_sem for a model with ``semantic_dim > 0``
@@ -89,8 +121,6 @@ class NGDBTrainer:
 
     def __init__(self, model, kg, cfg: TrainConfig, semantic_table=None,
                  semantic_cache=None, ctx=None):
-        if cfg.pipeline:
-            _later("pipeline=True", "slice 4 (pipelined training)")
         if cfg.materialized_rows > 0:
             _later("materialized_rows > 0", "slice 5 (caches)")
         if cfg.metrics_path is not None:
@@ -124,6 +154,13 @@ class NGDBTrainer:
                      if cfg.checkpoint_dir else None)
         self.step = 0
         self.history: List[Dict] = []
+        self.step_phases: List[Dict[str, float]] = []
+        self._obs = get_registry().group("trainer")
+        self._steps_done = self._obs.counter("steps")
+        self._phase_s = {
+            name: self._obs.counter("phase_seconds", phase=name)
+            for name in ("pipeline_wait", "sem_apply", "dispatch", "retire")}
+        self._inflight_gauge = self._obs.gauge("inflight")
 
     def load_params(self, arrays) -> None:
         """Replace the parameters with ``arrays`` ({name: numpy array}, e.g.
@@ -161,15 +198,19 @@ class NGDBTrainer:
         zero tokens, and a parameter the batch does not reach a zero
         gradient, as the reference's ``value_and_grad`` gives."""
         dev = self.device
+        steps, ans = prepared.device_args(dev)
+        return self._loss_and_grads(prepared, steps, ans, torch.from_numpy(pos).to(dev),
+                                    torch.from_numpy(neg).to(dev))
+
+    def _loss_and_grads(self, prepared, steps, ans, pos: torch.Tensor, neg: torch.Tensor):
+        """``loss_and_grads`` on inputs already on the device."""
+        dev = self.device
         trainable, frozen = self._split_frozen(self.params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
         p = {**leaves, **frozen}
-        steps, ans = prepared.device_args(dev)
         with torch.enable_grad():
             q = self.executor.encode_fn(prepared)(p, steps, ans)
-            loss, per_q = negative_sampling_loss(
-                self.model, p, q, torch.from_numpy(pos).to(dev),
-                torch.from_numpy(neg).to(dev))
+            loss, per_q = negative_sampling_loss(self.model, p, q, pos, neg)
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         out = {k: torch.zeros_like(v) if g is None else g
                for (k, v), g in zip(leaves.items(), grads)}
@@ -190,15 +231,20 @@ class NGDBTrainer:
         t0 = time.perf_counter()
         if isinstance(self.executor, PooledExecutor):
             prepared = self.executor.prepare(queries)
+            td = time.perf_counter()
             loss, per_q, grads = self.loss_and_grads(
                 prepared, pos[prepared.order], neg[prepared.order])
             adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+            tr = time.perf_counter()
+            self._phase_s["dispatch"].inc(tr - td)
             loss = float(loss)
+            self._phase_s["retire"].inc(time.perf_counter() - tr)
             patterns = prepared.patterns
         else:  # query-level baseline: one fragmented pass per pattern group
             loss, per_q, patterns = self._query_level_step(queries, pos, neg)
         if self.adaptive:
             self.adaptive.update(pattern_losses_from_batch(patterns, per_q.cpu().numpy()))
+        self._steps_done.inc()
         self.step += 1
         rec = {
             "step": self.step,
@@ -242,19 +288,157 @@ class NGDBTrainer:
     def train(self, n_steps: int, log_every: int = 50, batches=None) -> List[Dict]:
         """Run ``n_steps``. ``batches`` pins the workload — a fixed batch
         list (cycled) or a zero-arg callable yielding batches — so tests can
-        feed two trainers the SAME batches; otherwise batches come from the
-        online sampler."""
-        for i in range(n_steps):
-            if callable(batches):
-                batch = batches()
-            elif batches is not None:
-                batch = batches[i % len(batches)]
-            else:
-                batch = None
-            rec = self.train_step(batch)
-            if log_every and (i + 1) % log_every == 0:
-                print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
-                      f"q/s {rec['queries_per_sec']:.0f}")
+        feed two trainers (or sync and pipelined mode) the SAME batches;
+        otherwise batches come from the online sampler."""
+        if self.cfg.pipeline and isinstance(self.executor, PooledExecutor):
+            return self._train_pipelined(n_steps, log_every, batches=batches)
+        prefetcher = None
+        if batches is None and self.cfg.prefetch > 0 and not self.adaptive:
+            prefetcher = BatchPrefetcher(self.sampler, self.cfg.batch_size,
+                                         depth=self.cfg.prefetch)
+        try:
+            for i in range(n_steps):
+                if callable(batches):
+                    batch = batches()
+                elif batches is not None:
+                    batch = batches[i % len(batches)]
+                else:
+                    batch = prefetcher.next() if prefetcher else None
+                rec = self.train_step(batch)
+                if log_every and (i + 1) % log_every == 0:
+                    print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
+                          f"q/s {rec['queries_per_sec']:.0f}")
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if self.ckpt:
+            self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
+                                 force=True)
+        return self.history
+
+    # ------------------------------------------------------------- pipelined
+    def _prefetcher(self, batches=None) -> PreparedBatchPrefetcher:
+        """The scheduler thread of a pipelined run, fed by ``batches`` (as in
+        ``train``), by adaptive sampling with the latest π, or by sampling
+        workers."""
+        batch_fn = None
+        if callable(batches):
+            batch_fn = batches
+        elif batches is not None:
+            it = itertools.cycle(batches)
+            batch_fn = lambda: next(it)  # noqa: E731 — one scheduler thread
+        elif self.adaptive:
+            # Adaptive needs the latest distribution at sample time; sample
+            # in the scheduler thread with a (≤ max_inflight steps) stale π.
+            batch_fn = lambda: self.sampler.sample_batch(  # noqa: E731
+                self.cfg.batch_size, self.adaptive.distribution())
+        return PreparedBatchPrefetcher(
+            self.sampler, self.executor, self.cfg.batch_size, self.cfg.n_negatives,
+            depth=max(self.cfg.prefetch, 1), batch_fn=batch_fn,
+            sem_cache=self.sem_cache)
+
+    def _dispatch(self, item) -> tuple:
+        """Launch one prepared step on the main thread's current stream: wait
+        for its copies, apply its hot-set stage, then the encode, loss,
+        backward and Adam. No host sync: returns the loss and per-query loss
+        as device tensors, read back by ``_retire``."""
+        item.ready()
+        if item.sem_stage is not None:
+            ta = time.perf_counter()
+            self.sem_cache.apply_to(self.params, item.sem_stage)
+            item.phases["sem_apply_s"] = time.perf_counter() - ta
+            self._phase_s["sem_apply"].inc(item.phases["sem_apply_s"])
+        td, cd = time.perf_counter(), time.thread_time()
+        loss, per_q, grads = self._loss_and_grads(item.prepared, item.steps, item.ans,
+                                                  item.pos, item.neg)
+        adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+        item.phases["dispatch_s"] = time.perf_counter() - td
+        item.phases["dispatch_cpu_s"] = time.thread_time() - cd
+        self._phase_s["dispatch"].inc(item.phases["dispatch_s"])
+        return loss, per_q
+
+    def _snapshot(self) -> tuple:
+        """Copies of the params and the optimizer state, enqueued on the
+        current stream, so they hold this point's values whatever later
+        steps update in place."""
+        opt = {"m": {k: v.clone() for k, v in self.opt_state["m"].items()},
+               "v": {k: v.clone() for k, v in self.opt_state["v"].items()},
+               "step": self.opt_state["step"].clone()}
+        return {k: v.clone() for k, v in self.params.items()}, opt
+
+    def _retire(self, pending, t_last: float, log_every: int) -> float:
+        """Read one in-flight step's loss back (the only host sync of a
+        pipelined step: it waits for that step alone) and fold it into the
+        history. ``pending`` carries a snapshot of the params and optimizer
+        state right after the retired step when it lands on a checkpoint
+        boundary, since ``self.params`` may already hold later steps."""
+        loss, per_q, patterns, n_queries, snap, phases = pending
+        tr = time.perf_counter()
+        loss = float(loss)
+        per_q = per_q.cpu().numpy() if self.adaptive else None
+        now = time.perf_counter()
+        phases["retire_s"] = now - tr
+        phases["t_retired"] = now
+        self._phase_s["retire"].inc(phases["retire_s"])
+        if self.adaptive:
+            self.adaptive.update(pattern_losses_from_batch(patterns, per_q))
+        self.step += 1
+        self._steps_done.inc()
+        rec = {"step": self.step, "loss": loss,
+               "queries_per_sec": n_queries / max(now - t_last, 1e-9)}
+        self.history.append(rec)
+        self.step_phases.append(phases)
+        if log_every and self.step % log_every == 0:
+            print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
+                  f"q/s {rec['queries_per_sec']:.0f}")
+        if self.ckpt and snap is not None:
+            params, opt_state = snap
+            self.ckpt.maybe_save(self.step, {"params": params, "opt": opt_state},
+                                 metadata={"loss": loss})
+        return now
+
+    def _train_pipelined(self, n_steps: int, log_every: int, batches=None) -> List[Dict]:
+        """Dataflow mode (module docstring): the scheduler thread builds
+        device-ready work items, the main thread dispatches them and retires
+        finished steps from a window of ``max_inflight``. An error on the
+        scheduler thread surfaces here. On exit the cache's residency is
+        reconciled, since items the scheduler thread prepared ahead hold
+        stages that were planned and never applied."""
+        pf = self._prefetcher(batches)
+        # The main thread takes the GIL back after every launch that released
+        # it; the default 5 ms switch interval would make each take wait on
+        # the scheduler thread. Restored on exit.
+        old_switch = sys.getswitchinterval()
+        if self.cfg.gil_switch_interval:
+            sys.setswitchinterval(self.cfg.gil_switch_interval)
+        inflight: deque = deque()
+        window = max(self.cfg.max_inflight, 1)
+        t_last = time.perf_counter()
+        try:
+            for _ in range(n_steps):
+                tw = time.perf_counter()
+                item = pf.next()   # a wait here is the pipeline's bubble
+                item.phases["pipeline_wait_s"] = time.perf_counter() - tw
+                self._phase_s["pipeline_wait"].inc(item.phases["pipeline_wait_s"])
+                loss, per_q = self._dispatch(item)
+                step_no = self.step + len(inflight) + 1
+                snap = None
+                if self.ckpt and self.ckpt.every > 0 and step_no % self.ckpt.every == 0:
+                    snap = self._snapshot()
+                inflight.append((loss, per_q, item.patterns, item.n_queries, snap,
+                                 item.phases))
+                self._inflight_gauge.set(len(inflight))
+                while len(inflight) >= window:
+                    t_last = self._retire(inflight.popleft(), t_last, log_every)
+                    self._inflight_gauge.set(len(inflight))
+            while inflight:
+                t_last = self._retire(inflight.popleft(), t_last, log_every)
+                self._inflight_gauge.set(len(inflight))
+        finally:
+            sys.setswitchinterval(old_switch)
+            pf.close()
+            if self.sem_cache is not None:
+                self.sem_cache.reconcile()
         if self.ckpt:
             self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
                                  force=True)

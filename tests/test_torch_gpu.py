@@ -890,3 +890,111 @@ def test_betae_training_step_on_gpu_matches_cpu(dev):
                                    msg=lambda m, k=k: f"{k}: {m}")
     rec_gpu, rec_cpu = gpu.train_step(batch), cpu.train_step(batch)
     assert rec_gpu["loss"] == pytest.approx(rec_cpu["loss"], rel=1e-4)
+
+
+# ------------------------------------------------------ pipelined training
+def _pipelined_pair(dev, family):
+    """A sync and a pipelined trainer on the card at narrow widths: BetaE
+    (``intersect`` and its backward) or GQE+H_sem behind a hot set below the
+    graph (``gather_fuse`` and its backward, rows staged through the side
+    stream), with five fixed batches."""
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.training import AdamConfig, NGDBTrainer, TrainConfig
+
+    kg = generate_synthetic_kg(300, 12, 3000, seed=0)
+    mcfg, table = ModelConfig(dim=32), None
+    if family == "gqe+semantic":
+        mcfg = ModelConfig(dim=32, semantic_dim=64, semantic_proj_dim=16)
+        table = torch.nn.functional.normalize(torch.randn(
+            (300, 64), generator=torch.Generator().manual_seed(0)), dim=1).numpy()
+
+    def trainer(pipeline):
+        sem = {} if table is None else {
+            "semantic_cache": SemanticCache(table, budget_rows=280, device=dev)}
+        cfg = TrainConfig(batch_size=32, n_negatives=8, b_max=32, pipeline=pipeline,
+                          adam=AdamConfig(lr=3e-3))
+        return NGDBTrainer(make_model(family.split("+")[0], mcfg, device=dev), kg, cfg, **sem)
+
+    src = OnlineSampler(kg, seed=3)
+    return trainer(False), trainer(True), [src.sample_batch(32) for _ in range(5)]
+
+
+_COUNTED = ("intersect", "intersect_backward", "gather_fuse", "gather_fuse_backward")
+
+
+@pytest.mark.parametrize("family", ["betae", "gqe+semantic"])
+def test_pipelined_training_on_gpu_matches_sync_bitwise(dev, family):
+    """Five pipelined steps on the card: the sync run's losses and
+    parameters bit for bit, through the same kernel launches; a hot set
+    staged entirely in the background."""
+    sync, pipe, batches = _pipelined_pair(dev, family)
+    runs = []
+    for tr in (sync, pipe):
+        before = [getattr(kops, k).launches for k in _COUNTED]
+        tr.train(5, log_every=0, batches=batches)
+        torch.cuda.synchronize()
+        runs.append([getattr(kops, k).launches - b for k, b in zip(_COUNTED, before)])
+    assert runs[0] == runs[1] and sum(runs[1]) > 0
+    assert [r["loss"] for r in sync.history] == [r["loss"] for r in pipe.history]
+    for k in sync.params:
+        assert torch.equal(sync.params[k], pipe.params[k]), k
+    if pipe.sem_cache is not None:
+        st = pipe.sem_cache.stats()
+        assert st["stages_background"] == st["stages"] > 0
+        assert st["prefetch_overlap_frac"] == 1.0
+
+
+@pytest.mark.parametrize("family", ["betae", "gqe+semantic"])
+def test_pipelined_dispatch_takes_no_host_sync(dev, family):
+    """A warm pipelined dispatch (hot-set apply, encode, loss, backward,
+    Adam) under ``set_sync_debug_mode("error")`` raises nothing, with the
+    scheduler thread preparing the next item beside it."""
+    _, tr, batches = _pipelined_pair(dev, family)
+    tr.train(2, log_every=0, batches=batches)
+    pf = tr._prefetcher(batches)
+    try:
+        item = pf.next(timeout=120)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, _ = tr._dispatch(item)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pf.next(timeout=120)   # raises if the scheduler thread failed meanwhile
+    finally:
+        pf.close()
+    assert np.isfinite(float(loss))
+
+
+def test_pipelined_item_is_copied_on_the_side_stream(dev, monkeypatch):
+    """Every copy of a work item and of its hot-set stage runs on the
+    scheduler thread's side stream, with an event; the main stream waits on
+    each event and marks each buffer as used before the step's launches."""
+    _, tr, batches = _pipelined_pair(dev, "gqe+semantic")
+    pf = tr._prefetcher(batches)
+    try:
+        item = pf.next(timeout=120)
+    finally:
+        pf.close()
+    main = torch.cuda.current_stream(dev)
+    assert pf.stream is not None and pf.stream.cuda_stream != main.cuda_stream
+    assert pf.stream.cuda_stream != torch.cuda.default_stream(dev).cuda_stream
+    stage = item.sem_stage
+    assert item.event is not None and stage is not None and stage.event is not None
+    assert all(t.is_pinned() for t in item.host + stage.host)
+    waits, marks = [], []
+    real_wait, real_mark = torch.cuda.Stream.wait_event, torch.Tensor.record_stream
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", lambda s, e: (
+        waits.append((s.cuda_stream, e)), real_wait(s, e))[1])
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda t, s: (
+        marks.append((t.data_ptr(), s.cuda_stream)), real_mark(t, s))[1])
+    tr._dispatch(item)
+    torch.cuda.synchronize()
+    assert (main.cuda_stream, item.event) in waits
+    assert (main.cuda_stream, stage.event) in waits
+    for t in (*item.buffers, stage.rows, stage.slots, stage.ids):
+        assert (t.data_ptr(), main.cuda_stream) in marks
+    tr.sem_cache.reconcile()

@@ -216,12 +216,9 @@ def test_cache_clock_accounting_matches_reference(table):
         np.testing.assert_array_equal(got, table[ids])
     assert tc.evictions > 0
     ts, js = tc.stats(), jc.stats()
-    # Background staging (the pipeline's prefetch) is not ported yet: its
-    # three counters are the only reference keys the port leaves out.
-    assert set(js) - set(ts) == {"stages_background", "sync_stages",
-                                 "prefetch_overlap_frac"}
-    assert ts == {**{k: js[k] for k in ts},
-                  "hit_rate": pytest.approx(js["hit_rate"])}
+    # Every reference key, background staging's three counters included.
+    assert set(js) == set(ts)
+    assert ts == {**js, "hit_rate": pytest.approx(js["hit_rate"])}
     tc.reset_counters()
     assert (tc.hits, tc.misses, tc.resident_rows) == (0, 0, 24)
 

@@ -86,7 +86,9 @@ def test_engine_replays_bitwise_through_serve_batch(name):
 def test_engine_zero_retraces_on_replay():
     from repro_torch.serving import run_closed_loop
 
-    _, _, _, eng = _engine("gqe", max_batch=8)
+    # The reference's window (tests/test_serving.py): every batch fills to 8,
+    # so the replay forms the warm-up's batches whatever the load.
+    _, _, _, eng = _engine("gqe", max_batch=8, max_wait_ms=1000.0)
     _, tq = queries(32, seed=10)
     with eng:
         run_closed_loop(eng, tq, concurrency=8)
@@ -125,8 +127,9 @@ def test_engine_coalesces_duplicates():
 def test_cli_serves_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
+    # A window no load can miss: the replay forms the warm-up's batches.
     main(["--model", "betae", "--reduced", "--device", "cpu", "--dim", "8",
-          "--requests", "24"])
+          "--requests", "24", "--max-wait-ms", "1000"])
     out = capsys.readouterr().out
     assert "[closed] 24 requests" in out and "0 steady-state retraces" in out
 

@@ -292,7 +292,7 @@ def test_trainer_raises_for_later_slices():
 
     kg = generate_synthetic_kg(50, 4, 300, seed=0)
     model = make_model("gqe", ModelConfig(dim=8), device="cpu")
-    for kw, slice_ in ((dict(pipeline=True), "slice 4"), (dict(materialized_rows=8), "slice 5"),
+    for kw, slice_ in ((dict(materialized_rows=8), "slice 5"),
                        (dict(metrics_path="m.jsonl"), "slice 6")):
         with pytest.raises(NotImplementedError, match=slice_):
             NGDBTrainer(model, kg, TrainConfig(**kw))
