@@ -120,13 +120,40 @@ non-zero (printing no result) on any failed check:
    after it (``scoring`` launches equal its eval batches). Its launches are
    added to the training entries of the kernels line.
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   main path gave it most often; ``scoring`` has one entry for each path
+   main path gave it most often, launches of phase 7 included; ``scoring`` has one entry for each path
    that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
    GQE's ``evaluate``), ``gather_fuse`` one for each semantic serving
    layout and one for training, ``intersect`` one for serving and one for
    training, beside ``intersect_backward`` and ``gather_fuse_backward`` for
    training, each with its own launches.
-7. The last line: ``{"ok": true, "device": {...}}``.
+7. The live serving tier (runs after 5c; the kernels line of 6 is printed
+   after it), at ``ModelConfig()`` on phase 4's graph, which it writes to.
+   (a) GQE behind ``ServingEngine(kg=, mat_cache=MaterializedSubqueryCache
+   (2048), max_staleness_versions=4)`` and ``LiveNGDB(finetune_steps=4,
+   n_negatives=8)``: a closed loop of 32 over 1,498 requests, a quarter
+   pinned up to 6 versions behind, while a writer thread lands 8 bursts of
+   64 fresh triples (burst 4 adds 16 entities). Gates: every request served
+   or shed with ``StaleVersionError``; fresh queries pinned to the version
+   after burst 4 replay bitwise through ``serve_batch`` on the params and
+   entity count retained for it, and again from the cache's rows bitwise;
+   the cache's rows within the encode tolerance of a fresh encode (largest
+   difference printed); the params after ``flush()`` bitwise a sync
+   ``incremental_finetune`` of burst 8 from the recorded inputs; ``scoring``
+   launched. Printed: QPS, p50/p99 through the writes, version-lag counts,
+   stale sheds, fine-tune ms a burst, the cache's hit rate on a
+   duplicate-heavy replay. (b) BetaE, 2 bursts: the pinned replay, the row
+   check, ``intersect`` launched. (c) GQE with resident H_sem (d_l 1024,
+   random rows in a store of its own): one burst grows 16 entities with
+   their rows (``append_rows``; rows read before it read bitwise the same),
+   a second burst's background fine-tune is bitwise a sync rerun, and
+   ``gather_fuse`` and its backward launch. (d) ``ReplicaPool(2)`` behind a
+   ``Router`` (a high-priority and a low-priority tenant): a warm replay
+   with no retrace; ``update_params`` between two halves of a high-priority
+   stream while the low-priority tenant floods: requests admitted before the
+   swap served on the old params, after it on the new, every batch bitwise
+   ``serve_batch`` on its params, low-priority sheds typed ``ShedError``;
+   each replica's and the aggregate QPS printed.
+8. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -138,6 +165,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1472,6 +1500,435 @@ def main() -> None:
                 n, counter = main_path[key]
                 main_path[key] = (n + r["launches"][name],
                                   counter + shapes if shapes else counter)
+
+    # --------------------------------------------- 7. the live serving tier
+    # On phase 4's graph, which it writes to (nothing after it samples the
+    # graph). Its launches are added to the kernels line of 6.
+    from repro_torch.core import MaterializedSubqueryCache
+    from repro_torch.semantic import SemanticStore, SemanticStoreWriter
+    from repro_torch.serving import (LiveNGDB, ReplicaPool, Router, RouterConfig,
+                                     StaleVersionError, TenantLoad, TenantSpec,
+                                     run_tenant_mix)
+    from repro_torch.training import incremental_finetune
+
+    t7 = time.perf_counter()
+    live_launches = collections.Counter()   # main-path key -> phase 7 launches
+    wrng = np.random.default_rng(70)
+
+    def strip(res) -> dict:
+        return {k: v for k, v in res.items() if k not in ("latency_ms", "batch_size")}
+
+    def fresh_triples(n: int, lo: int = 0) -> np.ndarray:
+        """``n`` triples absent from the graph, heads drawn from [lo, E)."""
+        out = np.empty((0, 3), np.int64)
+        while len(out) < n:
+            m = 4 * n
+            cand = np.stack([wrng.integers(lo, kg.n_entities, m),
+                             wrng.integers(0, kg.n_relations, m),
+                             wrng.integers(0, kg.n_entities, m)], axis=1)
+            out = np.unique(np.concatenate([out, cand[~kg.contains(cand)]]), axis=0)
+        return out[wrng.permutation(len(out))[:n]]
+
+    def unique_fresh(n_per_pattern: int, seen: set) -> list:
+        """Fresh mixed queries, one per key, none of whose keys is in ``seen``
+        (so the materialized cache holds no row for them)."""
+        out = []
+        for q in mixed(n_per_pattern):
+            if q.key() not in seen:
+                seen.add(q.key())
+                out.append(q)
+        return out
+
+    def live_loop(engine, qs, pin_every: int = 4, max_lag: int = 6,
+                  concurrency: int = 32):
+        """A closed loop of ``concurrency`` in flight; every ``pin_every``-th
+        request pinned to a graph version up to ``max_lag`` behind. Each
+        request is served or shed with ``StaleVersionError`` (at admission or
+        at execute time); anything else raises. Returns (results, sheds,
+        wall seconds)."""
+        window, results, shed = collections.deque(), [], 0
+        t0 = time.perf_counter()
+
+        def settle(f):
+            nonlocal shed
+            try:
+                results.append(f.result(timeout=120))
+            except StaleVersionError:
+                shed += 1
+
+        for i, q in enumerate(qs):
+            while len(window) >= concurrency:
+                settle(window.popleft())
+            pin = None
+            if i % pin_every == pin_every - 1:
+                pin = max(0, engine.graph_version - int(wrng.integers(0, max_lag + 1)))
+            try:
+                window.append(engine.submit(q, pin_version=pin))
+            except StaleVersionError:
+                shed += 1
+        while window:
+            settle(window.popleft())
+        return results, shed, time.perf_counter() - t0
+
+    def pinned_replay(label, engine, model, mat, version, qs) -> int:
+        """Serve ``qs`` (fresh keys) pinned to ``version``: every recorded
+        batch must replay bitwise through ``serve_batch`` on the params and
+        entity count the engine retained for that version. Every row is a
+        cache miss (checked), so each batch encodes exactly its composition."""
+        p_v, n_v = engine.params_at(version)
+        hits0 = mat.stats()["hits"]
+        engine.batch_log = []
+        engine.cfg.record_batches = True
+        try:
+            futs = [engine.submit(q, pin_version=version) for q in qs]
+            res = [f.result(timeout=120) for f in futs]
+        finally:
+            engine.cfg.record_batches = False
+        if mat.stats()["hits"] != hits0:
+            fail(f"{label}: the pinned replay's fresh queries hit the materialized cache")
+        ex_o = PooledExecutor(model, b_max=256, device=dev)
+        checked = check_against_offline(
+            engine.batch_log,
+            lambda b: serve_batch(model, p_v, ex_o, b, top_k=TOP_K, device=dev,
+                                  n_entities=n_v)[0])
+        if checked != len(qs):
+            fail(f"{label}: {checked} of {len(qs)} pinned rows replayed")
+        engine.batch_log = []
+        return res
+
+    def rows_against_fresh(label, model, params, mat, qs, gv) -> float:
+        """The cache's rows for ``qs`` (keyed at graph version ``gv``)
+        against one fresh no-cache encode of all of them: the largest
+        difference (0.0 = bitwise), held to the encode tolerance."""
+        keys = [q.key() + (gv,) for q in qs]
+        got = mat.lookup(keys)
+        if len(got) != len(qs):
+            fail(f"{label}: {len(got)} of {len(qs)} rows resident in the cache")
+        rows = torch.stack([got[i] for i in range(len(qs))])
+        with torch.no_grad():
+            want = PooledExecutor(model, b_max=256, device=dev).encode(params, qs)
+        diff = float((rows - want).abs().max())
+        if not torch.allclose(rows, want, rtol=2e-4, atol=2e-5):
+            fail(f"{label}: cached rows differ from a fresh encode by {diff:.3g}")
+        return diff
+
+    def same_params(label, served, sync) -> None:
+        for k in sync:
+            if not torch.equal(served[k], sync[k]):
+                d = float((served[k] - sync[k]).abs().max())
+                fail(f"{label}: the background fine-tune's {k} differs from a sync "
+                     f"rerun by {d:.3g}")
+
+    def live_engine(model, params, mat):
+        return ServingEngine(
+            model, params, executor=PooledExecutor(model, b_max=256, device=dev),
+            device=dev, kg=kg, mat_cache=mat,
+            cfg=ServingConfig(max_batch=16, top_k=TOP_K, max_staleness_versions=4))
+
+    seen = set()
+    # (a) GQE, live: 8 bursts of 64 fresh triples from a writer thread under
+    # a closed loop of 32; burst 4 adds 16 entities. Burst 8 starts from
+    # flushed params, recorded for the sync rerun.
+    model = make_model("gqe", cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(71),
+                               kg.n_entities, kg.n_relations)
+    mat = MaterializedSubqueryCache(2048)
+    mat.watch_kg(kg)
+    engine = live_engine(model, params, mat)
+    live = LiveNGDB(model, kg, engine, finetune_steps=4, n_negatives=8, seed=0)
+    warm = mixed(4)
+    work = mixed(107)      # 1,498 requests
+    seen.update(q.key() for q in warm + work)
+    bursts = [fresh_triples(64) for _ in range(8)]
+    n0 = kg.n_entities
+    new_ids = np.arange(n0, n0 + 16)
+    grow = bursts[3]
+    grow[:32, 0] = np.repeat(new_ids, 2)            # the new ids as heads
+    grow[32:48, 2] = new_ids                        # and as tails
+    rec = {}
+    with engine:
+        run_closed_loop(engine, warm, concurrency=32)
+        engine.reset_counters()
+        kops.scoring.launches = 0
+
+        def writer():
+            for b, triples in enumerate(bursts):
+                time.sleep(0.02)
+                if b == 7:
+                    live.flush()
+                    rec["p_in"] = engine.params
+                r = live.write(triples, n_new_entities=16 if b == 3 else 0)
+                rec[b] = r
+
+        wt = threading.Thread(target=writer, name="chip-smoke-writer")
+        wt.start()
+        served, shed, wall = live_loop(engine, work)
+        wt.join()
+        live.flush()
+        torch.cuda.synchronize()
+        a_scoring = kops.scoring.launches
+        st = engine.stats()
+        final = engine.params
+        if len(served) + shed != len(work) or st["failures"]:
+            fail(f"live gqe: {len(served)} served + {shed} shed of {len(work)}, "
+                 f"{st['failures']} failures")
+        for res in served:
+            if len(res["top_entities"]) != TOP_K or not np.isfinite(res["scores"]).all():
+                fail(f"live gqe: a result lacks {TOP_K} finite scores: {res}")
+        if kg.n_entities != n0 + 16 or model.n_entities != n0 + 16:
+            fail(f"live gqe: {kg.n_entities} entities after growing {n0} by 16")
+        if a_scoring == 0:
+            fail("live gqe: the scoring kernel was never launched")
+        live_launches["scoring[l1]"] += a_scoring
+        # The version after burst 4, four writes behind: still in bound.
+        v4 = rec[3].graph_version
+        pinned_qs = unique_fresh(2, seen)
+        first = pinned_replay("live gqe", engine, model, mat, v4, pinned_qs)
+        again = [engine.submit(q, pin_version=v4).result(timeout=120) for q in pinned_qs]
+        if [strip(r) for r in again] != [strip(r) for r in first]:
+            fail("live gqe: the pinned replay served from cached rows differs")
+        p_v4, _ = engine.params_at(v4)
+        row_diff = rows_against_fresh("live gqe", model, p_v4, mat, pinned_qs, v4)
+        sync, _ = incremental_finetune(model, rec["p_in"], rec[7].fresh_triples, steps=4,
+                                       lr=live.finetune_lr, n_negatives=8,
+                                       seed=live.seed + rec[7].graph_version)
+        same_params("live gqe", final, sync)
+        # Duplicate-heavy replay: 512 requests over 32 distinct queries.
+        engine.reset_counters()
+        dup = [warm[i] for i in wrng.integers(0, 32, 512)]
+        dup_rep = run_closed_loop(engine, dup, concurrency=32)
+        dup_hit = engine.stats()["mat_cache"]["hit_rate"]
+        live.close()
+    lat = latency_summary([r["latency_ms"] for r in served])
+    ft = [s * 1e3 for s in live.finetune_s]
+    print(f"live gqe: {len(work)} requests through 8 write bursts (64 triples each, "
+          f"burst 4 adding 16 entities) in {wall:.3f} s, {len(served) / wall:.1f} q/s "
+          f"served, p50 {lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms | {len(served)} served, "
+          f"{shed} shed as stale (StaleVersionError) | version lag served "
+          f"{dict(sorted(st['version_lag_served'].items()))} | graph version "
+          f"{st['graph_version']} | background fine-tune ms a burst (4 Adam steps, 8 "
+          f"negatives): median {statistics.median(ft):.1f}, each "
+          f"{[round(x, 1) for x in ft]} | pinned replay at version {v4} "
+          f"({len(pinned_qs)} queries) bitwise through serve_batch on its retained "
+          f"params, again from cached rows bitwise | cached rows against a fresh "
+          f"encode: max |diff| {row_diff:.3g} | served params after flush bitwise a "
+          f"sync rerun of burst 8 | duplicate-heavy replay (512 over 32 queries): "
+          f"mat hit rate {dup_hit:.2%}, {dup_rep.qps:.1f} q/s | scoring launches "
+          f"{a_scoring}")
+    del engine, live, model, params, final, sync, mat
+    torch.cuda.empty_cache()
+
+    # (b) BetaE, live: 2 bursts, no growth.
+    model = make_model("betae", cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(72),
+                               kg.n_entities, kg.n_relations)
+    mat = MaterializedSubqueryCache(2048)
+    mat.watch_kg(kg)
+    engine = live_engine(model, params, mat)
+    live = LiveNGDB(model, kg, engine, finetune_steps=4, n_negatives=8, seed=1)
+    warm, work = mixed(2), mixed(24)
+    seen.update(q.key() for q in warm + work)
+    with engine:
+        run_closed_loop(engine, warm, concurrency=32)
+        engine.reset_counters()
+        kops.intersect.launches = 0
+        v0 = kg.graph_version
+        rb = {}
+
+        def writer_b():
+            for b in range(2):
+                time.sleep(0.1)
+                rb[b] = live.write(fresh_triples(64))
+
+        wt = threading.Thread(target=writer_b, name="chip-smoke-writer")
+        wt.start()
+        served, shed, wall = live_loop(engine, work)
+        wt.join()
+        live.flush()
+        torch.cuda.synchronize()
+        b_intersect = kops.intersect.launches
+        st = engine.stats()
+        if len(served) + shed != len(work) or st["failures"]:
+            fail(f"live betae: {len(served)} served + {shed} shed of {len(work)}")
+        if b_intersect == 0:
+            fail("live betae: the intersect kernel was never launched")
+        live_launches["intersect"] += b_intersect
+        pinned_qs = unique_fresh(2, seen)
+        pinned_replay("live betae", engine, model, mat, v0 + 1, pinned_qs)
+        p_v, _ = engine.params_at(v0 + 1)
+        b_diff = rows_against_fresh("live betae", model, p_v, mat, pinned_qs, v0 + 1)
+        live.close()
+    lat = latency_summary([r["latency_ms"] for r in served])
+    print(f"live betae: {len(work)} requests through 2 bursts in {wall:.3f} s, "
+          f"{len(served) / wall:.1f} q/s served, p50 {lat['p50']:.2f} ms, p99 "
+          f"{lat['p99']:.2f} ms, {shed} shed as stale | version lag served "
+          f"{dict(sorted(st['version_lag_served'].items()))} | fine-tune ms "
+          f"{[round(s * 1e3, 1) for s in live.finetune_s]} | pinned replay at "
+          f"version {v0 + 1} bitwise through serve_batch | cached rows against a "
+          f"fresh encode: max |diff| {b_diff:.3g} | intersect launches {b_intersect}")
+    del engine, live, model, params, mat
+    torch.cuda.empty_cache()
+
+    # (c) Semantic GQE, resident H_sem (d_l 1024, its own store), live: one
+    # burst grows 16 entities with their semantic rows (the store appends
+    # them), then a second burst checks the fine-tune against a sync rerun.
+    live_dir = tempfile.mkdtemp(prefix="chip_smoke_livestore_")
+    atexit.register(shutil.rmtree, live_dir, ignore_errors=True)
+    n_c = kg.n_entities
+    table_c = (wrng.standard_normal((n_c, SEM_DIM), dtype=np.float32)
+               / np.float32(np.sqrt(SEM_DIM)))
+    writer_c = SemanticStoreWriter(live_dir, dim=SEM_DIM, shard_rows=CHUNK)
+    writer_c.append(table_c)
+    writer_c.finalize()
+    store_c = SemanticStore(live_dir)
+    old_rows = store_c.read_rows(np.arange(n_c))
+    model = make_model("gqe", sem_cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(73), n_c,
+                               kg.n_relations, semantic_table=table_c)
+    del table_c
+    mat = MaterializedSubqueryCache(2048)
+    mat.watch_kg(kg)
+    engine = live_engine(model, params, mat)
+    live = LiveNGDB(model, kg, engine, store=store_c, finetune_steps=4, n_negatives=8,
+                    seed=2)
+    warm, work = mixed(1), mixed(8)
+    with engine:
+        run_closed_loop(engine, warm, concurrency=32)
+        kops.gather_fuse.launches = 0
+        kops.gather_fuse_backward.launches = 0
+        kops.scoring.launches = 0
+        g = fresh_triples(64)
+        g[:32, 0] = np.repeat(np.arange(n_c, n_c + 16), 2)
+        sem_new = wrng.standard_normal((16, SEM_DIM), dtype=np.float32) / np.float32(32.0)
+        rc = {}
+
+        def writer_c_():
+            time.sleep(0.05)
+            rc[0] = live.write(g, n_new_entities=16, sem_rows=sem_new)
+
+        wt = threading.Thread(target=writer_c_, name="chip-smoke-writer")
+        wt.start()
+        served, shed, wall = live_loop(engine, work)
+        wt.join()
+        live.flush()
+        if (store_c.n_rows, kg.n_entities) != (n_c + 16, n_c + 16):
+            fail(f"live gqe+semantic: store {store_c.n_rows} rows, graph "
+                 f"{kg.n_entities} entities after growing {n_c} by 16")
+        if not np.array_equal(store_c.read_rows(np.arange(n_c)), old_rows):
+            fail("live gqe+semantic: rows read before the append changed")
+        if not np.array_equal(store_c.read_rows(np.arange(n_c, n_c + 16)), sem_new):
+            fail("live gqe+semantic: the appended rows read back differently")
+        p_in = engine.params
+        r2 = live.write(fresh_triples(64))
+        live.flush()
+        torch.cuda.synchronize()
+        c_fuse, c_bwd = kops.gather_fuse.launches, kops.gather_fuse_backward.launches
+        live_launches["scoring[l1][semantic-resident]"] += kops.scoring.launches
+        if c_fuse == 0 or c_bwd == 0:
+            fail(f"live gqe+semantic: gather_fuse {c_fuse}, gather_fuse_backward "
+                 f"{c_bwd} launches during the fine-tunes")
+        live_launches["gather_fuse[resident]"] += c_fuse
+        live_launches["gather_fuse_backward"] += c_bwd
+        sync, _ = incremental_finetune(model, p_in, r2.fresh_triples, steps=4,
+                                       lr=live.finetune_lr, n_negatives=8,
+                                       seed=live.seed + r2.graph_version)
+        same_params("live gqe+semantic", engine.params, sync)
+        st = engine.stats()
+        if len(served) + shed != len(work) or st["failures"]:
+            fail(f"live gqe+semantic: {len(served)} served + {shed} shed of {len(work)}")
+        live.close()
+    print(f"live gqe+semantic (resident, d_l {SEM_DIM}): {len(work)} requests in "
+          f"{wall:.3f} s, {len(served) / wall:.1f} q/s served, {shed} shed as stale, "
+          f"through a burst growing 16 entities (store {n_c} -> {store_c.n_rows} rows, "
+          f"old rows bitwise) and a second burst | fine-tune ms "
+          f"{[round(s * 1e3, 1) for s in live.finetune_s]} | served params bitwise a "
+          f"sync rerun | gather_fuse {c_fuse}, gather_fuse_backward {c_bwd}, scoring "
+          f"{live_launches['scoring[l1][semantic-resident]']} launches")
+    del engine, live, model, params, sync, p_in, mat
+    torch.cuda.empty_cache()
+
+    # (d) Two replicas on the card behind a router: a warm replay with no
+    # retrace, then a hot swap under a high-priority stream and a
+    # low-priority flood.
+    model = make_model("gqe", cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(74)
+    params_a = model.init_params(gen, kg.n_entities, kg.n_relations)
+    params_b = {k: v.clone() for k, v in params_a.items()}
+    params_b["entity"] = params_b["entity"] * 1.5
+    pool = ReplicaPool(model, params_a, n_replicas=2, mat_budget_rows=1024, device=dev,
+                       cfg=ServingConfig(max_batch=16, top_k=TOP_K, record_batches=True))
+    router = Router(pool, tenants=[TenantSpec("gold", "high"), TenantSpec("bronze", "low")],
+                    cfg=RouterConfig(spill_depth=8, spill_width=1))
+    with router:
+        warm = mixed(16)
+        for _ in range(2):
+            pool.reset_counters(clear_log=True)
+            for f in router.submit_many(warm, tenant="gold"):
+                f.result(timeout=120)
+        retraces = pool.retraces()
+        if any(retraces.values()):
+            fail(f"router: steady-state retraces on a warm replay {retraces}")
+        pool.reset_counters(clear_log=True)
+        kops.scoring.launches = 0
+        gold = unique_fresh(32, seen)
+        bronze = unique_fresh(16, seen)
+        done0 = {rid: r.stats()["completed"] for rid, r in pool.replicas().items()}
+        reports = {}
+        bt = threading.Thread(target=lambda: reports.update(run_tenant_mix(
+            router, [TenantLoad("bronze", bronze, qps=0.0)])), name="chip-smoke-bronze")
+        t0 = time.perf_counter()
+        bt.start()
+        half = len(gold) // 2
+        pre = [router.submit(q, tenant="gold") for q in gold[:half]]
+        router.update_params(params_b)
+        post = [router.submit(q, tenant="gold") for q in gold[half:]]
+        got_pre = [f.result(timeout=120) for f in pre]
+        got_post = [f.result(timeout=120) for f in post]
+        bt.join()
+        wall_d = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        d_scoring = kops.scoring.launches
+        logs = [rec_ for r in pool.replicas().values() for rec_ in r.engine.batch_log]
+        version_of = {id(res): rec_.params_version
+                      for rec_ in logs for res in rec_.results[: rec_.n_real]}
+        if any(version_of.get(id(r)) != 0 for r in got_pre):
+            fail("router: a request admitted before the swap was not served on the old params")
+        if any(version_of.get(id(r)) != 1 for r in got_post):
+            fail("router: a request admitted after the swap was not served on the new params")
+        ex_o = PooledExecutor(model, b_max=256, device=dev)
+        oracle = {v: (lambda b, p=p: serve_batch(model, p, ex_o, b, top_k=TOP_K,
+                                                 device=dev)[0])
+                  for v, p in ((0, params_a), (1, params_b))}
+        checked = sum(check_against_offline([rec_], oracle[rec_.params_version])
+                      for rec_ in logs)
+        b_rep = reports.get("bronze")
+        st = router.stats()
+        if b_rep is None or b_rep.failures or st["tenants"]["bronze"]["shed"]["quota"]:
+            fail(f"router: the low-priority flood did not finish cleanly: {b_rep}")
+        if b_rep.shed != st["tenants"]["bronze"]["shed"]["backpressure"]:
+            fail(f"router: {b_rep.shed} typed sheds seen, {st['tenants']['bronze']['shed']} counted")
+        if d_scoring == 0:
+            fail("router: the scoring kernel was never launched")
+        live_launches["scoring[l1]"] += d_scoring
+        per_rep = {rid: r.stats()["completed"] - done0[rid]
+                   for rid, r in pool.replicas().items()}
+    print(f"router: 2 replicas on one card, warm replay of {len(warm)} with retraces "
+          f"{retraces}; hot swap with {half} gold requests admitted before it (all "
+          f"served on the old params) and {len(gold) - half} after (on the new), "
+          f"{checked} rows replayed bitwise through serve_batch on the params each "
+          f"batch ran on | bronze flood: {b_rep.completed} served, {b_rep.shed} shed "
+          f"(ShedError, submit p99 {b_rep.submit_ms['p99']:.3f} ms) | per replica "
+          + ", ".join(f"{rid}: {n} requests, {n / wall_d:.1f} q/s" for rid, n in per_rep.items())
+          + f" | aggregate {sum(per_rep.values()) / wall_d:.1f} q/s over {wall_d:.3f} s "
+          f"| spilled {st['spilled']} | scoring launches {d_scoring}")
+    del router, pool, model, params_a, params_b
+    torch.cuda.empty_cache()
+    for key, n in live_launches.items():
+        if key in main_path:
+            k_n, counter = main_path[key]
+            main_path[key] = (k_n + n, counter)
+    print(f"live serving tier: launches {dict(live_launches)} added to the kernels "
+          f"line | phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # ------------------------------------------------- 6. the kernels line
     entries = []

@@ -2,6 +2,7 @@
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.compiler import PlanCache, build_plan, compile_batch, plan_to_dag
 from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
+from repro_torch.core.matcache import MaterializedSubqueryCache
 from repro_torch.core.ops import OpType
 from repro_torch.core.plan import CompiledPlan, PlanGraph, PlanNode, SharingReport
 from repro_torch.core.patterns import (
@@ -29,6 +30,7 @@ __all__ = [
     "PoolStep",
     "schedule",
     "PooledExecutor",
+    "MaterializedSubqueryCache",
     "QueryLevelExecutor",
     "CompiledPlan",
     "PlanGraph",

@@ -284,6 +284,7 @@ def compile_batch(
     cse: bool = True,
     sched_cache=None,
     plan_cache: Optional[PlanCache] = None,
+    graph_version: int = -1,
 ) -> CompiledPlan:
     """Compile one query batch into a ``CompiledPlan``.
 
@@ -292,8 +293,14 @@ def compile_batch(
     ``structure_key``; a hit leaves only the two bind gathers per batch.
     ``plan_cache`` (a ``PlanCache``) sits in front of ALL of that: a batch
     whose exact query-key tuple was compiled before returns its plan with
-    zero host work beyond building the key tuple."""
-    cfg_key = (model_name, b_max, reuse_slots, policy, cse)
+    zero host work beyond building the key tuple.
+
+    ``graph_version`` (the KG's monotonic write counter; -1 = not pinned)
+    enters ``cfg_key`` — the PLAN-cache key only, never the schedule-cache
+    key — so a version-pinned query can never replay a plan admitted under
+    a different graph state, while schedules (pure topology) still hit
+    across writes and signature misses stay at zero through a write burst."""
+    cfg_key = (model_name, b_max, reuse_slots, policy, cse, graph_version)
     exact_key = None
     if plan_cache is not None:
         exact_key = (tuple(q.key() for q in queries), cfg_key)

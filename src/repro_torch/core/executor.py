@@ -14,7 +14,12 @@ queries via CSE (``cse=False`` is the ablation path), lowers through the
 Max-Fillness scheduler, and memoizes everything binding-independent by the
 deduped topology — so each repeated structure only rebinds anchor/relation
 ids, and shared subtrees are computed once for every query that consumes
-them."""
+them.
+
+With a ``mat_cache`` (``core/matcache.py``) ``encode`` serves rows cached at
+the current version, encodes only the misses and inserts them — the
+inference paths only; a training step's encode closure never sees the
+cache."""
 from __future__ import annotations
 
 import threading
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.compiler import PlanCache, compile_batch
+from repro_torch.core.matcache import index_tensor
 from repro_torch.core.ops import OpType
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.core.plan import CompiledPlan
@@ -38,7 +44,7 @@ class PooledExecutor:
 
     def __init__(self, model, b_max: int = 512, reuse_slots: bool = True,
                  policy: str = "max_fillness", cse: bool = True, cache_size: int = 128,
-                 device=None):
+                 device=None, mat_cache=None):
         self.model = model
         self.b_max = b_max
         self.reuse_slots = reuse_slots
@@ -51,6 +57,10 @@ class PooledExecutor:
         # calls so a repeated batch is one dict lookup. Plans never go stale
         # (keyed on query keys + compile config only).
         self._plan_cache = PlanCache(512)
+        # Optional materialized-row cache consulted by encode() (inference
+        # paths only: a constant row inside a gradient would detach its
+        # subtree).
+        self.mat_cache = mat_cache
         # Cumulative sharing-report totals across every prepared batch.
         self._exec_metrics = get_registry().group("executor")
         self._nodes_before = self._exec_metrics.counter("nodes_before")
@@ -70,18 +80,22 @@ class PooledExecutor:
         warmup so steady-state retraces are measured over traffic only."""
         for c in (self._sched_cache, self._encode_cache, self._plan_cache):
             c.reset_counters()
+        if self.mat_cache is not None:
+            self.mat_cache.reset_counters()
 
     # ------------------------------------------------------------------ prep
-    def prepare(self, queries: Sequence[QueryInstance]) -> CompiledPlan:
+    def prepare(self, queries: Sequence[QueryInstance],
+                graph_version: int = -1) -> CompiledPlan:
         """Thin wrapper over the plan compiler: canonicalize, CSE-merge
         shared subqueries (unless ``cse=False``), lower through the
         Max-Fillness scheduler, memoizing by deduped topology in the
-        executor's schedule cache."""
+        executor's schedule cache. ``graph_version`` (-1 = unpinned) is
+        folded into the plan-cache key only — see ``compile_batch``."""
         plan = compile_batch(
             queries, model_name=self.model.name, b_max=self.b_max,
             reuse_slots=self.reuse_slots, policy=self.policy, cse=self.cse,
             sched_cache=self._sched_cache,
-            plan_cache=self._plan_cache)
+            plan_cache=self._plan_cache, graph_version=graph_version)
         with self._stats_lock:
             self._nodes_before += plan.report.nodes_before
             self._nodes_after += plan.report.nodes_after
@@ -89,17 +103,21 @@ class PooledExecutor:
 
     def sharing_stats(self) -> Dict:
         """Cumulative CSE effect over every batch this executor prepared,
-        plus the cross-batch plan-cache counters."""
+        plus the cross-batch reuse counters: ``plan_cache`` and, when
+        attached, ``materialized``."""
         with self._stats_lock:
             before, after = int(self._nodes_before), int(self._nodes_after)
         saved = before - after
-        return {
+        out = {
             "nodes_before": before,
             "nodes_after": after,
             "pooled_rows_saved": saved,
             "saved_frac": saved / max(before, 1),
             "plan_cache": self._plan_cache.stats(),
         }
+        if self.mat_cache is not None:
+            out["materialized"] = self.mat_cache.stats()
+        return out
 
     # ---------------------------------------------------------------- encode
     def encode_fn(self, prepared: CompiledPlan):
@@ -149,9 +167,55 @@ class PooledExecutor:
         return encode
 
     @torch.no_grad()
-    def encode(self, params, queries: Sequence[QueryInstance]) -> torch.Tensor:
-        """Query states [n, state_dim] in ORIGINAL query order."""
-        prepared = self.prepare(queries)
+    def encode(self, params, queries: Sequence[QueryInstance],
+               graph_version: int = -1) -> torch.Tensor:
+        """Query states [n, state_dim] in ORIGINAL query order.
+
+        With a ``mat_cache`` attached, rows cached at the CURRENT version are
+        gathered from the cache and only the misses are encoded (then
+        inserted back). The miss subset is padded to a power of two
+        (repeating its last query) so varying hit counts cannot grow the
+        signature set beyond what cache-off traffic produces. Pooled
+        operators are row-wise, so the subset's rows are bitwise the rows the
+        full batch would have produced.
+
+        ``graph_version`` (-1 = unpinned) is folded into the materialized
+        row keys and the plan-cache key, so a version-pinned replay can
+        never be served a row admitted under a different graph state."""
+        cache = self.mat_cache
+        if cache is None or len(queries) == 0:
+            return self._encode_fresh(params, queries, graph_version)
+        return self.encode_cached(params, queries, cache, cache.version,
+                                  graph_version)
+
+    @torch.no_grad()
+    def encode_cached(self, params, queries: Sequence[QueryInstance], cache,
+                      version: int, graph_version: int = -1) -> torch.Tensor:
+        """``encode`` through ``cache`` at a version the caller snapshotted
+        with its params (the serving engine's path): rows stamped
+        ``version`` are gathered, the misses encoded and inserted stamped
+        ``version`` — dropped if the cache has moved on since."""
+        keys = [q.key() if graph_version < 0 else q.key() + (graph_version,)
+                for q in queries]
+        hit, rows = cache.lookup_rows(keys, version=version)
+        if len(hit) == len(queries):
+            return rows
+        hits = set(hit)
+        miss = [i for i in range(len(queries)) if i not in hits]
+        sub = [queries[i] for i in miss]
+        sub = sub + [sub[-1]] * ((1 << (len(sub) - 1).bit_length()) - len(sub))
+        fresh = self._encode_fresh(params, sub, graph_version)[: len(miss)]
+        cache.insert([keys[i] for i in miss], fresh, version=version)
+        if not hit:
+            return fresh
+        out = fresh.new_empty((len(queries), fresh.shape[1]))
+        out.index_copy_(0, index_tensor(miss, self.device), fresh)
+        out.index_copy_(0, index_tensor(hit, self.device), rows)
+        return out
+
+    def _encode_fresh(self, params, queries: Sequence[QueryInstance],
+                      graph_version: int = -1) -> torch.Tensor:
+        prepared = self.prepare(queries, graph_version=graph_version)
         steps, ans = prepared.device_args(self.device)
         states = self.encode_fn(prepared)(params, steps, ans)
         inv = np.empty_like(prepared.order)

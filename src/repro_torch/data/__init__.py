@@ -1,8 +1,10 @@
 from repro_torch.data.kg import (
     REDUCED_SCALE,
     TABLE4,
+    KGSnapshot,
     KGStats,
     KnowledgeGraph,
+    SnapshotUnavailable,
     generate_synthetic_kg,
     load_dataset,
     split_kg,
@@ -13,8 +15,10 @@ __all__ = [
     "REDUCED_SCALE",
     "TABLE4",
     "batch_entity_ids",
+    "KGSnapshot",
     "KGStats",
     "KnowledgeGraph",
+    "SnapshotUnavailable",
     "generate_synthetic_kg",
     "load_dataset",
     "split_kg",

@@ -184,6 +184,8 @@ class PreparedWorkItem:
     sem_stage: object = None    # semantic.store.SemStage planned on the
     #                             scheduler thread; the main thread applies
     #                             it right before this item's dispatch
+    mat_hits: int = 0           # queries with a materialized row resident at
+    mat_version: int = -1       # this cache version when the item was staged
     phases: dict = dataclasses.field(default_factory=dict)
     #                             scheduler-thread phase wall times (seconds):
     #                             negatives_s/sem_prefetch_s/schedule_s/
@@ -208,7 +210,7 @@ class PreparedWorkItem:
 
 def prepare_work_item(sampler, executor, batch, n_negatives: int,
                       dev_static=None, sem_cache=None, ctx=None,
-                      stream=None) -> PreparedWorkItem:
+                      stream=None, mat_cache=None) -> PreparedWorkItem:
     """Run the full host side of one training step: the negatives, hot-set
     staging, the plan compile (canonicalize → CSE → Algorithm-1 lowering,
     ``executor.prepare``) and the copies to the executor's device — the
@@ -227,6 +229,11 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
     entity ids are planned HERE (``plan(background=True)``): the missing rows
     are read from the store and copied while the previous batch executes, and
     the main thread applies the stage right before this batch dispatches.
+
+    ``mat_cache`` (a ``core.matcache.MaterializedSubqueryCache``) is probed
+    HERE: the item records how many of the batch's queries have a row
+    resident at the current version (``mat_hits``/``mat_version``). Training
+    never consumes those rows.
 
     ``stream``: on a CUDA executor, the side stream every copy goes on
     (required there; module docstring). ``ctx`` (a mesh) comes with slice 9.
@@ -247,6 +254,10 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
         sem_stage = sem_cache.plan(batch_entity_ids(queries, pos, neg),
                                    background=True, stream=stream)
         phases["sem_prefetch_s"] = time.perf_counter() - t0
+    mat_hits, mat_version = 0, -1
+    if mat_cache is not None:
+        mat_version = mat_cache.version
+        mat_hits = mat_cache.probe([q.key() for q in queries], version=mat_version)
     t0 = time.perf_counter()
     prepared = executor.prepare(queries)
     phases["schedule_s"] = time.perf_counter() - t0
@@ -288,6 +299,8 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
         patterns=prepared.patterns,
         n_queries=len(queries),
         sem_stage=sem_stage,
+        mat_hits=mat_hits,
+        mat_version=mat_version,
         phases=phases,
         event=event,
         buffers=tuple(buffers),
@@ -329,12 +342,14 @@ class PreparedBatchPrefetcher:
         batch_fn: Optional[Callable[[], List[SampledQuery]]] = None,
         sem_cache=None,
         ctx=None,
+        mat_cache=None,
     ):
         _no_ctx(ctx)
         self.sampler = sampler
         self.executor = executor
         self.n_negatives = n_negatives
         self.sem_cache = sem_cache
+        self.mat_cache = mat_cache
         device = executor.device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._q: "queue.Queue[PreparedWorkItem]" = queue.Queue(maxsize=max(depth, 1))
@@ -377,7 +392,8 @@ class PreparedBatchPrefetcher:
                 item = prepare_work_item(self.sampler, self.executor, batch,
                                          self.n_negatives, self._dev_static,
                                          sem_cache=self.sem_cache,
-                                         stream=self.stream)
+                                         stream=self.stream,
+                                         mat_cache=self.mat_cache)
                 item.phases["sample_s"] = sample_s
                 # This thread's CPU time for the item: with the main thread's
                 # dispatch_cpu_s, what the two threads ask of one GIL.

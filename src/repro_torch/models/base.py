@@ -259,10 +259,14 @@ class QueryEncoder(nn.Module):
             return kops.scoring(q, ev, gamma=self.cfg.gamma, mode=self.score_mode)
         return self.cfg.gamma - self.distance(params, q[:, None, :], ev[None, :, :])
 
-    def score_all(self, params: Params, q) -> torch.Tensor:
+    def score_all(self, params: Params, q, n_entities: Optional[int] = None
+                  ) -> torch.Tensor:
         """Logits against EVERY entity (vectorized logit formulation, Eq. 6).
-        Padded table rows are masked to -1e30. With a resident semantic
-        table every entity is fused first, in one ``gather_fuse`` launch."""
+        Table rows at or past the real entity count are masked to -1e30: the
+        count is ``n_entities`` when given (a serving engine passes the count
+        it retained with a pinned version's params), else the model's
+        current ``n_entities``. With a resident semantic table every entity
+        is fused first, in one ``gather_fuse`` launch."""
         if "sem_slot" in params:
             raise RuntimeError(
                 "score_all needs every entity's semantic row, but these "
@@ -274,8 +278,8 @@ class QueryEncoder(nn.Module):
         if self.cfg.semantic_dim > 0:
             ev = self.fused_entity_vec(params, torch.arange(rows, device=ev.device))
         scores = self._score(params, q, ev)
-        n_real = getattr(self, "n_entities", rows)
-        if n_real != rows:
+        n_real = getattr(self, "n_entities", rows) if n_entities is None else n_entities
+        if n_real < rows:
             ids = torch.arange(rows, device=scores.device)
             scores = torch.where(ids[None, :] < n_real, scores,
                                  torch.full_like(scores, -1e30))

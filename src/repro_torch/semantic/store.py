@@ -8,7 +8,8 @@ device hot set.
   a raw fp32 layout or an int8 layout with one fp32 scale per row.
 * ``SemanticStore`` — read side: validates shard completeness on open
   (partial or truncated shards are rejected), memory-maps shards lazily and
-  serves ``read_rows(ids)`` gathers with on-the-fly dequantization.
+  serves ``read_rows(ids)`` gathers with on-the-fly dequantization;
+  ``append_rows`` grows it in place, crash-safely, for live entity writes.
 * ``SemanticCache`` — a bounded DEVICE-resident hot set of rows behind an
   entity-id -> cache-slot indirection (``sem_slot``), with CLOCK
   (second-chance) eviction and hit/miss/eviction counters. The gather
@@ -254,6 +255,105 @@ class SemanticStore:
     @property
     def disk_nbytes(self) -> int:
         return sum(s["nbytes"] for s in self._shards)
+
+    # ------------------------------------------------------------ live append
+    def append_rows(self, rows: np.ndarray) -> range:
+        """Crash-safe in-place append for live entity writes. Returns the id
+        range of the new rows.
+
+        The ``read_rows`` gather assumes UNIFORM geometry — every shard
+        except the last holds exactly ``shard_rows`` rows — so an append
+        first tops up the partial last shard, then emits fresh full/partial
+        shards:
+
+        * each payload goes through ``_write_atomic`` (tmp + fsync + atomic
+          rename), so no file is ever partially visible;
+        * the topped-up last shard is written under a NEW revision-suffixed
+          name (``shard_NNNNN.rK.bin``) — rewriting the old file in place
+          would make a crash between file and meta unopenable;
+        * ``meta.json`` is published LAST: a crash before it leaves the old
+          meta pointing at untouched old files; a crash after it leaves the
+          new state fully on disk.
+
+        Existing rows keep their EXACT stored bytes: the int8 merge
+        concatenates the old quantized payload with newly quantized rows —
+        never dequantize/requantize — so pre-append reads stay bitwise the
+        same after the append."""
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        if rows.ndim != 2 or rows.shape[1] != self.dim:
+            raise SemanticStoreError(
+                f"append rows shape {rows.shape} != (n, {self.dim})")
+        if len(rows) == 0:
+            return range(self.n_rows, self.n_rows)
+        with self._lock:
+            shards = [dict(s) for s in self._shards]
+            superseded: List[str] = []
+            merged_idx = None
+            pos = 0
+            if shards and shards[-1]["rows"] < self.shard_rows:
+                last = shards[-1]
+                merged_idx = len(shards) - 1
+                take = min(self.shard_rows - last["rows"], len(rows))
+                block = rows[:take]
+                pos = take
+                with open(os.path.join(self.directory, last["file"]), "rb") as f:
+                    raw = f.read()
+                if len(raw) != last["nbytes"]:
+                    raise SemanticStoreError(
+                        f"shard {last['file']} changed size on disk")
+                if self.quant == "fp32":
+                    payload = raw + block.tobytes()
+                else:
+                    q, scale = quantize_int8(block)
+                    split = last["rows"] * self.dim
+                    payload = (raw[:split] + q.tobytes()
+                               + raw[split:] + scale.tobytes())
+                stem, rev = last["file"][: -len(".bin")], 0
+                if ".r" in stem:
+                    stem, _, r = stem.rpartition(".r")
+                    rev = int(r)
+                name = f"{stem}.r{rev + 1}.bin"
+                _write_atomic(os.path.join(self.directory, name), payload)
+                superseded.append(last["file"])
+                shards[-1] = {"file": name, "rows": last["rows"] + take,
+                              "nbytes": len(payload)}
+            while pos < len(rows):
+                block = rows[pos: pos + self.shard_rows]
+                pos += len(block)
+                if self.quant == "fp32":
+                    payload = block.tobytes()
+                else:
+                    q, scale = quantize_int8(block)
+                    payload = q.tobytes() + scale.tobytes()
+                name = _shard_name(len(shards))
+                _write_atomic(os.path.join(self.directory, name), payload)
+                shards.append({"file": name, "rows": int(len(block)),
+                               "nbytes": len(payload)})
+            new_n = self.n_rows + len(rows)
+            meta = {
+                "version": _VERSION,
+                "n_rows": int(new_n),
+                "dim": int(self.dim),
+                "quant": self.quant,
+                "shard_rows": int(self.shard_rows),
+                "shards": shards,
+            }
+            _write_atomic(os.path.join(self.directory, _META),
+                          json.dumps(meta, indent=1).encode())
+            # Publish point passed: swap the in-memory state and retire the
+            # superseded mapping and file (a reader elsewhere may still hold
+            # the old mapping; the unlink only drops the name).
+            old_n = self.n_rows
+            self.n_rows = new_n
+            self._shards = shards
+            if merged_idx is not None:
+                self._mmaps.pop(merged_idx, None)
+            for f in superseded:
+                try:
+                    os.remove(os.path.join(self.directory, f))
+                except OSError:
+                    pass
+            return range(old_n, new_n)
 
 
 # --------------------------------------------------------------------------

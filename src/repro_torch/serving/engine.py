@@ -16,7 +16,19 @@ is to coalesce them into the same pooled micro-batches the executor runs:
   ``QueryInstance.key()``) coalesce onto ONE computed row before the batch
   is padded (``coalesced`` counter in ``stats()``), and the executor's plan
   compiler CSE-merges identical *subtrees* of the distinct queries that
-  remain.
+  remain. With a ``mat_cache`` (``core/matcache.py``) the reuse goes
+  CROSS-batch: the batcher gathers cached rows before padding, encodes only
+  the misses, and inserts them (version-stamped, invalidated on
+  ``update_params`` and graph writes).
+* **Live graph** (``kg=``) — the engine follows the graph's
+  ``graph_version``, retains the params (and the entity count) live at each
+  recent version, and serves a request pinned to a version
+  (``submit(pin_version=)``) on that version's params with version-keyed
+  plan and materialized rows, or sheds it with ``StaleVersionError`` past
+  ``max_staleness_versions``.
+* **Hot swap** (``pin_params_on_admit``) — every request is served on the
+  params current at its admission, even if ``update_params`` lands while it
+  queues; batches are grouped by params version.
 * **Signature-bucketed padding** — micro-batches pad to the next power-of-
   two size by repeating the last query (padded rows are computed and
   discarded). Bounding the batch-size set bounds the signature set: the
@@ -38,6 +50,13 @@ Offline/online parity: the engine and the one-shot ``launch/serve.py::
 serve_batch`` baseline share the SAME executor closures, the SAME scorer and
 the SAME ``topk_desc`` — so on identical micro-batch compositions their
 per-request top-k is bit-identical.
+
+Entity counts: ``score_all`` masks table rows past the real entity count,
+which live entity growth advances. The engine keeps the count beside every
+params snapshot it retains and scores with it, so a version-pinned replay
+after growth masks exactly as it did when the version was admitted.
+
+Telemetry spans come with slice 6; this module records counters only.
 """
 from __future__ import annotations
 
@@ -59,6 +78,24 @@ from repro_torch.obs.registry import get_registry
 from repro_torch.serving.loadgen import latency_summary
 
 
+class StaleVersionError(RuntimeError):
+    """A version-pinned request fell outside the engine's staleness bound.
+
+    Raised synchronously by ``submit`` when the pin is already out of bound
+    (or no longer retained) at admission, and set on the future when writes
+    land while the request is queued. Typed so clients can distinguish
+    load-shedding from real failures and re-submit unpinned (or re-pin to
+    ``engine.graph_version``)."""
+
+    def __init__(self, pinned: int, current: int, bound: int):
+        super().__init__(
+            f"graph version {pinned} is stale: current {current}, "
+            f"max_staleness_versions {bound}")
+        self.pinned = pinned
+        self.current = current
+        self.bound = bound
+
+
 def topk_desc(scores: np.ndarray, k: int) -> np.ndarray:
     """Indices of the k largest entries per row, descending — argpartition
     (linear in E) followed by an O(k log k) sort of just the survivors."""
@@ -76,9 +113,10 @@ def topk_desc(scores: np.ndarray, k: int) -> np.ndarray:
 class CachedScorer:
     """``model.score_all`` under ``no_grad`` with a signature counter.
 
-    ``traces`` counts the distinct (batch size, dtype) signatures the scorer
-    has been called with — the eager counterpart of the reference's jit
-    trace count, so a replayed pow2-bucketed workload keeps it flat."""
+    ``traces`` counts the distinct (batch size, dtype, table rows)
+    signatures the scorer has been called with — the eager counterpart of
+    the reference's jit trace count, so a replayed pow2-bucketed workload
+    keeps it flat. ``n_entities`` is passed through to ``score_all``."""
 
     def __init__(self, model):
         self._model = model
@@ -86,11 +124,11 @@ class CachedScorer:
         self._lock = threading.Lock()
 
     @torch.no_grad()
-    def __call__(self, params, q):
-        sig = (q.shape[0], q.dtype)
+    def __call__(self, params, q, n_entities: Optional[int] = None):
+        sig = (q.shape[0], q.dtype, params["entity"].shape[0])
         with self._lock:
             self._seen.add(sig)
-        return self._model.score_all(params, q)
+        return self._model.score_all(params, q, n_entities=n_entities)
 
     @property
     def traces(self) -> int:
@@ -134,6 +172,16 @@ class ServingConfig:
     top_k: int = 10
     record_batches: bool = False  # keep a log of (padded batch, results)
     latency_window: int = 8192    # completed-request latencies retained
+    # Staleness-bounded serving (needs ``kg=``): a version-pinned request is
+    # served from its pinned version's params as long as the live graph is
+    # at most this many versions ahead; beyond the bound it is SHED with a
+    # typed StaleVersionError. 0 = pinned requests only survive until the
+    # next write.
+    max_staleness_versions: int = 0
+    # Hot-swap semantics: every request is stamped with the params version
+    # current at ADMISSION and served on exactly those params even if
+    # ``update_params`` lands while it queues (the replica tier's contract).
+    pin_params_on_admit: bool = False
 
 
 @dataclasses.dataclass
@@ -142,6 +190,10 @@ class _Request:
     top_k: int
     future: Future
     t_submit: float
+    # Pinned graph version (None = the version current at execute time).
+    pin_version: Optional[int] = None
+    # Params version current at admission (``pin_params_on_admit`` only).
+    params_version: int = 0
 
 
 @dataclasses.dataclass
@@ -157,6 +209,7 @@ class BatchRecord:
     n_real: int                    # unique real rows (pre-padding)
     flush: str                     # size | age | drain | retry
     results: List[Dict]            # one per real row
+    params_version: int = 0        # the params it ran on (pin_params_on_admit)
 
 
 class ServingEngine:
@@ -167,13 +220,21 @@ class ServingEngine:
     coalesces pending requests into pooled micro-batches and resolves the
     futures. ``sem_cache``/``sem_rows_fn`` switch on out-of-core serving:
     anchors stage into the hot set before encode, and all-entity scoring
-    streams H_sem via ``sem_rows_fn`` (e.g. ``SemanticStore.read_rows``)."""
+    streams H_sem via ``sem_rows_fn`` (e.g. ``SemanticStore.read_rows``).
+    ``mat_cache`` adds cross-batch row reuse, ``kg`` version-pinned serving
+    against a live graph, ``cfg.pin_params_on_admit`` the hot-swap contract
+    (module docstring). ``name`` labels the batcher thread; ``obs_labels``
+    label every registry metric the engine publishes (replicas pass
+    ``replica="0"`` etc.)."""
 
     def __init__(self, model, params, executor=None,
                  cfg: Optional[ServingConfig] = None, device=None,
-                 sem_cache=None, sem_rows_fn=None, started: bool = True):
+                 sem_cache=None, sem_rows_fn=None, started: bool = True,
+                 mat_cache=None, kg=None, obs_labels: Optional[Dict[str, str]] = None,
+                 name: Optional[str] = None):
         self.model = model
         self.params = params
+        self.name = name or "serving"
         self.cfg = cfg or ServingConfig()
         if self.cfg.max_batch < 1 or self.cfg.queue_depth < 1:
             raise ValueError("max_batch and queue_depth must be >= 1")
@@ -191,6 +252,41 @@ class ServingEngine:
                 " to stream H_sem for all-entity scoring")
         self.sem_cache = sem_cache
         self.sem_rows_fn = sem_rows_fn
+        # The engine owns the materialized-cache consult/insert; an executor
+        # cache as well would count every miss twice.
+        self.mat_cache = mat_cache
+        if (mat_cache is not None
+                and getattr(self.executor, "mat_cache", None) is not None):
+            raise ValueError(
+                "pass mat_cache to the engine OR the executor, not both")
+        # Hot-set staging mutates a device buffer shared across params
+        # snapshots, which version-pinned replay cannot coexist with.
+        if kg is not None and sem_cache is not None:
+            raise ValueError(
+                "staleness-bounded serving (kg=...) does not support the "
+                "out-of-core sem_cache hot set — pass one or the other")
+        if self.cfg.max_staleness_versions < 0:
+            raise ValueError("max_staleness_versions must be >= 0")
+        if self.cfg.pin_params_on_admit and (kg is not None
+                                             or sem_cache is not None):
+            raise ValueError(
+                "pin_params_on_admit does not compose with kg= or sem_cache=")
+        self.kg = kg
+        # Entity count scored with the live params (module docstring).
+        self._n_entities = int(getattr(model, "n_entities",
+                                       params["entity"].shape[0]))
+        self._graph_version = kg.graph_version if kg is not None else -1
+        self._version_retention = max(self.cfg.max_staleness_versions + 1, 4)
+        # graph version -> (params, entity count) live at that version.
+        self._version_params: Dict[int, Tuple[object, int]] = (
+            {self._graph_version: (params, self._n_entities)}
+            if kg is not None else {})
+        if kg is not None:
+            kg.add_invalidation_listener(self._on_kg_write)
+        self._params_version = 0
+        self._params_retention = 4
+        self._params_by_version: Dict[int, Tuple[object, int]] = (
+            {0: (params, self._n_entities)} if self.cfg.pin_params_on_admit else {})
         self._scorer = scorer_for(model)
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
@@ -201,7 +297,7 @@ class ServingEngine:
         self._stop = threading.Event()
         self._closed = False
         self._lock = threading.Lock()
-        self._metrics = get_registry().group("serving")
+        self._metrics = get_registry().group("serving", **(obs_labels or {}))
         self._latency = self._metrics.histogram(
             "latency_ms", window=self.cfg.latency_window)
         self._submitted = self._metrics.counter("submitted")
@@ -215,10 +311,47 @@ class ServingEngine:
                          for k in ("size", "age", "drain", "retry")}
         self._queue_depth = self._metrics.gauge("queue_depth")
         self._occupancy = self._metrics.gauge("batch_occupancy")
+        # Requests shed for staleness (typed error, NOT failures) and served
+        # counts by version lag (0 = current).
+        self._stale_sheds = self._metrics.counter("stale_sheds")
+        self._version_served: Dict[int, object] = {}
+        self._graph_version_gauge = self._metrics.gauge("graph_version")
+        self._graph_version_gauge.set(self._graph_version)
         self.batch_log: List[BatchRecord] = []
         self._thread: Optional[threading.Thread] = None
         if started:
             self.start()
+
+    def _on_kg_write(self, reason: str) -> None:
+        """Graph write listener (held weakly by the graph): advance the
+        tracked version and retain the CURRENT params, with the model's
+        current entity count, under it. Until maintenance publishes
+        fine-tuned params through ``update_params``, the new version serves
+        the old weights. Old versions age out of retention; a request pinned
+        to an evicted version is shed."""
+        with self._lock:
+            if self.kg is None:
+                return
+            self._graph_version = self.kg.graph_version
+            self._n_entities = int(self.model.n_entities)
+            self._version_params[self._graph_version] = (self.params,
+                                                         self._n_entities)
+            while len(self._version_params) > self._version_retention:
+                del self._version_params[min(self._version_params)]
+        self._graph_version_gauge.set(self._graph_version)
+
+    @property
+    def graph_version(self) -> int:
+        """The newest graph version this engine has observed (-1 when no
+        ``kg`` is attached)."""
+        with self._lock:
+            return self._graph_version
+
+    def params_at(self, version: int) -> Tuple[object, int]:
+        """``(params, entity count)`` retained for graph ``version``; raises
+        ``KeyError`` once it has aged out."""
+        with self._lock:
+            return self._version_params[version]
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> None:
@@ -226,7 +359,7 @@ class ServingEngine:
             return
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="serving-batcher")
+                                        name=f"{self.name}-batcher")
         self._thread.start()
 
     def close(self, drain: bool = True, timeout: float = 60.0) -> None:
@@ -269,19 +402,43 @@ class ServingEngine:
 
     # ------------------------------------------------------------ admission
     def submit(self, query: QueryInstance, top_k: Optional[int] = None,
-               timeout: Optional[float] = None) -> Future:
+               timeout: Optional[float] = None,
+               pin_version: Optional[int] = None) -> Future:
         """Admit one request. Blocks when the admission queue is full
         (bounded-memory backpressure); with ``timeout`` raises ``queue.Full``
         instead. The returned future resolves to the same result dict
-        ``serve_batch`` produces, plus ``latency_ms``/``batch_size``."""
+        ``serve_batch`` produces, plus ``latency_ms``/``batch_size``.
+
+        ``pin_version`` (needs ``kg=``) pins the request to one graph
+        version: it is served from that version's retained params with
+        version-keyed plan/materialized rows, or shed with
+        ``StaleVersionError`` when the live graph has moved more than
+        ``cfg.max_staleness_versions`` ahead (checked here and again at
+        execute time, since writes can land while the request queues)."""
         k = self.cfg.top_k if top_k is None else top_k
         if k < 1:
             raise ValueError(f"top_k must be >= 1, got {k}")
+        if pin_version is not None:
+            if self.kg is None:
+                raise ValueError(
+                    "pin_version needs a live graph: construct the engine "
+                    "with kg=...")
+            with self._lock:
+                cur = self._graph_version
+                if pin_version < 0 or pin_version > cur:
+                    raise ValueError(
+                        f"unknown graph version {pin_version} (current {cur})")
+                if (cur - pin_version > self.cfg.max_staleness_versions
+                        or pin_version not in self._version_params):
+                    self._stale_sheds += 1
+                    raise StaleVersionError(pin_version, cur,
+                                            self.cfg.max_staleness_versions)
         with self._lock:
             if self._closed:
                 raise RuntimeError("serving engine is closed")
             self._submitted += 1
-        r = _Request(query, k, Future(), time.perf_counter())
+            pv = self._params_version if self.cfg.pin_params_on_admit else 0
+        r = _Request(query, k, Future(), time.perf_counter(), pin_version, pv)
         try:
             self._q.put(r, timeout=timeout)
         except queue.Full:
@@ -302,8 +459,9 @@ class ServingEngine:
         counter update under the lock and a single queue entry for the whole
         group. The batcher unpacks the group in order, so batching behavior
         and results are identical to a ``submit`` loop. All requests in a
-        group share one admission timestamp; the bounded queue counts a
-        group as one entry."""
+        group share one admission timestamp and params version; the bounded
+        queue counts a group as one entry. Graph-version pinning stays on
+        the single-request path."""
         if not queries:
             return []
         k = self.cfg.top_k if top_k is None else top_k
@@ -313,8 +471,9 @@ class ServingEngine:
             if self._closed:
                 raise RuntimeError("serving engine is closed")
             self._submitted += len(queries)
+            pv = self._params_version if self.cfg.pin_params_on_admit else 0
         t0 = time.perf_counter()
-        group = [_Request(q, k, Future(), t0) for q in queries]
+        group = [_Request(q, k, Future(), t0, None, pv) for q in queries]
         try:
             self._q.put(group, timeout=timeout)
         except queue.Full:
@@ -324,6 +483,12 @@ class ServingEngine:
         if self._stop.is_set():
             self._fail_queued()
         return [r.future for r in group]
+
+    def queue_depth(self) -> int:
+        """Entries waiting in the admission queue (the router's spill
+        signal). A grouped admission counts as one entry until the batcher
+        unpacks it."""
+        return self._q.qsize()
 
     # -------------------------------------------------------------- batcher
     def _next_request(self, timeout: Optional[float]) -> _Request:
@@ -378,6 +543,45 @@ class ServingEngine:
             self._execute(batch, flush)
 
     def _execute(self, batch: List[_Request], flush: str) -> None:
+        batch = self._shed_stale(batch)
+        if not batch:
+            return
+        # Pinned requests are served per pinned version (one params snapshot
+        # and one cache keyspace a micro-batch); with pin_params_on_admit the
+        # admitted params version splits the same way, so a swap landing
+        # between dequeue and execute never mixes params in one batch.
+        groups: Dict[Tuple, List[_Request]] = {}
+        for r in batch:
+            groups.setdefault((r.pin_version, r.params_version), []).append(r)
+        for g in groups.values():
+            self._execute_group(g, flush)
+
+    def _shed_stale(self, batch: List[_Request]) -> List[_Request]:
+        """Execute-time staleness re-check: writes that landed while a
+        pinned request queued can push it out of bound. Shed requests fail
+        with the typed error and count as ``stale_sheds`` — never as
+        ``failures``, and never through the solo-retry path."""
+        if self.kg is None:
+            return batch
+        with self._lock:
+            cur = self._graph_version
+            bound = self.cfg.max_staleness_versions
+            keep: List[_Request] = []
+            shed: List[_Request] = []
+            for r in batch:
+                if (r.pin_version is not None
+                        and (cur - r.pin_version > bound
+                             or r.pin_version not in self._version_params)):
+                    shed.append(r)
+                else:
+                    keep.append(r)
+            self._stale_sheds += len(shed)
+            self._completed += len(shed)
+        for r in shed:
+            r.future.set_exception(StaleVersionError(r.pin_version, cur, bound))
+        return keep
+
+    def _execute_group(self, batch: List[_Request], flush: str) -> None:
         # Exception, not BaseException: SystemExit/KeyboardInterrupt take
         # the batcher down rather than being swallowed into futures. Within
         # Exception, only recoverable per-request errors (e.g. malformed
@@ -386,6 +590,15 @@ class ServingEngine:
         try:
             results = self._serve(batch, flush)
         except Exception as e:
+            if isinstance(e, StaleVersionError):
+                # The pin was evicted mid-batch by a concurrent write: a
+                # deterministic shed, so no solo retry.
+                for r in batch:
+                    r.future.set_exception(e)
+                with self._lock:
+                    self._stale_sheds += len(batch)
+                    self._completed += len(batch)
+                return
             if len(batch) > 1 and not isinstance(e, MemoryError):
                 # Isolate the poison request: one malformed query must not
                 # fail its co-batched neighbors.
@@ -414,11 +627,53 @@ class ServingEngine:
             r.future.set_result(res)
 
     def update_params(self, params) -> None:
-        """Hot-swap the serving params. A batch that snapshotted the old
-        params before the swap finishes on them; the next batch serves the
-        new ones."""
+        """Hot-swap the serving params (e.g. after an incremental
+        fine-tune). The swap and the materialized-cache invalidation happen
+        under ONE lock acquisition, so no batch observes new params with old
+        rows: a batch that snapshotted before the swap finishes on the old
+        params and its late inserts are dropped by the version check. With
+        a live graph the new params (and the model's entity count) become
+        the CURRENT graph version's snapshot; older pins keep theirs. With
+        ``pin_params_on_admit`` requests already queued keep their admitted
+        params."""
         with self._lock:
             self.params = params
+            self._n_entities = int(getattr(self.model, "n_entities",
+                                           params["entity"].shape[0]))
+            snap = (params, self._n_entities)
+            if self.kg is not None:
+                self._version_params[self._graph_version] = snap
+            if self.cfg.pin_params_on_admit:
+                self._params_version += 1
+                self._params_by_version[self._params_version] = snap
+                while len(self._params_by_version) > self._params_retention:
+                    del self._params_by_version[min(self._params_by_version)]
+            if self.mat_cache is not None:
+                self.mat_cache.bump_version("param_update")
+
+    def _states_for(self, params, uniq: List[QueryInstance],
+                    padded: List[QueryInstance], n_real: int, mat_ver: int,
+                    gv: int = -1, use_cache: bool = True) -> torch.Tensor:
+        """Encoded states for the padded unique composition, gathering rows
+        from the materialized cache where possible. The result is bitwise
+        what ``executor.encode(params, padded)`` would return — pooled ops
+        are row-wise, cached rows were such rows at the same version, and
+        pad rows repeat the last unique row as ``pad_to_bucket``'s repeated
+        query would.
+
+        ``gv`` (the batch's graph version; -1 = no live graph) keys both the
+        plan cache and the materialized rows, so rows encoded against
+        different graph snapshots never alias within one cache version."""
+        if self.mat_cache is None or not use_cache:
+            # ``use_cache=False``: the batch runs on RETAINED (pre-swap)
+            # params while the cache stamp tracks the current ones, so
+            # neither its rows nor inserts from this batch would be valid.
+            return self.executor.encode(params, padded, graph_version=gv)
+        states = self.executor.encode_cached(params, uniq, self.mat_cache,
+                                             mat_ver, graph_version=gv)
+        if len(padded) > n_real:
+            states = torch.cat([states, states[-1:].expand(len(padded) - n_real, -1)])
+        return states
 
     def _serve(self, batch: List[_Request], flush: str) -> List[Dict]:
         # Exact-duplicate coalescing: in-flight requests whose query keys
@@ -434,8 +689,38 @@ class ServingEngine:
                 uniq.append(r.query)
             row_of.append(j)
         padded, n_real = pad_to_bucket(uniq)
+        # Snapshot (params, entity count, cache version, graph version)
+        # together under the lock: ``update_params`` swaps and bumps under
+        # the same lock, so a batch never pairs new params with rows
+        # materialized under old ones. A pinned batch (one pin after
+        # grouping) serves from the pinned version's RETAINED snapshot.
+        pin = batch[0].pin_version
+        use_mat = True
         with self._lock:
-            params = self.params
+            if pin is not None:
+                snap = self._version_params.get(pin)
+                if snap is None:
+                    # A write on another thread evicted the pin between the
+                    # shed check and this snapshot — shed, don't fail.
+                    raise StaleVersionError(pin, self._graph_version,
+                                            self.cfg.max_staleness_versions)
+                params, n_ent = snap
+                gv = pin
+            else:
+                params, n_ent = self.params, self._n_entities
+                gv = self._graph_version
+            pv_served = self._params_version
+            if self.cfg.pin_params_on_admit:
+                # Serve on the params the batch was ADMITTED under; an
+                # aged-out snapshot falls forward to current.
+                pv = batch[0].params_version
+                if pv != self._params_version and pv in self._params_by_version:
+                    params, n_ent = self._params_by_version[pv]
+                    pv_served = pv
+                    use_mat = False
+            mat_ver = (self.mat_cache.version
+                       if self.mat_cache is not None else -1)
+            lag = self._graph_version - gv if self.kg is not None else 0
         if self.sem_cache is not None:
             # Staging runs here, on the batcher thread, once per micro-batch:
             # the plan's store read + device copy, then the in-place apply,
@@ -443,11 +728,12 @@ class ServingEngine:
             stage = self.sem_cache.plan(np.concatenate([q.anchors for q in padded]))
             if stage is not None:
                 self.sem_cache.apply_to(params, stage)
-        states = self.executor.encode(params, padded)
+        states = self._states_for(params, uniq, padded, n_real, mat_ver, gv,
+                                  use_cache=use_mat)
         if self.sem_cache is not None:
             scores = self.model.score_all_chunked(params, states, self.sem_rows_fn)
         else:
-            scores = self._scorer(params, states).cpu().numpy()
+            scores = self._scorer(params, states, n_ent).cpu().numpy()
         # Select per DISTINCT (row, k) group, not one k_max selection sliced
         # per request: argpartition at k_max can arrange boundary-tied ids
         # differently than argpartition at k, and the contract is exact
@@ -495,10 +781,17 @@ class ServingEngine:
             self._coalesced += len(batch) - len(uniq)
             self._occupancy.set(n_real / len(padded))
             self._flushes[flush].inc()
+            if self.kg is not None:
+                # Served counts by version lag (0 = current graph version).
+                vc = self._version_served.get(lag)
+                if vc is None:
+                    vc = self._version_served[lag] = self._metrics.counter(
+                        "version_lag_served", lag=str(lag))
+                vc += len(batch)
             if self.cfg.record_batches:
                 self.batch_log.append(BatchRecord(
                     queries=padded, n_real=n_real, flush=flush,
-                    results=log_rows))
+                    results=log_rows, params_version=pv_served))
         return results
 
     # -------------------------------------------------------------- metrics
@@ -517,13 +810,16 @@ class ServingEngine:
         self.executor.reset_cache_counters()
         if self.sem_cache is not None:
             self.sem_cache.reset_counters()
+        if self.mat_cache is not None:
+            self.mat_cache.reset_counters()
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
         with self._lock:
             self._latency.reset()
             self._metrics.reset(only=[
                 self._batches, self._batch_rows, self._padded_rows,
-                self._coalesced, self._failures, *self._flushes.values()])
+                self._coalesced, self._failures, self._stale_sheds,
+                *self._flushes.values(), *self._version_served.values()])
             if clear_log:
                 self.batch_log = []
 
@@ -545,6 +841,14 @@ class ServingEngine:
                 # computation (same QueryInstance.key())
                 "coalesced": int(self._coalesced),
             }
+            if self.cfg.pin_params_on_admit:
+                out["params_version"] = self._params_version
+            if self.kg is not None:
+                out["graph_version"] = self._graph_version
+                out["retained_versions"] = sorted(self._version_params)
+                out["stale_sheds"] = int(self._stale_sheds)
+                out["version_lag_served"] = {
+                    lag: int(c) for lag, c in self._version_served.items()}
         if len(lat):
             out["latency_ms"] = {**latency_summary(lat),
                                  "max": float(lat.max()),
@@ -567,4 +871,8 @@ class ServingEngine:
         out["plan_cache"] = sh["plan_cache"]
         if self.sem_cache is not None:
             out["sem_cache"] = self.sem_cache.stats()
+        if self.mat_cache is not None:
+            # Duplicate-heavy traffic shows up here as the hit rate: rows
+            # served without re-encoding since the last reset_counters.
+            out["mat_cache"] = self.mat_cache.stats()
         return out

@@ -55,9 +55,19 @@ Telemetry: the registry group ``trainer`` holds ``steps``, ``inflight`` and
 the main thread's, in seconds, with each thread's CPU time for the step
 (``scheduler_cpu_s``, ``dispatch_cpu_s``): both threads share one GIL.
 
+``materialized_rows > 0`` attaches a ``MaterializedSubqueryCache`` of that
+many rows to the pooled executor's encode path (``evaluate`` and any other
+``executor.encode`` caller); training steps never read it, and its version
+bumps after every Adam step, sync or pipelined, and on every write to the
+graph. The pipelined scheduler thread probes it (``PreparedWorkItem.
+mat_hits``).
+
+``incremental_finetune`` is the live graph's embedding maintenance: a few
+Adam steps of 1p loss on the written triples, on a copy of the params.
+
 Later slices bring the rest of the reference trainer; each raises
-``NotImplementedError`` here: ``materialized_rows > 0`` (slice 5),
-``metrics_path`` (slice 6) and a mesh ``ctx`` (slice 9).
+``NotImplementedError`` here: ``metrics_path`` (slice 6) and a mesh ``ctx``
+(slice 9).
 """
 from __future__ import annotations
 
@@ -72,7 +82,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
-from repro_torch.core.patterns import TEMPLATES
+from repro_torch.core.matcache import MaterializedSubqueryCache
+from repro_torch.core.patterns import TEMPLATES, QueryInstance
 from repro_torch.data.pipeline import (BatchPrefetcher, PreparedBatchPrefetcher,
                                        batch_entity_ids)
 from repro_torch.obs.registry import get_registry
@@ -103,12 +114,75 @@ class TrainConfig:
     gil_switch_interval: float = 2e-3  # pipelined: bound GIL handoff latency
     cse: bool = True                # cross-query subexpression sharing
     #                                 (False = --no-cse ablation baseline)
-    materialized_rows: int = 0      # slice 5
+    materialized_rows: int = 0      # >0: attach a MaterializedSubqueryCache
+    #                                 of that many rows to the pooled
+    #                                 executor's eval/encode path (training
+    #                                 steps never consume cached rows)
     metrics_path: Optional[str] = None  # slice 6
 
 
 def _later(what: str, where: str):
     raise NotImplementedError(f"{what} is not ported yet: it comes with {where}")
+
+
+def incremental_finetune(model, params, triples, *, steps: int = 4,
+                         lr: float = 1e-3, n_negatives: int = 8,
+                         seed: int = 0, b_max: int = 64, executor=None):
+    """Incremental embedding maintenance for a live KG write: a few Adam
+    steps of 1p link-prediction loss on exactly the written triples.
+    Returns ``(new_params, losses)``.
+
+    A pure function of (params, triples, hyperparameters, seed): the
+    negatives come from ``np.random.default_rng(seed)`` exactly as the JAX
+    package draws them, and the batch is canonicalized by the same plan
+    compiler as training. The caller's tensors are left bitwise unchanged —
+    they are typically the serving engine's LIVE weights, read concurrently
+    by the batcher thread — because the in-place Adam runs on clones: the
+    returned dict holds new tensors for every trainable name and shares the
+    frozen ones. Launches go on the calling thread's current stream."""
+    triples = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
+    if len(triples) == 0:
+        return params, []
+    dev = params["entity"].device
+    executor = executor or PooledExecutor(model, b_max=b_max, device=dev)
+    queries = [QueryInstance("1p", np.array([h]), np.array([r]))
+               for h, r, _ in triples]
+    pos = np.ascontiguousarray(triples[:, 2])
+    rng = np.random.default_rng(seed)
+    n_ent = model.n_entities
+    neg = rng.integers(0, n_ent, size=(len(pos), n_negatives))
+    clash = neg == pos[:, None]
+    while clash.any():
+        neg[clash] = rng.integers(0, n_ent, size=int(clash.sum()))
+        clash = neg == pos[:, None]
+    prepared = executor.prepare(queries)
+    steps_in, ans = prepared.device_args(dev)
+    encode = executor.encode_fn(prepared)
+    pos_t = torch.from_numpy(pos[prepared.order]).to(dev)
+    neg_t = torch.from_numpy(neg[prepared.order]).to(dev)
+    adam_cfg = AdamConfig(lr=lr)
+    frozen_names = set(model.frozen_param_names())
+    new = {k: (v if k in frozen_names else v.detach().clone())
+           for k, v in params.items()}
+    frozen = {k: v for k, v in new.items() if k in frozen_names}
+    opt_state = adam_init(new, adam_cfg)
+    losses: List[float] = []
+    for _ in range(steps):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in new.items()
+                  if k not in frozen_names}
+        p = {**leaves, **frozen}
+        with torch.enable_grad():
+            q = encode(p, steps_in, ans)
+            loss, _ = negative_sampling_loss(model, p, q, pos_t, neg_t)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        g = {k: torch.zeros_like(v) if gr is None else gr
+             for (k, v), gr in zip(leaves.items(), grads)}
+        g.update({k: torch.zeros((1,), dtype=torch.float32, device=dev)
+                  for k in frozen})
+        adam_update(g, opt_state, new, adam_cfg)
+        losses.append(float(loss.detach()))
+    return new, losses
 
 
 class NGDBTrainer:
@@ -121,8 +195,6 @@ class NGDBTrainer:
 
     def __init__(self, model, kg, cfg: TrainConfig, semantic_table=None,
                  semantic_cache=None, ctx=None):
-        if cfg.materialized_rows > 0:
-            _later("materialized_rows > 0", "slice 5 (caches)")
         if cfg.metrics_path is not None:
             _later("metrics_path", "slice 6 (telemetry)")
         if ctx is not None:
@@ -134,10 +206,18 @@ class NGDBTrainer:
         self.kg = kg
         self.cfg = cfg
         self.device = model.device
+        # Materialized rows are an inference-side cache: training steps never
+        # read them, but executor.encode() on the eval path does, and they
+        # are invalidated on every param update and graph write.
+        self.mat_cache = None
+        if cfg.materialized_rows > 0 and cfg.executor == "pooled":
+            self.mat_cache = MaterializedSubqueryCache(cfg.materialized_rows)
+            self.mat_cache.watch_kg(kg)
         if cfg.executor == "pooled":
             self.executor = PooledExecutor(model, b_max=cfg.b_max, cse=cfg.cse,
                                            cache_size=cfg.compile_cache_size,
-                                           device=self.device)
+                                           device=self.device,
+                                           mat_cache=self.mat_cache)
         else:
             self.executor = QueryLevelExecutor(model, b_max=cfg.b_max, device=self.device)
         # Out of core, the params carry the cache's bounded hot set and its
@@ -242,6 +322,10 @@ class NGDBTrainer:
             patterns = prepared.patterns
         else:  # query-level baseline: one fragmented pass per pattern group
             loss, per_q, patterns = self._query_level_step(queries, pos, neg)
+        if self.mat_cache is not None:
+            # The params were just updated in place: rows encoded under the
+            # old values must never be served.
+            self.mat_cache.bump_version("param_update")
         if self.adaptive:
             self.adaptive.update(pattern_losses_from_batch(patterns, per_q.cpu().numpy()))
         self._steps_done.inc()
@@ -335,7 +419,7 @@ class NGDBTrainer:
         return PreparedBatchPrefetcher(
             self.sampler, self.executor, self.cfg.batch_size, self.cfg.n_negatives,
             depth=max(self.cfg.prefetch, 1), batch_fn=batch_fn,
-            sem_cache=self.sem_cache)
+            sem_cache=self.sem_cache, mat_cache=self.mat_cache)
 
     def _dispatch(self, item) -> tuple:
         """Launch one prepared step on the main thread's current stream: wait
@@ -352,6 +436,10 @@ class NGDBTrainer:
         loss, per_q, grads = self._loss_and_grads(item.prepared, item.steps, item.ans,
                                                   item.pos, item.neg)
         adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+        if self.mat_cache is not None:
+            # Adam updated the params in place: the scheduler thread's probes
+            # pinned to the old version stop matching.
+            self.mat_cache.bump_version("param_update")
         item.phases["dispatch_s"] = time.perf_counter() - td
         item.phases["dispatch_cpu_s"] = time.thread_time() - cd
         self._phase_s["dispatch"].inc(item.phases["dispatch_s"])

@@ -998,3 +998,129 @@ def test_pipelined_item_is_copied_on_the_side_stream(dev, monkeypatch):
     for t in (*item.buffers, stage.rows, stage.slots, stage.ids):
         assert (t.data_ptr(), main.cuda_stream) in marks
     tr.sem_cache.reconcile()
+
+
+# ------------------------------------------------------------ live serving tier
+def _live_setup(dev, name="gqe", n_entities=61, **cfg):
+    from repro_torch.core import PooledExecutor
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.models import ModelConfig, make_model
+
+    kg = generate_synthetic_kg(n_entities, 4, 300, seed=3)
+    model = make_model(name, ModelConfig(dim=16, gamma=6.0, **cfg), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               kg.n_entities, kg.n_relations)
+    return kg, model, params, PooledExecutor(model, b_max=64, device=dev)
+
+
+def _payload(r):
+    return {k: v for k, v in r.items() if k not in ("latency_ms", "batch_size")}
+
+
+@pytest.mark.parametrize("name", ["gqe", "complex", "betae", "q2b", "q2p", "fuzzqe"])
+def test_materialized_rows_on_gpu(dev, name):
+    """Rows served from the materialized cache on the card against a fresh
+    no-cache encode of the same queries in other pools: bitwise for the
+    families whose operators are the port's kernels or elementwise; the
+    families with plain torch.matmul projections are held to the encode
+    tolerance (cuBLAS may pick another algorithm for another row count),
+    and their largest difference is printed."""
+    from repro_torch.core import MaterializedSubqueryCache, PooledExecutor
+    from repro_torch.sampling import OnlineSampler
+
+    kg, model, params, _ = _live_setup(dev, name)
+    mat = MaterializedSubqueryCache(256)
+    ex = PooledExecutor(model, b_max=64, device=dev, mat_cache=mat)
+    fresh = PooledExecutor(model, b_max=64, device=dev)
+    pool = [s.query for s in OnlineSampler(kg, seed=11).sample_batch(48)]
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for _ in range(6):
+        qs = [pool[i] for i in rng.integers(len(pool), size=int(rng.integers(3, 20)))]
+        got = ex.encode(params, qs)
+        want = fresh.encode(params, qs)
+        if name in ("gqe", "complex"):
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        worst = max(worst, float((got - want).abs().max()))
+    assert mat.stats()["hits"] > 0
+    print(f"{name}: largest |cached - fresh| {worst:.3g}")
+
+
+def test_pinned_replay_through_growth_on_gpu(dev):
+    """entity_pad = 8: growth claims pad rows without reallocating; a replay
+    pinned to the version before it keeps that version's mask (the engine
+    scores with the entity count it retained), bitwise."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.core import PooledExecutor, QueryInstance
+    from repro_torch.serving import LiveNGDB, ServingConfig, ServingEngine
+
+    kg, model, params, ex = _live_setup(dev, entity_pad=8)
+    assert params["entity"].shape[0] == 64
+    rng = np.random.default_rng(0)
+    qs = [QueryInstance("1p", np.array([h]), np.array([r]))
+          for h, r in kg.triples[rng.integers(0, len(kg), 6), :2]]
+    cfg = ServingConfig(max_batch=8, max_wait_ms=5.0, top_k=63, max_staleness_versions=8)
+    with ServingEngine(model, params, executor=ex, cfg=cfg, device=dev, kg=kg) as eng:
+        first = [_payload(eng.submit(q, pin_version=0).result(timeout=60)) for q in qs]
+        with LiveNGDB(model, kg, eng, finetune_steps=1) as live:
+            r = live.write(np.array([[61, 0, 1], [62, 1, 61]]), n_new_entities=2)
+            live.flush()
+        assert eng.params["entity"].shape[0] == 64 and model.n_entities == 63
+        replay = [_payload(eng.submit(q, pin_version=0).result(timeout=60)) for q in qs]
+        grown = [_payload(eng.submit(q).result(timeout=60)) for q in qs]
+        p_v, n_v = eng.params_at(r.graph_version)
+    assert replay == first
+    assert all(set(x["top_entities"][:61]) == set(range(61)) for x in first)
+    assert all(set(g["top_entities"]) == set(range(63)) for g in grown)
+    oracle, _ = serve_batch(model, p_v, PooledExecutor(model, b_max=64, device=dev), qs,
+                            top_k=63, device=dev, n_entities=n_v)
+    assert grown == [_payload(o) for o in oracle]
+
+
+@pytest.mark.parametrize("name", ["gqe", "betae"])
+def test_background_finetune_on_gpu_matches_sync_bitwise(dev, name):
+    """The maintenance thread's fine-tune on the default stream, interleaved
+    with the batcher's launches, equals a synchronous rerun bitwise; the
+    params it started from are unchanged."""
+    from repro_torch.serving import LiveNGDB, ServingConfig, ServingEngine
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.training import incremental_finetune
+
+    kg, model, params, ex = _live_setup(dev, name)
+    before = {k: v.clone() for k, v in params.items()}
+    rng = np.random.default_rng(1)
+    cand = np.stack([rng.integers(0, 61, 64), rng.integers(0, 4, 64),
+                     rng.integers(0, 61, 64)], axis=1)
+    burst = np.unique(cand[~kg.contains(cand)], axis=0)[:8]
+    traffic = [s.query for s in OnlineSampler(kg, seed=3).sample_batch(64)]
+    cfg = ServingConfig(max_batch=16, max_wait_ms=2.0, max_staleness_versions=8)
+    with ServingEngine(model, params, executor=ex, cfg=cfg, device=dev, kg=kg) as eng:
+        with LiveNGDB(model, kg, eng, finetune_steps=4, seed=5) as live:
+            futs = [eng.submit(q) for q in traffic[:32]]
+            r = live.write(burst)
+            futs += [eng.submit(q) for q in traffic[32:]]
+            live.flush()
+            served = eng.params
+            assert all(np.isfinite(f.result(timeout=60)["scores"]).all() for f in futs)
+    sync, losses = incremental_finetune(model, params, r.fresh_triples, steps=4,
+                                        lr=live.finetune_lr, n_negatives=live.n_negatives,
+                                        seed=5 + r.graph_version)
+    for k in served:
+        assert torch.equal(served[k], sync[k]), k
+        assert torch.equal(params[k], before[k]), k
+    assert np.isfinite(losses).all()
+
+
+def test_incremental_finetune_leaves_engine_tensors_on_gpu(dev):
+    from repro_torch.training import incremental_finetune
+
+    kg, model, params, _ = _live_setup(dev)
+    before = {k: v.clone() for k, v in params.items()}
+    new, losses = incremental_finetune(model, params, kg.triples[:16], steps=3, lr=1e-2)
+    for k in params:
+        assert torch.equal(params[k], before[k]), k
+        assert new[k].data_ptr() != params[k].data_ptr(), k
+    assert not torch.equal(new["entity"], params["entity"])
+    assert losses[-1] < losses[0]
