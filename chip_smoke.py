@@ -153,7 +153,31 @@ non-zero (printing no result) on any failed check:
    swap served on the old params, after it on the new, every batch bitwise
    ``serve_batch`` on its params, low-priority sheds typed ``ShedError``;
    each replica's and the aggregate QPS printed.
-8. The last line: ``{"ok": true, "device": {...}}``.
+8. Telemetry (runs after 7, before the kernels line of 6), each CLI through
+   its ``main(argv)`` in this process so the launch counters see it, on the
+   Table 4 FB15k graph the CLIs generate (phase 4's, split), at
+   ``ModelConfig()`` width with ``TrainConfig()``'s batch, negatives and lr.
+   (a) ``launch.train --pipeline`` for BetaE (12 steps with ``--trace`` and
+   ``--metrics``, then 16 more resumed from its ``--ckpt-dir``) and for
+   GQE+H_sem through the hot set of phase 4b's store (8, then 4): each
+   dispatch launches what its plan calls for, the second run resumes where
+   the first stopped, the trace validates with both threads' lanes and the
+   reference's span names, the metrics hold one pipelined step record a
+   step (``bubble_frac`` in [0, 1]) and a snapshot whose hit/miss pairs
+   ``cache_tables`` prints, and ``python -m repro_torch.obs.report`` prints
+   all three sections. (b) Phase 5c's BetaE and hot-set runs again with
+   tracing on: losses bitwise 5c's, one traced dispatch under
+   ``set_sync_debug_mode("error")``; a disabled span under 2 µs a call.
+   (c) ``launch.serve`` out of core (448 requests, a 256-row hot set) and
+   with two replicas and two tenants, each traced: the traces validate,
+   one request span a request that reached an engine, every ``route``,
+   each replica's batcher lane, ``scoring`` and ``gather_fuse`` launched.
+   (d) Printed: the enabled overhead (median of 6 paired on/off ratios of
+   10-step pipelined BetaE passes through one warmed trainer, annotations
+   off), and the device ms under each span name of a sync BetaE step and a
+   GQE micro-batch under ``torch.profiler`` (the span names must be among
+   its annotations).
+9. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1481,8 +1505,10 @@ def main() -> None:
                   f"{kops.scoring.launches}")
         del trainer, cache
         torch.cuda.empty_cache()
-        return {"launches": launches, "pools": pools, "fuse": embeds + loss_calls}
+        return {"launches": launches, "pools": pools, "fuse": embeds + loss_calls,
+                "losses": losses}
 
+    pipelined_losses = {}   # label -> the run's losses, for phase 8's traced rerun
     print(f"pipelined training: TrainConfig(pipeline=True) (prefetch {tcfg.prefetch}, "
           f"max_inflight {tcfg.max_inflight}, gil_switch_interval "
           f"{tcfg.gil_switch_interval}) on the sync runs' {len(batches)} batches")
@@ -1490,6 +1516,7 @@ def main() -> None:
                                         ("gqe+semantic [hot set]", "gqe", sem_cfg,
                                          "hot set")):
         r = pipelined_run(label, family, mcfg, layout)
+        pipelined_losses[label] = r["losses"]
         grown = {"intersect[training]": ("intersect", r["pools"]),
                  "intersect_backward": ("intersect_backward", r["pools"]),
                  "gather_fuse[training]": ("gather_fuse", r["fuse"]),
@@ -1930,6 +1957,10 @@ def main() -> None:
     print(f"live serving tier: launches {dict(live_launches)} added to the kernels "
           f"line | phase 7 in {time.perf_counter() - t7:.1f} s")
 
+    # ------------------------------------------------ 8. telemetry on the card
+    phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budget,
+           sem_dir, pipelined_losses)
+
     # ------------------------------------------------- 6. the kernels line
     entries = []
     for key, (launches, shapes) in main_path.items():
@@ -1971,6 +2002,440 @@ def main() -> None:
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budget,
+           sem_dir, pipelined_losses) -> None:
+    """Telemetry on the card (module docstring, 8): the instrumented training
+    and serving CLIs through their ``main(argv)`` in this process, so the
+    kernels' launch counters see them; the traced pipelined rerun of phase
+    5c's batches; the enabled overhead and the device time under each span
+    name. Launches are added to ``main_path``."""
+    import contextlib
+    import io
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import OpType, PooledExecutor
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import make_model
+    from repro_torch.obs import TRACER, read_jsonl, validate_trace
+    from repro_torch.obs.report import cache_tables, summarize_trace
+    from repro_torch.obs.report import main as report_main
+    from repro_torch.sampling import OnlineSampler
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.serving import ServingConfig, ServingEngine
+    from repro_torch.training import NGDBTrainer, TrainConfig
+
+    t8 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    atexit.register(shutil.rmtree, str(work), ignore_errors=True)
+    counted = ("intersect", "intersect_backward", "gather_fuse", "gather_fuse_backward",
+               "scoring")
+    added = collections.Counter()   # main-path key -> phase 8 launches
+
+    def counts() -> dict:
+        return {name: getattr(kops, name).launches for name in counted}
+
+    def zero() -> None:
+        for name in counted:
+            getattr(kops, name).launches = 0
+
+    def run(label: str, fn, argv) -> str:
+        """One CLI's ``main(argv)``; its standard output kept and echoed."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn(argv)
+        except Exception as e:
+            print(buf.getvalue())
+            fail(f"phase 8 {label}: the CLI raised {e!r}")
+        print(f"phase 8 {label}: python -m {fn.__module__} {' '.join(argv)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        for line in buf.getvalue().splitlines():
+            print(f"  | {line}")
+        torch.cuda.empty_cache()
+        return buf.getvalue()
+
+    def check_trace(label: str, path: str, lanes, names):
+        with open(path) as f:
+            obj = json.load(f)
+        try:
+            summary = validate_trace(obj)
+        except ValueError as e:
+            fail(f"phase 8 {label}: the trace does not validate: {e}")
+        missing = (set(lanes) - set(summary["lanes"])) | (set(names) - set(summary["names"]))
+        if missing:
+            fail(f"phase 8 {label}: the trace lacks {sorted(missing)} (lanes "
+                 f"{summary['lanes']}, names {summary['names']})")
+        return obj
+
+    def check_metrics(label: str, trace: str, path: str, steps: int) -> None:
+        recs = read_jsonl(path)
+        step = [r for r in recs if r["kind"] == "step"]
+        snaps = [r for r in recs if r["kind"] == "snapshot"]
+        if len(step) != steps or len(snaps) != 1 or any(
+                r["mode"] != "pipelined" or not r["wall_s"] > 0
+                or not 0.0 <= r["bubble_frac"] <= 1.0 for r in step):
+            fail(f"phase 8 {label}: {len(step)} step records (want {steps} pipelined, "
+                 f"bubble_frac in [0, 1], wall_s > 0) and {len(snaps)} snapshots")
+        if cache_tables(snaps[0]["metrics"]).startswith("caches: no"):
+            fail(f"phase 8 {label}: the snapshot has no hit/miss pairs")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            report_main(["--trace", trace, "--metrics", path])
+        out = buf.getvalue()
+        if not all(x in out for x in ("trace: ", f"metrics: {steps} step records", "caches:")):
+            fail(f"phase 8 {label}: the report lacks a section:\n{out}")
+        print(f"  python -m repro_torch.obs.report --trace {Path(trace).name} --metrics "
+              f"{Path(path).name}:")
+        for line in out.splitlines():
+            print(f"  | {line}")
+
+    # (a) Training: the CLI's pipelined runs, each dispatch's launches held
+    # to what its plan calls for (the wrapper reads the counters; it does not
+    # synchronize).
+    attn_ops = (int(OpType.INTERSECT), int(OpType.UNION))
+
+    def attn_expect(plan) -> dict:
+        n = sum(op in attn_ops for op, _c, _n in plan.meta)
+        return {"intersect": n, "intersect_backward": n}
+
+    def fuse_expect(plan) -> dict:
+        n = sum(op == int(OpType.EMBED) for op, _c, _n in plan.meta) + 1   # + the loss
+        return {"gather_fuse": n, "gather_fuse_backward": n}
+
+    expect, per_step = {}, []
+    plain_dispatch = NGDBTrainer._dispatch
+
+    def counted_dispatch(self, item):
+        before = counts()
+        out = plain_dispatch(self, item)
+        got = {k: v - before[k] for k, v in counts().items()}
+        want = dict.fromkeys(counted, 0)
+        want.update(expect["fn"](item.prepared))
+        per_step.append((got, want))
+        return out
+
+    train_args = ["--dim", str(cfg.dim), "--batch-size", str(tcfg.batch_size),
+                  "--negatives", str(tcfg.n_negatives), "--lr", str(tcfg.adam.lr),
+                  "--log-every", "0", "--pipeline"]
+
+    def train_run(label, argv, steps, ckpt, fn, trace=None, metrics=None):
+        per_step.clear()
+        expect["fn"] = fn
+        zero()
+        obs = [] if trace is None else ["--trace", trace, "--metrics", metrics]
+        out = run(label, train_cli.main, argv + train_args + ["--steps", str(steps),
+                                                             "--ckpt-dir", ckpt] + obs)
+        launches = counts()
+        bad = [(g, w) for g, w in per_step if g != w]
+        if len(per_step) != steps or bad or not any(sum(w.values()) for _, w in per_step):
+            fail(f"phase 8 {label}: {len(per_step)} dispatches for {steps} steps; "
+                 f"first mismatch (launched, the plan's) {bad[:1]}")
+        print(f"  {steps} dispatches, each launching what its plan calls for; launches "
+              f"over the run (evaluate included) {launches}")
+        return out, launches
+
+    NGDBTrainer._dispatch = counted_dispatch
+    try:
+        t1, m1 = str(work / "betae.trace.json"), str(work / "betae.metrics.jsonl")
+        ck = str(work / "ckpt_betae")
+        _, l1 = train_run("(a) BetaE", ["--model", "betae"], 12, ck, attn_expect, t1, m1)
+        check_trace("(a) BetaE", t1, ("main dispatch", "pipeline scheduler"),
+                    ("pipeline_wait", "dispatch", "retire", "sample", "schedule",
+                     "transfer", "prepared_q_depth"))
+        check_metrics("(a) BetaE", t1, m1, 12)
+        out, l2 = train_run("(a) BetaE, resumed", ["--model", "betae"], 16, ck, attn_expect)
+        if "resumed from checkpoint at step 12" not in out:
+            fail("phase 8 (a) BetaE: the second run did not resume at step 12")
+        for lc in (l1, l2):
+            added["intersect[training]"] += lc["intersect"]
+            added["intersect_backward"] += lc["intersect_backward"]
+        sem_args = ["--model", "gqe", "--semantic-store", sem_dir,
+                    "--semantic-dim", str(store.dim)]
+        t3, m3 = str(work / "sem.trace.json"), str(work / "sem.metrics.jsonl")
+        ck = str(work / "ckpt_sem")
+        out, l3 = train_run("(a) GQE+H_sem [hot set]", sem_args, 8, ck, fuse_expect, t3, m3)
+        if "semantic store: reusing" not in out:
+            fail("phase 8 (a) GQE+H_sem: the CLI did not reuse phase 4b's store")
+        check_trace("(a) GQE+H_sem", t3, ("main dispatch", "pipeline scheduler"),
+                    ("pipeline_wait", "sem_apply", "dispatch", "retire", "sample",
+                     "sem_prefetch", "schedule", "transfer", "prepared_q_depth"))
+        check_metrics("(a) GQE+H_sem", t3, m3, 8)
+        out, l4 = train_run("(a) GQE+H_sem, resumed", sem_args, 4, ck, fuse_expect)
+        if "resumed from checkpoint at step 8" not in out:
+            fail("phase 8 (a) GQE+H_sem: the second run did not resume at step 8")
+        for lc in (l3, l4):
+            added["gather_fuse[training]"] += lc["gather_fuse"]
+            added["gather_fuse_backward"] += lc["gather_fuse_backward"]
+            added["scoring[l1][out-of-core]"] += lc["scoring"]   # evaluate, chunked
+    finally:
+        NGDBTrainer._dispatch = plain_dispatch
+
+    # (b) No perturbation: phase 5c's batches, pipelined, traced (the
+    # record_function bridge on), on phase 4's graph generated afresh (phase
+    # 7 wrote to the first one).
+    kg0 = generate_synthetic_kg(*FB15K, seed=0, name="FB15k-shaped")
+    for label, family, mcfg, hot in (("betae", "betae", cfg, False),
+                                     ("gqe+semantic [hot set]", "gqe", sem_cfg, True)):
+        def fresh():
+            sem = {"semantic_cache": SemanticCache(store, budget, device=dev)} if hot else {}
+            return NGDBTrainer(make_model(family, mcfg, device=dev), kg0,
+                               TrainConfig(pipeline=True), **sem)
+
+        trainer = fresh()
+        zero()
+        TRACER.enable()
+        try:
+            losses = [r["loss"] for r in trainer.train(len(batches), log_every=0,
+                                                       batches=batches)]
+            obj = TRACER.to_json()
+        finally:
+            TRACER.disable()
+        launched = counts()
+        validate_trace(obj)
+        want = pipelined_losses[label]
+        note = "bitwise phase 5c's untraced losses"
+        if losses != want:
+            again = [r["loss"] for r in fresh().train(len(batches), log_every=0,
+                                                      batches=batches)]
+            if again == want:
+                fail(f"phase 8 (b) {label}: tracing changes the losses: {losses} "
+                     f"against {want}, and an untraced rerun gives phase 5c's bits")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+            if rel > 1e-6:
+                fail(f"phase 8 (b) {label}: traced losses {rel:.3g} relative from 5c's")
+            note = (f"two untraced runs differ bitwise here, so held to 1e-6 relative: "
+                    f"{rel:.3g}")
+        pf = trainer._prefetcher(batches)
+        TRACER.enable()
+        try:
+            item = pf.next(timeout=120)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss, _ = trainer._dispatch(item)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            pf.next(timeout=120)
+        except RuntimeError as e:
+            fail(f"phase 8 (b) {label}: a traced dispatch under "
+                 f"set_sync_debug_mode('error') raised: {e!r} ({e.__cause__!r})")
+        finally:
+            TRACER.disable()
+            pf.close()
+            if trainer.sem_cache is not None:
+                trainer.sem_cache.reconcile()
+        if not np.isfinite(float(loss)):
+            fail(f"phase 8 (b) {label}: the traced dispatch's loss is {float(loss)}")
+        for name in counted:
+            key = {"intersect": "intersect[training]",
+                   "gather_fuse": "gather_fuse[training]"}.get(name, name)
+            if name != "scoring":
+                added[key] += launched[name]
+        print(f"phase 8 (b) {label}: {len(losses)} pipelined steps traced "
+              f"({len(obj['traceEvents'])} events), {note}; one traced dispatch under "
+              f"set_sync_debug_mode('error'): no host sync")
+        del trainer, pf
+        torch.cuda.empty_cache()
+    TRACER.disable()
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with TRACER.span("probe"):
+            pass
+    ns = (time.perf_counter() - t0) / n * 1e9
+    if ns > 2000:
+        fail(f"phase 8 (b): a disabled span costs {ns:.0f} ns a call (gate 2 us)")
+    print(f"phase 8 (b): a disabled TRACER.span() costs {ns:.1f} ns a call "
+          f"(mean over one pass of {n} calls; gate 2,000 ns)")
+
+    # (c) Serving, out of core through the store, then two replicas behind the
+    # router, each with its own trace. The hot set holds 256 rows, fewer than
+    # the workload's anchors, so the traced replay reads the store too (the
+    # default 2,048 would keep every anchor of the warm-up resident).
+    t2, m2 = str(work / "serve.trace.json"), str(work / "serve.metrics.jsonl")
+    zero()
+    run("(c) GQE+H_sem out of core", serve_cli.main,
+        ["--model", "gqe", "--semantic-store", sem_dir, "--semantic-budget-rows", "256",
+         "--requests", "448", "--trace", t2, "--metrics", m2])
+    launched = counts()
+    obj = check_trace("(c) out of core", t2, ("client 0", "serving batcher"),
+                      ("request", "batch", "sem_prefetch", "store_io", "encode", "score",
+                       "select", "serving_queue_depth"))
+    begins = sum(e["ph"] == "b" and e["name"] == "request" for e in obj["traceEvents"])
+    if begins != 448:
+        fail(f"phase 8 (c) out of core: {begins} request spans for 448 requests")
+    if not launched["scoring"] or not launched["gather_fuse"]:
+        fail(f"phase 8 (c) out of core: launches {launched}")
+    snap = read_jsonl(m2)
+    if [r["kind"] for r in snap] != ["snapshot"]:
+        fail(f"phase 8 (c) out of core: the metrics file holds {len(snap)} records")
+    added["gather_fuse[out-of-core]"] += launched["gather_fuse"]
+    added["scoring[l1][out-of-core]"] += launched["scoring"]
+    print(f"  448 request spans balanced; launches {launched}")
+    for line in summarize_trace(obj, top=10).splitlines():
+        print(f"  | {line}")
+    t4, m4 = str(work / "tier.trace.json"), str(work / "tier.metrics.jsonl")
+    zero()
+    out = run("(c) two replicas", serve_cli.main,
+              ["--model", "gqe", "--requests", "448", "--replicas", "2",
+               "--tenants", "gold:high,bronze:low", "--priority-mix", "gold=0.25,bronze=0.75",
+               "--trace", t4, "--metrics", m4])
+    launched = counts()
+    obj = check_trace("(c) two replicas", t4,
+                      ("tenant gold", "tenant bronze", "replica 0 batcher", "replica 1 batcher"),
+                      ("route", "request", "batch", "encode", "score", "select"))
+    tenants = re.findall(r"\[tenant (\w+)\] offered (\d+) .*?completed (\d+), shed (\d+), "
+                         r"failed (\d+)", out)
+    if len(tenants) != 2:
+        fail(f"phase 8 (c) two replicas: tenant reports {tenants}")
+    offered = sum(int(t[1]) for t in tenants)
+    served = sum(int(t[2]) + int(t[4]) for t in tenants)
+    ev = obj["traceEvents"]
+    routes = sum(e["ph"] == "X" and e["name"] == "route" for e in ev)
+    begins = sum(e["ph"] == "b" and e["name"] == "request" for e in ev)
+    rejected = sum(e["ph"] == "e" and e.get("args", {}).get("rejected", False) for e in ev)
+    if routes != offered or begins != served + rejected:
+        fail(f"phase 8 (c) two replicas: {routes} route spans for {offered} offered, "
+             f"{begins} request spans for {served} served or failed and {rejected} "
+             f"rejected at a full queue")
+    if not launched["scoring"]:
+        fail(f"phase 8 (c) two replicas: launches {launched}")
+    added["scoring[l1]"] += launched["scoring"]
+    print(f"  {routes} route spans ({offered} offered), {begins} request spans "
+          f"({served} served or failed + {rejected} rejected at a full queue; the rest "
+          f"shed by the router before admission); launches {launched}")
+
+    # (d) Printed, not gated: the enabled overhead (annotations off, paired
+    # passes through one warmed trainer, the median of the on/off ratios) ...
+    trainer = NGDBTrainer(make_model("betae", cfg, device=dev), kg0, TrainConfig(pipeline=True))
+    zero()
+    trainer.train(len(batches), log_every=0, batches=batches)
+    ratios, per = [], {False: [], True: []}
+    steps = 10
+    for trial in range(6):
+        pair = {}
+        for on in ((False, True) if trial % 2 == 0 else (True, False)):
+            if on:
+                TRACER.enable(profiler_annotations=False)
+            else:
+                TRACER.disable()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(steps, log_every=0, batches=batches)
+            torch.cuda.synchronize()
+            pair[on] = time.perf_counter() - t0
+            per[on].append(pair[on] / steps * 1e3)
+        ratios.append(pair[True] / pair[False])
+    TRACER.disable()
+    l_over = counts()
+    added["intersect[training]"] += l_over["intersect"]
+    added["intersect_backward"] += l_over["intersect_backward"]
+    print(f"phase 8 (d) enabled tracing overhead, pipelined BetaE (TrainConfig(), one "
+          f"warmed trainer, {steps}-step passes, annotations off): on/off ratios "
+          + ", ".join(f"{r:.4f}" for r in ratios)
+          + f" | median {statistics.median(ratios):.4f} | ms a step off "
+          + ", ".join(f"{x:.2f}" for x in per[False]) + " | on "
+          + ", ".join(f"{x:.2f}" for x in per[True]))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ... and the device time under each span name, from torch.profiler with
+    # the bridge on. Spans are attributed the kernels whose launching op
+    # starts inside them, on any thread (autograd runs the backward on its
+    # own), so nested spans each hold their children's kernels.
+    def split(label: str, prof, names) -> None:
+        events = prof.events()
+        spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+                 if e.name in names and e.device_type == DeviceType.CPU]
+        missing = set(names) - {n for n, _, _ in spans}
+        if missing:
+            fail(f"phase 8 (d) {label}: the profile's user annotations lack "
+                 f"{sorted(missing)}")
+        by, total = dict.fromkeys(names, 0.0), 0.0
+        for e in events:
+            us = sum(k.duration for k in e.kernels)
+            if not us:
+                continue
+            total += us
+            for name, a, b in spans:
+                if a <= e.time_range.start <= b:
+                    by[name] += us
+        host = {name: sum(b - a for n_, a, b in spans if n_ == name) for name in names}
+        if total == 0:
+            print(f"phase 8 (d) {label}: spans {sorted(names)} in the profile; device "
+                  f"time not measured (the profiler recorded no device activity)")
+            return
+        print(f"phase 8 (d) {label}: device ms under each span (host ms of the span) | "
+              + ", ".join(f"{n_} {by[n_] / 1e3:.3f} ({host[n_] / 1e3:.3f})" for n_ in names)
+              + f" | all device activity {total / 1e3:.3f} ms")
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    trainer = NGDBTrainer(make_model("betae", cfg, device=dev), kg0, TrainConfig())
+    for b in batches[:2]:
+        trainer.train_step(b)
+    zero()
+    TRACER.enable()
+    TRACER.set_lane("main dispatch")
+    try:
+        with profile(activities=activities) as prof:
+            trainer.train_step(batches[2])
+            torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    launched = counts()
+    added["intersect[training]"] += launched["intersect"]
+    added["intersect_backward"] += launched["intersect_backward"]
+    split("one pooled BetaE step (sync, batch 512)", prof, ("schedule", "dispatch", "retire"))
+    del trainer
+    model = make_model("gqe", cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(80), kg0.n_entities,
+                               kg0.n_relations)
+    engine = ServingEngine(model, params, executor=PooledExecutor(model, b_max=256, device=dev),
+                           cfg=ServingConfig(max_batch=16, top_k=TOP_K), device=dev,
+                           started=False)
+    queries = [q.query for q in OnlineSampler(kg0, seed=81).sample_batch(16)]
+
+    def one_batch() -> None:
+        """The batcher loop on this thread (the profiler records this
+        thread's annotations): one size flush of 16, then it returns."""
+        engine._stop.clear()
+        futures = engine.submit_many(queries)
+        engine._stop.set()
+        engine._run()
+        for f in futures:
+            f.result(timeout=120)
+
+    one_batch()
+    zero()
+    TRACER.enable()
+    try:
+        with profile(activities=activities) as prof:
+            one_batch()
+            torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    added["scoring[l1]"] += counts()["scoring"]
+    split("one GQE micro-batch of 16", prof, ("batch", "encode", "score", "select"))
+    engine.close()
+    del engine, model, params
+    torch.cuda.empty_cache()
+
+    unknown = set(added) - set(main_path)
+    if unknown:
+        fail(f"phase 8: launches for keys the kernels line does not have: {sorted(unknown)}")
+    for key, n in added.items():
+        k_n, counter = main_path[key]
+        main_path[key] = (k_n + n, counter)
+    print(f"telemetry: launches {dict(added)} added to the kernels line | phase 8 in "
+          f"{time.perf_counter() - t8:.1f} s")
 
 
 if __name__ == "__main__":

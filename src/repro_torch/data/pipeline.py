@@ -45,6 +45,7 @@ import torch
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.plan import packed_to_device
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import TRACER
 
 if TYPE_CHECKING:
     from repro_torch.sampling.online import OnlineSampler, SampledQuery
@@ -91,6 +92,7 @@ class BatchPrefetcher:
         # module through data/__init__.
         from repro_torch.sampling.online import OnlineSampler
 
+        TRACER.set_lane(f"sampling worker {worker_id}")
         local = OnlineSampler(
             self.sampler.kg,
             patterns=self.sampler.patterns,
@@ -100,7 +102,8 @@ class BatchPrefetcher:
         )
         while not self._stop.is_set():
             try:
-                batch = local.sample_batch(self.batch_size)
+                with TRACER.span("sample", n=self.batch_size):
+                    batch = local.sample_batch(self.batch_size)
             except RuntimeError:
                 continue  # rejection streak: drop and retry (straggler-safe)
             while not self._stop.is_set():
@@ -251,44 +254,49 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
     sem_stage = None
     if sem_cache is not None:
         t0 = time.perf_counter()
-        sem_stage = sem_cache.plan(batch_entity_ids(queries, pos, neg),
-                                   background=True, stream=stream)
+        with TRACER.span("sem_prefetch", n=len(queries)):
+            sem_stage = sem_cache.plan(batch_entity_ids(queries, pos, neg),
+                                       background=True, stream=stream)
         phases["sem_prefetch_s"] = time.perf_counter() - t0
     mat_hits, mat_version = 0, -1
     if mat_cache is not None:
         mat_version = mat_cache.version
         mat_hits = mat_cache.probe([q.key() for q in queries], version=mat_version)
     t0 = time.perf_counter()
-    prepared = executor.prepare(queries)
+    with TRACER.span("schedule", n=len(queries)):
+        prepared = executor.prepare(queries)
     phases["schedule_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    buffers, host = [], []
-    static = (dev_static.get(prepared.structure_key)
-              if dev_static is not None else None)
-    if static is None:
-        arrays = [a for s in prepared.slot_arrays for a in s.values()]
-        views, flat, pinned = packed_to_device(arrays + [prepared.answer_slots],
-                                               device, stream)
+    # On CUDA this span is the enqueue of the side stream's copies, not their
+    # completion (``event`` marks that).
+    with TRACER.span("transfer", n_steps=len(prepared.bind_arrays)):
+        buffers, host = [], []
+        static = (dev_static.get(prepared.structure_key)
+                  if dev_static is not None else None)
+        if static is None:
+            arrays = [a for s in prepared.slot_arrays for a in s.values()]
+            views, flat, pinned = packed_to_device(
+                arrays + [prepared.answer_slots], device, stream)
+            it = iter(views)
+            static = ([{k: next(it) for k in s} for s in prepared.slot_arrays],
+                      next(it), flat)
+            if dev_static is not None:
+                dev_static.put(prepared.structure_key, static)
+            host.append(pinned)
+        slot_dev, ans, static_flat = static
+        binds = [a for b in prepared.bind_arrays for a in b.values()]
+        views, flat, pinned = packed_to_device(
+            binds + [pos[prepared.order], neg[prepared.order]], device, stream)
         it = iter(views)
-        static = ([{k: next(it) for k in s} for s in prepared.slot_arrays],
-                  next(it), flat)
-        if dev_static is not None:
-            dev_static.put(prepared.structure_key, static)
+        steps = [{**s, **{k: next(it) for k in b}}
+                 for s, b in zip(slot_dev, prepared.bind_arrays)]
+        pos_dev, neg_dev = next(it), next(it)
+        buffers += [static_flat, flat]
         host.append(pinned)
-    slot_dev, ans, static_flat = static
-    binds = [a for b in prepared.bind_arrays for a in b.values()]
-    views, flat, pinned = packed_to_device(
-        binds + [pos[prepared.order], neg[prepared.order]], device, stream)
-    it = iter(views)
-    steps = [{**s, **{k: next(it) for k in b}}
-             for s, b in zip(slot_dev, prepared.bind_arrays)]
-    pos_dev, neg_dev = next(it), next(it)
-    buffers += [static_flat, flat]
-    host.append(pinned)
-    event = None
-    if stream is not None:
-        event = torch.cuda.Event()
-        event.record(stream)
+        event = None
+        if stream is not None:
+            event = torch.cuda.Event()
+            event.record(stream)
     phases["transfer_s"] = time.perf_counter() - t0
     return PreparedWorkItem(
         prepared=prepared,
@@ -326,7 +334,10 @@ class PreparedBatchPrefetcher:
 
     Telemetry: the registry group ``pipeline`` holds the ``prepared_q_depth``
     gauge and ``phase_seconds{phase=sample|negatives|sem_prefetch|schedule|
-    transfer}``. An error in the thread surfaces on ``next()`` as
+    transfer}``; the thread's trace lane is "pipeline scheduler" (spans
+    ``sample``, ``sem_prefetch``, ``schedule``, ``transfer``; the
+    ``prepared_q_depth`` counter), the sampling workers' "sampling worker i"
+    (``sample``). An error in the thread surfaces on ``next()`` as
     ``RuntimeError("prepared-batch prefetcher failed")``; ``close()`` returns
     within 5 s.
     """
@@ -375,6 +386,7 @@ class PreparedBatchPrefetcher:
         self._thread.start()
 
     def _run(self) -> None:
+        TRACER.set_lane("pipeline scheduler")
         if self.stream is not None:
             with torch.cuda.device(self.stream.device):
                 self._loop()
@@ -386,8 +398,10 @@ class PreparedBatchPrefetcher:
             try:
                 t0, c0 = time.perf_counter(), time.thread_time()
                 # Raw-batch acquisition: the sampling itself when batch_fn
-                # runs inline, the wait on the workers' queue otherwise.
-                batch = self._next_batch()
+                # runs inline, the wait on the workers' queue otherwise (their
+                # own lanes carry the sampling spans).
+                with TRACER.span("sample"):
+                    batch = self._next_batch()
                 sample_s = time.perf_counter() - t0
                 item = prepare_work_item(self.sampler, self.executor, batch,
                                          self.n_negatives, self._dev_static,
@@ -409,6 +423,8 @@ class PreparedBatchPrefetcher:
                 try:
                     self._q.put(item, timeout=0.25)
                     self._depth_gauge.set(self._q.qsize())
+                    if TRACER.enabled:
+                        TRACER.counter("prepared_q_depth", depth=self._q.qsize())
                     break
                 except queue.Full:
                     continue

@@ -34,8 +34,12 @@ The serving tier's options, as the JAX package's launcher has them:
     PYTHONPATH=src python -m repro_torch.launch.serve --model gqe \
         --replicas 2 --tenants gold:high,bronze:low --priority-mix gold=0.25,bronze=0.75
 
-``--trace`` and ``--metrics`` come with slice 6, ``--autotune-cache`` with
-slice 7 and ``--mesh`` with slice 9.
+``--trace PATH`` writes a Chrome-trace-event (Perfetto) timeline of the timed
+replay, and ``--metrics PATH`` a final registry snapshot as JSONL; read both
+with ``python -m repro_torch.obs.report``. Unlike the JAX package's launcher,
+which traces the single-engine path only, the replica tier traces its timed
+pass too (the tenants' lanes, each replica's batcher, ``route`` spans).
+``--autotune-cache`` comes with slice 7 and ``--mesh`` with slice 9.
 
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two
@@ -55,6 +59,7 @@ from repro_torch.core import PooledExecutor
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, make_model, model_names
+from repro_torch.obs import TRACER, MetricsSink, get_registry
 from repro_torch.serving import (ServingConfig, ServingEngine, make_workload,
                                  run_closed_loop, run_open_loop, scorer_for,
                                  topk_desc)
@@ -158,6 +163,9 @@ def _serve_tier(args, kg, model, params, device) -> None:
     print(f"warmup: {args.requests} requests over {args.replicas} replicas "
           f"in {time.time()-t0:.1f}s")
     pool.reset_counters()
+    if args.trace:
+        TRACER.enable()
+        TRACER.set_lane("loadgen main")
     if specs:
         loads = []
         start = 0
@@ -172,6 +180,8 @@ def _serve_tier(args, kg, model, params, device) -> None:
             print(reports[name].describe())
     else:
         print(run_open_loop(router, workload, qps=args.qps).describe())
+    if args.trace:
+        _write_trace(args.trace)
     st = router.stats()
     for rid, rs in sorted(st["pool"]["per_replica"].items()):
         mc = rs.get("mat_cache")
@@ -187,7 +197,21 @@ def _serve_tier(args, kg, model, params, device) -> None:
             print(f"tenant {name} ({ts['priority']}): "
                   f"{ts['completed']}/{ts['submitted']} completed, "
                   f"shed {sheds or 0}, p99 {ts['latency_ms']['p99']:.1f} ms")
+    if args.metrics:
+        _write_metrics(args.metrics)
     router.close()
+
+
+def _write_trace(path: str) -> None:
+    TRACER.write(path)
+    TRACER.disable()
+    print(f"trace: wrote {path} (load at ui.perfetto.dev)")
+
+
+def _write_metrics(path: str) -> None:
+    with MetricsSink(path) as sink:
+        sink.write({"kind": "snapshot", "metrics": get_registry().snapshot()})
+    print(f"metrics: wrote {path}")
 
 
 def main(argv=None) -> None:
@@ -257,6 +281,16 @@ def main(argv=None) -> None:
                     help="traffic share per tenant, e.g. "
                          "'gold=0.25,bronze=0.75' (default: equal shares); "
                          "needs --tenants")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace-event/Perfetto JSON timeline "
+                         "of the timed replay (lanes: client N or tenant T, "
+                         "each engine's batcher; spans: request/route/batch/"
+                         "sem_prefetch/store_io/encode/score/select). Load at "
+                         "ui.perfetto.dev")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write a final registry snapshot (engine counters, "
+                         "latency histogram, cache stats) as JSONL; "
+                         "summarize with python -m repro_torch.obs.report")
     args = ap.parse_args(argv)
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
@@ -337,6 +371,11 @@ def main(argv=None) -> None:
     print(f"warmup: {args.requests} requests in {time.time()-t0:.1f}s "
           f"({engine.retraces()} cold cache misses)")
     engine.reset_counters()
+    # Trace only the timed replay (the batcher named its lane at start, and
+    # lane names survive enable()).
+    if args.trace:
+        TRACER.enable()
+        TRACER.set_lane("loadgen main")
     writer, live_db = None, None
     if args.live_writes > 0:
         import threading
@@ -365,6 +404,8 @@ def main(argv=None) -> None:
     if writer is not None:
         writer.join()
         live_db.flush()
+    if args.trace:
+        _write_trace(args.trace)
     st = engine.stats()
     print(report.describe())
     print(f"engine: {st['batches']} micro-batches "
@@ -398,6 +439,8 @@ def main(argv=None) -> None:
         cs = cache.stats()
         print(f"semantic cache: hit rate {cs['hit_rate']:.2%}, "
               f"{cs['rows_staged']} rows staged from store")
+    if args.metrics:
+        _write_metrics(args.metrics)
     engine.close()
 
 

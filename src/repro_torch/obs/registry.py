@@ -14,9 +14,14 @@ window):
   observe`` take no registry lock; call sites that need exactness hold their
   component's lock. The registry lock is touched only at metric creation and
   snapshot time.
-* **Weak registration** — the registry holds weakrefs. Components own their
-  metrics (via a ``MetricGroup``); when an engine is garbage-collected its
-  metrics leave the snapshot.
+* **Snapshot / delta / reset** — ``snapshot()`` aggregates every live
+  metric by ``name{labels}`` key; ``delta(before)`` subtracts the summable
+  keys; ``reset()`` zeroes every counter and histogram in the process and
+  then runs the hooks registered with ``on_reset`` (the serving engine
+  re-baselines its derived deltas there).
+* **Weak registration** — the registry holds weakrefs, to metrics and to
+  reset hooks. Components own their metrics (via a ``MetricGroup``); when an
+  engine is garbage-collected its metrics and its hook leave with it.
 """
 from __future__ import annotations
 
@@ -58,6 +63,10 @@ class Counter:
         self._v -= n
         return self
 
+    @property
+    def value(self):
+        return self._v
+
     def read(self):
         return self._v
 
@@ -91,6 +100,28 @@ class Counter:
     def __ge__(self, other):
         return self._v >= _val(other)
 
+    def __add__(self, other):
+        return self._v + _val(other)
+
+    def __radd__(self, other):
+        return _val(other) + self._v
+
+    def __sub__(self, other):
+        return self._v - _val(other)
+
+    def __rsub__(self, other):
+        return _val(other) - self._v
+
+    def __truediv__(self, other):
+        return self._v / _val(other)
+
+    def __rtruediv__(self, other):
+        return _val(other) / self._v
+
+    def __mul__(self, other):
+        return self._v * _val(other)
+
+    __rmul__ = __mul__
     __hash__ = None  # mutable: never a dict key
 
     def __repr__(self):
@@ -138,6 +169,9 @@ class Histogram:
         self._count += 1
         self._sum += v
 
+    def __len__(self):
+        return len(self._win)
+
     @property
     def count(self):
         return self._count
@@ -148,6 +182,19 @@ class Histogram:
 
     def window_values(self) -> List[float]:
         return list(self._win)
+
+    def summary(self) -> Dict[str, float]:
+        win = np.asarray(self._win, dtype=np.float64)
+        out = {"count": int(self._count), "sum": float(self._sum),
+               "mean": float(self._sum / self._count) if self._count else 0.0,
+               "window_n": int(len(win)), "window": int(self.window)}
+        if len(win):
+            p50, p95, p99 = np.percentile(win, [50, 95, 99])
+            out.update(p50=float(p50), p95=float(p95), p99=float(p99),
+                       max=float(win.max()))
+        else:
+            out.update(p50=0.0, p95=0.0, p99=0.0, max=0.0)
+        return out
 
     def reset(self) -> None:
         self._win.clear()
@@ -200,13 +247,17 @@ class MetricGroup:
         for m in (self._metrics if only is None else only):
             m.reset()
 
+    def metrics(self) -> List:
+        return list(self._metrics)
+
 
 class MetricsRegistry:
-    """Weak collection of every live metric in the process."""
+    """Weak collection of every live metric in the process + reset hooks."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: List[weakref.ref] = []
+        self._hooks: List = []  # weakref.ref / weakref.WeakMethod
 
     def group(self, prefix: str, **labels) -> MetricGroup:
         return MetricGroup(self, prefix, **labels)
@@ -214,6 +265,14 @@ class MetricsRegistry:
     def register(self, metric) -> None:
         with self._lock:
             self._metrics.append(weakref.ref(metric))
+
+    def on_reset(self, fn) -> None:
+        """Register a callback run after every registry-wide ``reset()``,
+        held weakly: a dead component's hook disappears with it."""
+        ref = (weakref.WeakMethod(fn) if hasattr(fn, "__self__")
+               else weakref.ref(fn))
+        with self._lock:
+            self._hooks.append(ref)
 
     def metrics(self) -> List:
         """Live metrics (dead weakrefs pruned as a side effect)."""
@@ -244,6 +303,30 @@ class MetricsRegistry:
                             key + "_p99": float(p99)})
             out[key + "_window_n"] = len(win)
         return out
+
+    def delta(self, before: Dict[str, float]) -> Dict[str, float]:
+        """Current snapshot minus ``before`` for subtractable keys (counters,
+        gauges, histogram counts/sums); percentiles and window sizes pass
+        through as they are now."""
+        out = {}
+        for k, v in self.snapshot().items():
+            if k.endswith(("_p50", "_p95", "_p99", "_window_n")):
+                out[k] = v
+            else:
+                out[k] = v - before.get(k, 0)
+        return out
+
+    def reset(self) -> None:
+        """Zero EVERY counter and histogram in the process (gauges keep
+        their state), then run the reset hooks."""
+        for m in self.metrics():
+            m.reset()
+        with self._lock:
+            live = [(r, r()) for r in self._hooks]
+            self._hooks = [r for r, fn in live if fn is not None]
+        for _, fn in live:
+            if fn is not None:
+                fn()
 
 
 _REGISTRY = MetricsRegistry()

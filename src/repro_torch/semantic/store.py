@@ -47,6 +47,7 @@ import torch
 from repro_torch.core.plan import packed_to_device
 from repro_torch.device import resolve_device
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import TRACER
 
 _META = "meta.json"
 _VERSION = 1
@@ -590,7 +591,8 @@ class SemanticCache:
         # Store I/O and the device copy happen OUTSIDE the lock: the metadata
         # above is already consistent, and apply_to's seq check must never
         # wait out a disk read.
-        rows = self.store.read_rows(missing)  # host gather + dequantize
+        with TRACER.span("store_io", rows=m):
+            rows = self.store.read_rows(missing)  # host gather + dequantize
         if not (background and on_cuda):
             return SemStage(
                 seq=seq,

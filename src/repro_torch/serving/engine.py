@@ -56,7 +56,15 @@ which live entity growth advances. The engine keeps the count beside every
 params snapshot it retains and scores with it, so a version-pinned replay
 after growth masks exactly as it did when the version was admitted.
 
-Telemetry spans come with slice 6; this module records counters only.
+Telemetry: registry counters under ``serving`` (``obs_labels`` label them),
+and, while ``obs.TRACER`` is enabled, one async ``request`` span a request,
+opened at admission and closed on whatever thread ends it (served, with
+``latency_ms``; shed; rejected at a full queue; failed), so coalesced
+duplicates keep distinct spans; the batcher's lane "<name> batcher" with the
+spans ``batch`` (its requests' ``trace_ids``), ``sem_prefetch``, ``encode``,
+``score`` and ``select``, and the ``serving_queue_depth`` counter. A
+registry-wide ``reset()`` re-baselines the engine's derived deltas
+(``_rebaseline``).
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ from repro_torch.core.executor import PooledExecutor
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.device import resolve_device
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import TRACER
 from repro_torch.serving.loadgen import latency_summary
 
 
@@ -194,6 +203,8 @@ class _Request:
     pin_version: Optional[int] = None
     # Params version current at admission (``pin_params_on_admit`` only).
     params_version: int = 0
+    # Async ``request`` span id (0 = not traced).
+    trace_id: int = 0
 
 
 @dataclasses.dataclass
@@ -317,10 +328,22 @@ class ServingEngine:
         self._version_served: Dict[int, object] = {}
         self._graph_version_gauge = self._metrics.gauge("graph_version")
         self._graph_version_gauge.set(self._graph_version)
+        # After a registry-wide reset() the derived deltas (scorer signatures,
+        # sharing totals) must re-baseline or they would go negative; the hook
+        # is held weakly, so a collected engine takes it along.
+        get_registry().on_reset(self._rebaseline)
         self.batch_log: List[BatchRecord] = []
         self._thread: Optional[threading.Thread] = None
         if started:
             self.start()
+
+    def _rebaseline(self) -> None:
+        """Registry-reset hook: zero the derived deltas that live outside the
+        registry (scorer signatures, cumulative sharing totals)."""
+        self._scorer_traces0 = self._scorer.traces
+        self._sharing0 = dict(self.executor.sharing_stats())
+        with self._lock:
+            self._version_served = {}
 
     def _on_kg_write(self, reason: str) -> None:
         """Graph write listener (held weakly by the graph): advance the
@@ -387,6 +410,8 @@ class ServingEngine:
             while True:
                 entry = self._q.get_nowait()
                 for r in (entry if type(entry) is list else (entry,)):
+                    if r.trace_id:
+                        TRACER.async_end("request", r.trace_id, failed=True)
                     r.future.set_exception(RuntimeError("serving engine closed"))
                     with self._lock:
                         self._completed += 1
@@ -438,12 +463,19 @@ class ServingEngine:
                 raise RuntimeError("serving engine is closed")
             self._submitted += 1
             pv = self._params_version if self.cfg.pin_params_on_admit else 0
-        r = _Request(query, k, Future(), time.perf_counter(), pin_version, pv)
+        trace_id = 0
+        if TRACER.enabled:
+            trace_id = TRACER.next_id()
+            TRACER.async_begin("request", trace_id, pattern=query.pattern, top_k=k)
+        r = _Request(query, k, Future(), time.perf_counter(), pin_version, pv,
+                     trace_id)
         try:
             self._q.put(r, timeout=timeout)
         except queue.Full:
             with self._lock:
                 self._submitted -= 1
+            if trace_id:
+                TRACER.async_end("request", trace_id, rejected=True)
             raise
         # close() may have stopped the batcher and drained the queue between
         # our _closed check and the put; a straggler landing in the
@@ -473,12 +505,21 @@ class ServingEngine:
             self._submitted += len(queries)
             pv = self._params_version if self.cfg.pin_params_on_admit else 0
         t0 = time.perf_counter()
-        group = [_Request(q, k, Future(), t0, None, pv) for q in queries]
+        group = []
+        for q in queries:
+            trace_id = 0
+            if TRACER.enabled:
+                trace_id = TRACER.next_id()
+                TRACER.async_begin("request", trace_id, pattern=q.pattern, top_k=k)
+            group.append(_Request(q, k, Future(), t0, None, pv, trace_id))
         try:
             self._q.put(group, timeout=timeout)
         except queue.Full:
             with self._lock:
                 self._submitted -= len(group)
+            for r in group:
+                if r.trace_id:
+                    TRACER.async_end("request", r.trace_id, rejected=True)
             raise
         if self._stop.is_set():
             self._fail_queued()
@@ -506,6 +547,8 @@ class ServingEngine:
         return entry
 
     def _run(self) -> None:
+        # Named at thread start, traced or not: the lane outlives enable().
+        TRACER.set_lane(f"{self.name} batcher")
         while True:
             try:
                 first = self._next_request(0.05)
@@ -540,6 +583,8 @@ class ServingEngine:
                 except queue.Empty:
                     continue
             self._queue_depth.set(self._q.qsize())
+            if TRACER.enabled:
+                TRACER.counter("serving_queue_depth", depth=self._q.qsize())
             self._execute(batch, flush)
 
     def _execute(self, batch: List[_Request], flush: str) -> None:
@@ -578,6 +623,8 @@ class ServingEngine:
             self._stale_sheds += len(shed)
             self._completed += len(shed)
         for r in shed:
+            if r.trace_id:
+                TRACER.async_end("request", r.trace_id, shed=True)
             r.future.set_exception(StaleVersionError(r.pin_version, cur, bound))
         return keep
 
@@ -588,12 +635,16 @@ class ServingEngine:
         # pattern → KeyError) get poison isolation — MemoryError fails the
         # whole batch at once, never an N-fold solo-retry storm.
         try:
-            results = self._serve(batch, flush)
+            with TRACER.span("batch", n=len(batch), flush=flush,
+                             trace_ids=[r.trace_id for r in batch]):
+                results = self._serve(batch, flush)
         except Exception as e:
             if isinstance(e, StaleVersionError):
                 # The pin was evicted mid-batch by a concurrent write: a
                 # deterministic shed, so no solo retry.
                 for r in batch:
+                    if r.trace_id:
+                        TRACER.async_end("request", r.trace_id, shed=True)
                     r.future.set_exception(e)
                 with self._lock:
                     self._stale_sheds += len(batch)
@@ -606,6 +657,10 @@ class ServingEngine:
                     self._execute([r], "retry")
                 return
             for r in batch:
+                # The span ends BEFORE the future resolves: a client that
+                # writes the trace once its future is done sees no open span.
+                if r.trace_id:
+                    TRACER.async_end("request", r.trace_id, failed=True)
                 r.future.set_exception(e)
             with self._lock:
                 self._failures += len(batch)
@@ -623,7 +678,9 @@ class ServingEngine:
             for lat_ms in lats:
                 self._latency.observe(lat_ms)
             self._completed += n
-        for r, res in zip(batch, results):
+        for r, res, lat_ms in zip(batch, results, lats):
+            if r.trace_id:
+                TRACER.async_end("request", r.trace_id, latency_ms=lat_ms)
             r.future.set_result(res)
 
     def update_params(self, params) -> None:
@@ -725,34 +782,41 @@ class ServingEngine:
             # Staging runs here, on the batcher thread, once per micro-batch:
             # the plan's store read + device copy, then the in-place apply,
             # both before the encode that gathers the rows.
-            stage = self.sem_cache.plan(np.concatenate([q.anchors for q in padded]))
+            anchors = np.concatenate([q.anchors for q in padded])
+            with TRACER.span("sem_prefetch", rows=len(anchors)):
+                stage = self.sem_cache.plan(anchors)
             if stage is not None:
                 self.sem_cache.apply_to(params, stage)
-        states = self._states_for(params, uniq, padded, n_real, mat_ver, gv,
-                                  use_cache=use_mat)
-        if self.sem_cache is not None:
-            scores = self.model.score_all_chunked(params, states, self.sem_rows_fn)
-        else:
-            scores = self._scorer(params, states, n_ent).cpu().numpy()
+        with TRACER.span("encode", n=len(padded), graph_version=gv):
+            states = self._states_for(params, uniq, padded, n_real, mat_ver, gv,
+                                      use_cache=use_mat)
+        # The scores' copy to the host waits for the card: ``score`` ends only
+        # once every launch before it has run.
+        with TRACER.span("score", n=len(padded)):
+            if self.sem_cache is not None:
+                scores = self.model.score_all_chunked(params, states, self.sem_rows_fn)
+            else:
+                scores = self._scorer(params, states, n_ent).cpu().numpy()
         # Select per DISTINCT (row, k) group, not one k_max selection sliced
         # per request: argpartition at k_max can arrange boundary-tied ids
         # differently than argpartition at k, and the contract is exact
         # per-request equality with serve_batch(top_k=k).
         ks = scores.shape[1]
-        sel_of: Dict[Tuple[int, int], np.ndarray] = {}
-        for i, r in enumerate(batch):
-            sel_of.setdefault((row_of[i], min(r.top_k, ks)), None)
-        by_k: Dict[int, List[int]] = {}   # k -> unique computed rows
-        for row, k in sel_of:
-            by_k.setdefault(k, []).append(row)
-        for k, rows in by_k.items():
-            # Unique rows appear in ascending order, so the common single-k
-            # group covers the contiguous prefix.
-            sub = (scores[:len(rows)] if len(rows) == len(uniq)
-                   else scores[rows])
-            idx = topk_desc(sub, k)
-            for j, row in enumerate(rows):
-                sel_of[(row, k)] = idx[j]
+        with TRACER.span("select", n=len(batch)):
+            sel_of: Dict[Tuple[int, int], np.ndarray] = {}
+            for i, r in enumerate(batch):
+                sel_of.setdefault((row_of[i], min(r.top_k, ks)), None)
+            by_k: Dict[int, List[int]] = {}   # k -> unique computed rows
+            for row, k in sel_of:
+                by_k.setdefault(k, []).append(row)
+            for k, rows in by_k.items():
+                # Unique rows appear in ascending order, so the common
+                # single-k group covers the contiguous prefix.
+                sub = (scores[:len(rows)] if len(rows) == len(uniq)
+                       else scores[rows])
+                idx = topk_desc(sub, k)
+                for j, row in enumerate(rows):
+                    sel_of[(row, k)] = idx[j]
         results: List[Optional[Dict]] = [None] * len(batch)
         log_rows: List[Optional[Dict]] = [None] * n_real
         default_k = min(self.cfg.top_k, ks)

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.patterns import QueryInstance
+from repro_torch.obs.trace import TRACER
 from repro_torch.sampling.online import OnlineSampler
 
 
@@ -68,8 +69,11 @@ class LoadReport:
                 f"p99 {l['p99']:.1f} ms")
 
 
-def _closed_window(engine, queries, indices, results, concurrency, timeout):
+def _closed_window(engine, queries, indices, results, concurrency, timeout,
+                   lane: Optional[str] = None):
     """One submitter's closed window over its share of the workload."""
+    if lane is not None:
+        TRACER.set_lane(lane)
     window: deque = deque()
     for i in indices:
         while len(window) >= concurrency:
@@ -88,8 +92,8 @@ def run_closed_loop(engine, queries: Sequence[QueryInstance],
 
     ``threads > 1`` splits the workload round-robin over that many client
     threads, each keeping its share of the window in flight — a
-    multi-client probe. ``threads=1`` runs one submitter on the calling
-    thread."""
+    multi-client probe, and one "client N" trace lane a submitter.
+    ``threads=1`` runs one submitter on the calling thread ("client 0")."""
     if concurrency < 1:
         raise ValueError("concurrency must be >= 1")
     if threads < 1:
@@ -97,6 +101,7 @@ def run_closed_loop(engine, queries: Sequence[QueryInstance],
     results: List[Optional[Dict]] = [None] * len(queries)
     t0 = time.perf_counter()
     if threads == 1:
+        TRACER.set_lane("client 0")
         _closed_window(engine, queries, range(len(queries)), results,
                        concurrency, timeout)
     else:
@@ -104,7 +109,7 @@ def run_closed_loop(engine, queries: Sequence[QueryInstance],
         ts = [threading.Thread(
                   target=_closed_window,
                   args=(engine, queries, range(w, len(queries), threads),
-                        results, per, timeout),
+                        results, per, timeout, f"client {w}"),
                   daemon=True)
               for w in range(threads)]
         for t in ts:
@@ -208,6 +213,7 @@ class TenantReport:
 def _tenant_loop(router, load: TenantLoad, report_slot: Dict, timeout: float):
     from repro_torch.serving.router import ShedError
 
+    TRACER.set_lane(f"tenant {load.tenant}")
     futures = []
     shed = 0
     submit_ms: List[float] = []

@@ -31,8 +31,10 @@ Layered on top:
   requests on the params they were admitted under (see ``engine.py``), so
   the swap is bit-safe without draining.
 
-Telemetry spans (a ``route`` span a request) come with slice 6; the router
-keeps its registry counters.
+Telemetry: registry counters (``router_*``, and ``serving_*{tenant=}`` a
+tenant), and, while ``obs.TRACER`` is enabled, a ``route`` span with
+``pattern`` and ``tenant`` around each single request's placement and
+admission (a shed there ends inside it).
 
 All routing state is derived: the topology memo is a bounded LRU over
 ``QueryInstance.key()`` and the rendezvous rankings are memoized per
@@ -55,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.compiler import build_plan
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import TRACER
 from repro_torch.serving.loadgen import latency_summary
 
 
@@ -286,8 +289,13 @@ class Router:
         try:
             if rank is None:
                 rank = self._ranking(self._topology(query))
-            fut, spilled = self._admit(query, rank, top_k, timeout, name,
-                                       spec)
+            if TRACER.enabled:
+                with TRACER.span("route", pattern=query.pattern, tenant=name):
+                    fut, spilled = self._admit(query, rank, top_k, timeout,
+                                               name, spec)
+            else:
+                fut, spilled = self._admit(query, rank, top_k, timeout, name,
+                                           spec)
         except ShedError:
             with self._lock:
                 t.inflight -= 1

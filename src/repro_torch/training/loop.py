@@ -53,7 +53,16 @@ Telemetry: the registry group ``trainer`` holds ``steps``, ``inflight`` and
 ``phase_seconds{phase=pipeline_wait|sem_apply|dispatch|retire}``;
 ``step_phases`` keeps each retired step's phases, the scheduler thread's and
 the main thread's, in seconds, with each thread's CPU time for the step
-(``scheduler_cpu_s``, ``dispatch_cpu_s``): both threads share one GIL.
+(``scheduler_cpu_s``, ``dispatch_cpu_s``): both threads share one GIL. The
+main thread's trace lane is "main dispatch", with the spans ``sample``,
+``sem_prefetch``, ``schedule``, ``dispatch`` and ``retire`` (sync) or
+``pipeline_wait``, ``sem_apply``, ``dispatch`` and ``retire`` (pipelined).
+With ``metrics_path`` every retired step also writes one JSONL record
+(``kind: "step"``) with the JAX package's keys: the step, its loss and
+queries/s, the phases in seconds and, pipelined, ``wait_s`` (the bubble,
+``pipeline_wait_s`` in ``step_phases``), ``bubble_frac`` and ``wall_s``. A
+cold signature is counted under ``dispatch``, so no ``compile`` span or
+``compile_s`` key appears. ``history`` keeps its shape.
 
 ``materialized_rows > 0`` attaches a ``MaterializedSubqueryCache`` of that
 many rows to the pooled executor's encode path (``evaluate`` and any other
@@ -65,9 +74,7 @@ mat_hits``).
 ``incremental_finetune`` is the live graph's embedding maintenance: a few
 Adam steps of 1p loss on the written triples, on a copy of the params.
 
-Later slices bring the rest of the reference trainer; each raises
-``NotImplementedError`` here: ``metrics_path`` (slice 6) and a mesh ``ctx``
-(slice 9).
+A mesh ``ctx`` comes with slice 9 and raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -87,6 +94,8 @@ from repro_torch.core.patterns import TEMPLATES, QueryInstance
 from repro_torch.data.pipeline import (BatchPrefetcher, PreparedBatchPrefetcher,
                                        batch_entity_ids)
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.sink import MetricsSink
+from repro_torch.obs.trace import TRACER
 from repro_torch.sampling.adaptive import AdaptiveDistribution, pattern_losses_from_batch
 from repro_torch.sampling.online import OnlineSampler, SampledQuery
 from repro_torch.training.checkpoint import CheckpointManager
@@ -118,7 +127,11 @@ class TrainConfig:
     #                                 of that many rows to the pooled
     #                                 executor's eval/encode path (training
     #                                 steps never consume cached rows)
-    metrics_path: Optional[str] = None  # slice 6
+    metrics_path: Optional[str] = None  # JSONL step records (None = off)
+
+
+# step_phases keys that the JSONL step record leaves out.
+_PORT_ONLY_PHASES = ("scheduler_cpu_s", "dispatch_cpu_s", "t_retired")
 
 
 def _later(what: str, where: str):
@@ -195,8 +208,6 @@ class NGDBTrainer:
 
     def __init__(self, model, kg, cfg: TrainConfig, semantic_table=None,
                  semantic_cache=None, ctx=None):
-        if cfg.metrics_path is not None:
-            _later("metrics_path", "slice 6 (telemetry)")
         if ctx is not None:
             _later("a mesh ctx", "slice 9 (distribution)")
         if cfg.executor not in ("pooled", "query_level"):
@@ -241,6 +252,7 @@ class NGDBTrainer:
             name: self._obs.counter("phase_seconds", phase=name)
             for name in ("pipeline_wait", "sem_apply", "dispatch", "retire")}
         self._inflight_gauge = self._obs.gauge("inflight")
+        self.metrics_sink = MetricsSink(cfg.metrics_path)
 
     def load_params(self, arrays) -> None:
         """Replace the parameters with ``arrays`` ({name: numpy array}, e.g.
@@ -301,24 +313,30 @@ class NGDBTrainer:
     def train_step(self, batch: Optional[List[SampledQuery]] = None) -> Dict[str, float]:
         if batch is None:
             dist = self.adaptive.distribution() if self.adaptive else None
-            batch = self.sampler.sample_batch(self.cfg.batch_size, dist)
+            with TRACER.span("sample", n=self.cfg.batch_size):
+                batch = self.sampler.sample_batch(self.cfg.batch_size, dist)
         queries, pos, neg = self.sampler.to_training_arrays(batch, self.cfg.n_negatives)
+        phases: Dict[str, float] = {}
         if self.sem_cache is not None:
             # Sync staging, before the step and outside its timing window.
-            stage = self.sem_cache.plan(batch_entity_ids(queries, pos, neg))
+            tp = time.perf_counter()
+            with TRACER.span("sem_prefetch"):
+                stage = self.sem_cache.plan(batch_entity_ids(queries, pos, neg))
             if stage is not None:
                 self.sem_cache.apply_to(self.params, stage)
+            phases["sem_prefetch_s"] = time.perf_counter() - tp
         t0 = time.perf_counter()
         if isinstance(self.executor, PooledExecutor):
-            prepared = self.executor.prepare(queries)
+            with TRACER.span("schedule", n=len(queries)):
+                prepared = self.executor.prepare(queries)
+            phases["schedule_s"] = time.perf_counter() - t0
             td = time.perf_counter()
-            loss, per_q, grads = self.loss_and_grads(
-                prepared, pos[prepared.order], neg[prepared.order])
-            adam_update(grads, self.opt_state, self.params, self.cfg.adam)
-            tr = time.perf_counter()
-            self._phase_s["dispatch"].inc(tr - td)
-            loss = float(loss)
-            self._phase_s["retire"].inc(time.perf_counter() - tr)
+            with TRACER.span("dispatch"):
+                loss, per_q, grads = self.loss_and_grads(
+                    prepared, pos[prepared.order], neg[prepared.order])
+                adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+            phases["dispatch_s"] = time.perf_counter() - td
+            self._phase_s["dispatch"].inc(phases["dispatch_s"])
             patterns = prepared.patterns
         else:  # query-level baseline: one fragmented pass per pattern group
             loss, per_q, patterns = self._query_level_step(queries, pos, neg)
@@ -326,6 +344,11 @@ class NGDBTrainer:
             # The params were just updated in place: rows encoded under the
             # old values must never be served.
             self.mat_cache.bump_version("param_update")
+        tr = time.perf_counter()
+        with TRACER.span("retire"):
+            loss = float(loss)
+        phases["retire_s"] = time.perf_counter() - tr
+        self._phase_s["retire"].inc(phases["retire_s"])
         if self.adaptive:
             self.adaptive.update(pattern_losses_from_batch(patterns, per_q.cpu().numpy()))
         self._steps_done.inc()
@@ -336,6 +359,10 @@ class NGDBTrainer:
             "queries_per_sec": len(queries) / max(time.perf_counter() - t0, 1e-9),
         }
         self.history.append(rec)
+        if self.metrics_sink.enabled:
+            # A record of its own, not extra keys on rec: history keeps its
+            # shape.
+            self.metrics_sink.write({"kind": "step", "mode": "sync", **rec, **phases})
         if self.ckpt:
             self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
                                  metadata={"loss": loss})
@@ -376,6 +403,7 @@ class NGDBTrainer:
         otherwise batches come from the online sampler."""
         if self.cfg.pipeline and isinstance(self.executor, PooledExecutor):
             return self._train_pipelined(n_steps, log_every, batches=batches)
+        TRACER.set_lane("main dispatch")
         prefetcher = None
         if batches is None and self.cfg.prefetch > 0 and not self.adaptive:
             prefetcher = BatchPrefetcher(self.sampler, self.cfg.batch_size,
@@ -429,13 +457,15 @@ class NGDBTrainer:
         item.ready()
         if item.sem_stage is not None:
             ta = time.perf_counter()
-            self.sem_cache.apply_to(self.params, item.sem_stage)
+            with TRACER.span("sem_apply"):
+                self.sem_cache.apply_to(self.params, item.sem_stage)
             item.phases["sem_apply_s"] = time.perf_counter() - ta
             self._phase_s["sem_apply"].inc(item.phases["sem_apply_s"])
         td, cd = time.perf_counter(), time.thread_time()
-        loss, per_q, grads = self._loss_and_grads(item.prepared, item.steps, item.ans,
-                                                  item.pos, item.neg)
-        adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+        with TRACER.span("dispatch"):
+            loss, per_q, grads = self._loss_and_grads(item.prepared, item.steps, item.ans,
+                                                      item.pos, item.neg)
+            adam_update(grads, self.opt_state, self.params, self.cfg.adam)
         if self.mat_cache is not None:
             # Adam updated the params in place: the scheduler thread's probes
             # pinned to the old version stop matching.
@@ -462,8 +492,9 @@ class NGDBTrainer:
         boundary, since ``self.params`` may already hold later steps."""
         loss, per_q, patterns, n_queries, snap, phases = pending
         tr = time.perf_counter()
-        loss = float(loss)
-        per_q = per_q.cpu().numpy() if self.adaptive else None
+        with TRACER.span("retire"):
+            loss = float(loss)
+            per_q = per_q.cpu().numpy() if self.adaptive else None
         now = time.perf_counter()
         phases["retire_s"] = now - tr
         phases["t_retired"] = now
@@ -476,6 +507,18 @@ class NGDBTrainer:
                "queries_per_sec": n_queries / max(now - t_last, 1e-9)}
         self.history.append(rec)
         self.step_phases.append(phases)
+        if self.metrics_sink.enabled:
+            # The bubble: the main thread's wait for the scheduler thread over
+            # the step's wall time. The record carries the JAX package's keys
+            # (the wait as ``wait_s``), not the threads' CPU times.
+            wall = max(now - t_last, 1e-9)
+            self.metrics_sink.write({
+                "kind": "step", "mode": "pipelined", **rec,
+                **{("wait_s" if k == "pipeline_wait_s" else k): v
+                   for k, v in phases.items() if k not in _PORT_ONLY_PHASES},
+                "bubble_frac": min(phases.get("pipeline_wait_s", 0.0) / wall, 1.0),
+                "wall_s": wall,
+            })
         if log_every and self.step % log_every == 0:
             print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
                   f"q/s {rec['queries_per_sec']:.0f}")
@@ -502,10 +545,12 @@ class NGDBTrainer:
         inflight: deque = deque()
         window = max(self.cfg.max_inflight, 1)
         t_last = time.perf_counter()
+        TRACER.set_lane("main dispatch")
         try:
             for _ in range(n_steps):
                 tw = time.perf_counter()
-                item = pf.next()   # a wait here is the pipeline's bubble
+                with TRACER.span("pipeline_wait"):
+                    item = pf.next()   # a wait here is the pipeline's bubble
                 item.phases["pipeline_wait_s"] = time.perf_counter() - tw
                 self._phase_s["pipeline_wait"].inc(item.phases["pipeline_wait_s"])
                 loss, per_q = self._dispatch(item)

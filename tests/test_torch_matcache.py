@@ -257,13 +257,19 @@ def test_trainer_materialized_rows(pipeline):
     assert tr.mat_cache.version == kg_v
 
 
-def test_trainer_still_refuses_later_slices():
+def test_trainer_still_refuses_later_slices(tmp_path):
     from repro_torch.models import ModelConfig, make_model
+    from repro_torch.obs import read_jsonl
     from repro_torch.training import NGDBTrainer, TrainConfig
 
     _, kg = graphs()
     model = make_model("gqe", ModelConfig(dim=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        NGDBTrainer(model, kg, TrainConfig(metrics_path="/nonexistent/m.jsonl"))
+    # metrics_path came with slice 6: beside a mat cache it writes the records.
+    path = tmp_path / "m.jsonl"
+    tr = NGDBTrainer(model, kg, TrainConfig(batch_size=8, n_negatives=2, b_max=32,
+                                            prefetch=0, materialized_rows=8,
+                                            metrics_path=str(path)))
+    tr.train(1, log_every=0)
+    assert [r["kind"] for r in read_jsonl(str(path))] == ["step"]
     with pytest.raises(NotImplementedError, match="slice 9"):
         NGDBTrainer(model, kg, TrainConfig(), ctx=object())

@@ -285,17 +285,24 @@ def test_trainer_losses_match_reference(name, executor, n_batches):
     np.testing.assert_allclose(tl, jl, rtol=1e-3)
 
 
-def test_trainer_raises_for_later_slices():
+def test_trainer_raises_for_later_slices(tmp_path):
     from repro_torch.data import generate_synthetic_kg
     from repro_torch.models import ModelConfig, make_model
+    from repro_torch.obs import read_jsonl
     from repro_torch.training import NGDBTrainer, TrainConfig
 
     kg = generate_synthetic_kg(50, 4, 300, seed=0)
     model = make_model("gqe", ModelConfig(dim=8), device="cpu")
     # materialized_rows came with slice 5: it now builds the trainer's cache.
     assert NGDBTrainer(model, kg, TrainConfig(materialized_rows=8)).mat_cache.budget_rows == 8
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        NGDBTrainer(model, kg, TrainConfig(metrics_path="m.jsonl"))
+    # metrics_path came with slice 6: it now writes one step record a step.
+    path = tmp_path / "m.jsonl"
+    tr = NGDBTrainer(model, kg, TrainConfig(batch_size=8, n_negatives=2, b_max=32,
+                                            patterns=("1p", "2p"), prefetch=0,
+                                            metrics_path=str(path)))
+    tr.train(2, log_every=0)
+    assert [(r["kind"], r["mode"], r["step"]) for r in read_jsonl(str(path))] == [
+        ("step", "sync", 1), ("step", "sync", 2)]
     with pytest.raises(NotImplementedError, match="slice 9"):
         NGDBTrainer(model, kg, TrainConfig(), ctx=object())
 
