@@ -120,7 +120,9 @@ non-zero (printing no result) on any failed check:
    after it (``scoring`` launches equal its eval batches). Its launches are
    added to the training entries of the kernels line.
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   main path gave it most often, launches of phase 7 included; ``scoring`` has one entry for each path
+   main path gave it most often, launches of phases 7 to 9 included, each
+   kernel at its own launch geometry (the process tuner is empty again);
+   ``scoring`` has one entry for each path
    that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
    GQE's ``evaluate``), ``gather_fuse`` one for each semantic serving
    layout and one for training, ``intersect`` one for serving and one for
@@ -177,7 +179,32 @@ non-zero (printing no result) on any failed check:
    off), and the device ms under each span name of a sync BetaE step and a
    GQE micro-batch under ``torch.profiler`` (the span names must be among
    its annotations).
-9. The last line: ``{"ok": true, "device": {...}}``.
+9. Autotuning (runs after 8, before the kernels line of 6), at
+   ``ModelConfig()`` width on phase 4's graph as phase 8 generated it. (a) A
+   fresh ``KernelTuner`` with a cache file (``iters`` 3, ``warmup`` 1, the
+   reference's defaults) sweeps ``tune_for_model``'s buckets for BetaE and
+   GQE+H_sem at ``TrainConfig()``'s batch and b_max (``intersect`` at k = 2
+   and 3 over pools 8 to 512, ``scoring`` at 512 × 14,951, ``gather_fuse`` at
+   the 512-row EMBED bucket) and serving's shapes (``scoring`` at 16 × 14,951
+   and the 4,096-row chunk; ``gather_fuse`` at 128 rows, the chunk and
+   n = E), one line a bucket: the kernel's own choice and the tuned one with
+   their µs, the candidates and the rejects. Gates: no candidate rejected
+   (each bitwise the default), every tuned time at most its default's, every
+   entry keyed by the card's name; a second tuner on the file loads every
+   entry and sweeps nothing; an empty tuner's lookup under 2 µs a launch.
+   Each bucket tuned away from the default has every candidate timed again
+   by the kernels line's protocol (printed). (b) BetaE and GQE+H_sem
+   (resident) pooled sync training under the tuned policy on phase 5's
+   batches: the losses within 1e-4 of phase 5's untuned run (whether bitwise
+   printed), then a second pass over the same batches with launches equal
+   to the plans' ops and no schedule or encode signature miss; ``pad_waste``
+   under the policy beside pow2 padding's. (c) ``launch.train --autotune
+   --autotune-cache F`` (BetaE, 3 steps) sweeps only the buckets F lacks;
+   ``launch.serve --autotune-cache F`` (GQE+H_sem, phase 4b's store behind a
+   hot set of every row) loads F and sweeps nothing. (d) Tuned against
+   untuned pooled BetaE steps/s in ten alternating pairs (printed, not
+   gated).
+10. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1958,8 +1985,12 @@ def main() -> None:
           f"line | phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # ------------------------------------------------ 8. telemetry on the card
-    phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budget,
-           sem_dir, pipelined_losses)
+    kg0 = phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budget,
+                 sem_dir, pipelined_losses)
+
+    # --------------------------------------------- 9. autotuning on the card
+    phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store, sem_dir,
+           sync_runs, attn_calls, fuse_calls)
 
     # ------------------------------------------------- 6. the kernels line
     entries = []
@@ -2436,6 +2467,326 @@ def phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budg
         main_path[key] = (k_n + n, counter)
     print(f"telemetry: launches {dict(added)} added to the kernels line | phase 8 in "
           f"{time.perf_counter() - t8:.1f} s")
+    return kg0
+
+
+def phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store, sem_dir,
+           sync_runs, attn_calls, fuse_calls) -> None:
+    """Autotuning on the card (module docstring, 9): sweeps at full width
+    into a cache file, pooled training under the tuned policy, the CLIs with
+    the file, and tuned against untuned steps/s. The process tuner is empty
+    again afterwards, so the kernels line times the kernels' own choices.
+    Launches of (b)-(d) are added to ``main_path``."""
+    import contextlib
+    import io
+
+    from repro_torch.core.compiler import compile_batch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.timing import flush_buffer, intersect_inputs, time_ms
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import make_model
+    from repro_torch.training import NGDBTrainer
+
+    t9 = time.perf_counter()
+    others = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    print(f"phase 9: threads besides the main one (they share its GIL while it times): "
+          f"{others or 'none'}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    atexit.register(shutil.rmtree, str(work), ignore_errors=True)
+    path = str(work / "tiles.json")
+    kind = torch.cuda.get_device_name(dev)
+    counted = ("intersect", "intersect_backward", "gather_fuse", "gather_fuse_backward",
+               "scoring")
+    added = collections.Counter()   # main-path key -> phase 9 launches
+    empty = at.KernelTuner()
+    prev = at.set_tuner(empty)
+
+    def counts() -> dict:
+        return {name: getattr(kops, name).launches for name in counted}
+
+    def zero() -> None:
+        for name in counted:
+            getattr(kops, name).launches = 0
+
+    # (a) Sweeps at full width into a fresh cache file: the reference's
+    # tune_for_model buckets for BetaE and GQE+H_sem at TrainConfig()'s batch
+    # and b_max, and serving's scoring and gather_fuse shapes.
+    dim, dl, dp = cfg.dim, sem_cfg.semantic_dim, sem_cfg.semantic_proj_dim
+    E = FB15K[0]
+    models = {"betae": make_model("betae", cfg, device=dev),
+              "gqe+H_sem": make_model("gqe", sem_cfg, device=dev)}
+    extra = [("scoring", at.scoring_bucket(16, E, dim)),
+             ("scoring", at.scoring_bucket(16, CHUNK, dim)),
+             ("gather_fuse", at.gather_fuse_bucket(128, dim, dl, dp)),
+             ("gather_fuse", at.gather_fuse_bucket(CHUNK, dim, dl, dp)),
+             ("gather_fuse", at.gather_fuse_bucket(E, dim, dl, dp))]
+
+    def tune_all(tuner) -> int:
+        n = sum(at.tune_for_model(m, tuner, b_max=tcfg.b_max, batch=tcfg.batch_size,
+                                  n_entities=E, device=dev) for m in models.values())
+        before = int(tuner.sweeps)
+        for op, bucket in extra:
+            tuner.tune(op, bucket, device=dev)
+        return n + int(tuner.sweeps) - before
+
+    tuner = at.KernelTuner(path=path)   # iters 3, warmup 1: the reference's defaults
+    t0 = time.perf_counter()
+    n_sweeps = tune_all(tuner)
+    sweep_s = time.perf_counter() - t0
+    entries = tuner.entries()
+    knob = {"scoring": "tile", "intersect": "rows", "gather_fuse": "rows"}
+    tuned = 0
+    for key, e in sorted(entries.items(), key=lambda kv: (kv[1]["op"], kv[1]["bucket"])):
+        name = knob[e["op"]]
+        c = e["config"][name]
+        tuned += c != 0
+        print(f"phase 9 (a) {e['op']} {'x'.join(map(str, e['bucket']))} {e['dtype']}: "
+              f"default {name}={e['default']} {e['default_us']:.2f} us | tuned "
+              f"{name}={c or e['default']}{' (the default)' if c == 0 else ''} "
+              f"{e['us']:.2f} us ({e['us'] / e['default_us']:.3f}x) | "
+              f"{e['n_candidates']} candidates, {e['n_rejected']} rejected")
+        if e["n_rejected"]:
+            fail(f"phase 9 (a) {key}: {e['n_rejected']} candidates not bitwise the default")
+        if e["us"] > e["default_us"]:
+            # A sanity check: the margin rule admits a challenger only below
+            # the default's time, so this holds by construction.
+            fail(f"phase 9 (a) {key}: tuned {e['us']} us above the default's "
+                 f"{e['default_us']} us")
+        if not key.endswith("|" + kind) or e["device"] != kind:
+            fail(f"phase 9 (a) {key}: not keyed by the card's name {kind!r}")
+    if int(tuner.verify_rejects) or n_sweeps != len(entries):
+        fail(f"phase 9 (a): {tuner.stats()} after {n_sweeps} sweeps")
+    # Each bucket tuned away from the default, every candidate timed again by
+    # the kernels line's protocol (median of 25, L2 flushed before each run)
+    # on the sweep's inputs, and for intersect on BetaE-like ones too: the
+    # sweep's min of 3 checked (printed, not gated).
+    flush = flush_buffer(dev)
+    gen = torch.Generator(device=dev).manual_seed(90)
+    for key, e in entries.items():
+        name, bucket = knob[e["op"]], tuple(e["bucket"])
+        if e["config"][name] == 0:
+            continue
+        inputs = {"sweep": at.make_runner(e["op"], bucket, e["dtype"], dev)}
+        if e["op"] == "intersect":
+            inputs["BetaE-like"] = (inputs["sweep"][0],
+                                    intersect_inputs(*bucket, torch.float32, gen))
+        for label, (run, args) in inputs.items():
+            ms = {c[name]: time_ms(lambda: run(c, *args), flush)  # noqa: B023
+                  for c in at.candidates(e["op"], bucket, e["default"])}
+            print(f"phase 9 (a) {key}, {label} inputs, median of 25 a candidate: "
+                  + ", ".join(f"{name}={v or e['default']}{' (default)' if v == 0 else ''} "
+                              f"{t * 1e3:.2f} us" for v, t in ms.items()))
+    del flush
+    again = at.KernelTuner(path=path)
+    if again.load_error or len(again) != len(entries):
+        fail(f"phase 9 (a): a second tuner loaded {len(again)} of {len(entries)} entries "
+             f"({again.load_error})")
+    if tune_all(again) or int(again.sweeps):
+        fail(f"phase 9 (a): a second tuner on the file swept again: {again.stats()}")
+    probe = torch.empty(1, device=dev)
+    lookup_ns = {}
+    for label, t in (("empty", empty), ("tuned", tuner)):
+        at.set_tuner(t)
+        n = 200_000
+        t1 = time.perf_counter()
+        for _ in range(n):
+            at.tuned_config("intersect", (64, 2, 2 * dim, dim * cfg.hidden_mult), probe)
+        lookup_ns[label] = (time.perf_counter() - t1) / n * 1e9
+    if lookup_ns["empty"] > 2000:
+        fail(f"phase 9 (a): an empty tuner's lookup costs {lookup_ns['empty']:.0f} ns a "
+             f"launch (gate 2 us)")
+    print(f"phase 9 (a): {n_sweeps} sweeps in {sweep_s:.1f} s ({tuned} of {len(entries)} "
+          f"buckets tuned away from the kernel's own choice), every candidate bitwise the "
+          f"default, every entry keyed by {kind!r}; a second tuner loaded all "
+          f"{len(again)} from the file and swept nothing | a launch's lookup: "
+          f"{lookup_ns['empty']:.1f} ns with an empty tuner (gate 2,000), "
+          f"{lookup_ns['tuned']:.1f} ns with a hit (mean over {n} calls)")
+
+    # (b) Pooled sync training on phase 5's batches, on phase 4's graph as
+    # phase 8 generated it afresh: under the tuned policy, and under a planted
+    # one whose entries are not the kernels' own choices, so that forced
+    # geometries and kernel-aware padding run on the main path whatever the
+    # sweep found (8 pool rows a row group at every BetaE intersect bucket;
+    # the other gather_fuse kernel at the b_max EMBED bucket).
+    sd = models["betae"].state_dim
+    embed_bucket = list(at.gather_fuse_bucket(tcfg.b_max, dim, dl, dp))
+    plant = {}
+    for key, e in entries.items():
+        if e["op"] == "intersect" and e["bucket"][2] == sd:
+            plant[key] = dict(e, config={"rows": 8})
+        elif e["op"] == "gather_fuse" and e["bucket"] == embed_bucket:
+            plant[key] = dict(e, config={"rows": 64 if e["default"] == 128 else 128})
+    planted_path = str(work / "planted.json")
+    with open(planted_path, "w") as f:
+        json.dump({"version": at.CACHE_VERSION, "entries": plant}, f)
+    planted = at.KernelTuner(path=planted_path)
+    if (planted.load_error or len(planted) != len(plant)
+            or {e["op"] for e in plant.values()} != {"intersect", "gather_fuse"}):
+        fail(f"phase 9 (b): the planted tuner holds {len(planted)} of {len(plant)} entries "
+             f"({planted.load_error})")
+    table = np.concatenate([rows for _, rows in store.iter_shards()])
+    runs = {}
+    for tname, tn in (("tuned", tuner), ("planted", planted)):
+        at.set_tuner(tn)
+        for label, family, mcfg, key in (("betae", "betae", cfg, ("betae", "pooled")),
+                                         ("gqe+H_sem", "gqe", sem_cfg,
+                                          ("gqe+semantic [resident]", "pooled"))):
+            sem = {"semantic_table": table} if family == "gqe" else {}
+            trainer = NGDBTrainer(make_model(family, mcfg, device=dev), kg0, tcfg, **sem)
+            policy = trainer.executor.tile_policy
+            losses = [r["loss"] for r in trainer.train(len(batches), log_every=0,
+                                                       batches=batches)]
+            want = sync_runs[key][0]
+            if not np.isfinite(losses).all():
+                fail(f"phase 9 (b) {tname} {label}: a loss is not finite: {losses}")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+            if len(losses) != len(want) or rel > 1e-4:
+                fail(f"phase 9 (b) {tname} {label}: losses {rel:.3g} relative from phase "
+                     f"5's untuned run (rtol 1e-4)")
+            # The same batches again: every plan and closure is cached now.
+            trainer.executor.reset_cache_counters()
+            zero()
+            hits = int(tn.lookup_hits)
+            trainer.train(len(batches), log_every=0, batches=batches)
+            torch.cuda.synchronize()
+            hits = int(tn.lookup_hits) - hits
+            launched = counts()
+            misses = {k: int(c["misses"]) for k, c in trainer.executor.cache_stats().items()}
+            real = padded = padded_pow2 = 0
+            want_l = collections.Counter()
+            for b in batches:
+                qs = [x.query for x in b]
+                plan = trainer.executor.prepare(qs)
+                pow2 = compile_batch(qs, model_name=trainer.model.name, b_max=tcfg.b_max,
+                                     cse=tcfg.cse)
+                real += sum(st.n for st in plan.sched.steps)
+                padded += sum(st.padded_n for st in plan.sched.steps)
+                padded_pow2 += sum(st.padded_n for st in pow2.sched.steps)
+                if family == "betae":
+                    want_l["intersect"] += len(attn_calls(trainer.executor, qs))
+                else:
+                    embeds, loss_calls = fuse_calls(trainer.executor, qs)
+                    want_l["gather_fuse"] += len(embeds) + len(loss_calls)
+            fwd, bwd = (("intersect", "intersect_backward") if family == "betae"
+                        else ("gather_fuse", "gather_fuse_backward"))
+            if ((launched[fwd], launched[bwd]) != (want_l[fwd], want_l[fwd])
+                    or any(misses.values())):
+                fail(f"phase 9 (b) {tname} {label}: launches {launched} for {want_l[fwd]} "
+                     f"ops in the plans; signature misses after warm-up {misses}")
+            if tname == "planted" and (policy is None or padded >= padded_pow2 or not hits):
+                fail(f"phase 9 (b) planted {label}: policy {policy!r}, {padded} padded rows "
+                     f"against {padded_pow2} pow2, {hits} lookups served by a planted entry")
+            key_f = "intersect[training]" if family == "betae" else "gather_fuse[training]"
+            added[key_f] += launched[fwd]
+            added[bwd] += launched[bwd]
+            waste, waste_pow2 = 1 - real / padded, 1 - real / padded_pow2
+            if tname == "tuned":
+                runs[label] = trainer
+            print(f"phase 9 (b) {tname} {label}: policy {policy!r}"
+                  f"{' ' + str(dict(policy.key())) if policy else ''} | pad_waste "
+                  f"{waste:.4f} under it, {waste_pow2:.4f} with pow2 padding ({real} real "
+                  f"rows, {padded} padded, {padded_pow2} pow2) over {len(batches)} plans | "
+                  f"{len(losses)} losses "
+                  f"{'bitwise' if losses == want else f'{rel:.3g} relative from'} phase 5's "
+                  f"untuned run | a second pass on the same batches: launches "
+                  f"{launched[fwd]} + {launched[bwd]} backward = the plans' {want_l[fwd]} "
+                  f"ops, {hits} lookups served by a tuner entry, signature misses {misses}")
+    del table
+
+    # (c) The CLIs with the file, in this process so the counts see them.
+    def run(label: str, fn, argv) -> str:
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn(argv)
+        except Exception as e:
+            print(buf.getvalue())
+            fail(f"phase 9 (c) {label}: the CLI raised {e!r}")
+        out = buf.getvalue()
+        print(f"phase 9 (c) {label}: python -m {fn.__module__} {' '.join(argv)} "
+              f"({time.perf_counter() - t1:.1f} s)")
+        for line in out.splitlines():
+            if line.startswith(("autotune:", "trained", "eval:", "qps", "executor caches")):
+                print(f"  | {line}")
+        return out
+
+    n_file = len(tuner)
+    zero()
+    out = run("train", train_cli.main,
+              ["--model", "betae", "--dim", str(dim), "--steps", "3",
+               "--batch-size", str(tcfg.batch_size), "--negatives", str(tcfg.n_negatives),
+               "--lr", str(tcfg.adam.lr), "--eval-queries", "64", "--log-every", "0",
+               "--autotune", "--autotune-cache", path])
+    launched = counts()
+    cli_tuner = at.get_tuner()
+    n_cli = cli_tuner.stats()["sweeps"]
+    # (a) swept every bucket this run's model, graph, batch and b_max hit.
+    if ("autotune: 0 sweeps" not in out or cli_tuner.path != path or n_cli
+            or len(cli_tuner) != n_file or cli_tuner.stats()["loads"] != 1):
+        fail(f"phase 9 (c) train: {cli_tuner.stats()} for a file of {n_file} entries")
+    if not launched["intersect"] or not launched["intersect_backward"]:
+        fail(f"phase 9 (c) train: launches {launched}")
+    added["intersect[training]"] += launched["intersect"]
+    added["intersect_backward"] += launched["intersect_backward"]
+    zero()
+    out = run("serve", serve_cli.main,
+              ["--model", "gqe", "--semantic-store", sem_dir, "--semantic-budget-rows",
+               str(E), "--requests", "64", "--autotune-cache", path])
+    launched = counts()
+    served = at.get_tuner().stats()
+    if (f"autotune: {n_file} tuned configs loaded from {path}" not in out
+            or served["sweeps"] or served["load_error"]):
+        fail(f"phase 9 (c) serve: {served}")
+    if not launched["gather_fuse"] or not launched["scoring"]:
+        fail(f"phase 9 (c) serve: launches {launched}")
+    added["gather_fuse[out-of-core]"] += launched["gather_fuse"]
+    added["scoring[l1][out-of-core]"] += launched["scoring"]
+    print(f"phase 9 (c): the training CLI found all its buckets in the file and swept "
+          f"nothing; serving loaded all {n_file} and swept nothing | launches {launched}")
+
+    # (d) Tuned against untuned pooled BetaE steps/s: ten alternating pairs of
+    # passes of the same cached batches through two warmed trainers, each
+    # pass under its own process tuner (not gated).
+    tuned_tr = runs["betae"]
+    at.set_tuner(empty)
+    plain_tr = NGDBTrainer(make_model("betae", cfg, device=dev), kg0, tcfg)
+    if plain_tr.executor.tile_policy is not None:
+        fail("phase 9 (d): an empty tuner gave a policy")
+    zero()
+    plain_tr.train(len(batches), log_every=0, batches=batches)
+    steps, ratios = 4, []
+    for trial in range(10):
+        rate = {}
+        for name in (("tuned", "untuned") if trial % 2 == 0 else ("untuned", "tuned")):
+            at.set_tuner(tuner if name == "tuned" else empty)
+            tr = tuned_tr if name == "tuned" else plain_tr
+            part = batches[(trial * steps) % (len(batches) - steps):][:steps]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.train(steps, log_every=0, batches=part)
+            torch.cuda.synchronize()
+            rate[name] = steps / (time.perf_counter() - t1)
+        ratios.append(rate["tuned"] / rate["untuned"])
+    launched = counts()
+    added["intersect[training]"] += launched["intersect"]
+    added["intersect_backward"] += launched["intersect_backward"]
+    print(f"phase 9 (d) tuned/untuned pooled BetaE steps/s, {steps}-step passes in 10 "
+          f"alternating pairs: {' '.join(f'{r:.4f}' for r in ratios)} | median "
+          f"{statistics.median(ratios):.4f} (not gated)")
+    at.set_tuner(prev)
+    del runs, tuned_tr, plain_tr, models
+    torch.cuda.empty_cache()
+
+    unknown = set(added) - set(main_path)
+    if unknown:
+        fail(f"phase 9: launches for keys the kernels line does not have: {sorted(unknown)}")
+    for key, n in added.items():
+        k_n, counter = main_path[key]
+        main_path[key] = (k_n + n, counter)
+    print(f"autotuning: launches {dict(added)} added to the kernels line | phase 9 in "
+          f"{time.perf_counter() - t9:.1f} s")
 
 
 if __name__ == "__main__":

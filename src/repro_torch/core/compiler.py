@@ -284,6 +284,7 @@ def compile_batch(
     cse: bool = True,
     sched_cache=None,
     plan_cache: Optional[PlanCache] = None,
+    tile_policy=None,
     graph_version: int = -1,
 ) -> CompiledPlan:
     """Compile one query batch into a ``CompiledPlan``.
@@ -295,12 +296,20 @@ def compile_batch(
     whose exact query-key tuple was compiled before returns its plan with
     zero host work beyond building the key tuple.
 
+    ``tile_policy`` (``autotune.PoolTilePolicy`` or None) switches pool
+    padding to the kernel-aware rule (see ``scheduler.bucket_size``). Its
+    ``key()`` is folded into BOTH cache keys: two executors holding
+    different tunings never alias a schedule, so the signature universe
+    stays closed per policy and steady-state signature misses stay at zero.
+
     ``graph_version`` (the KG's monotonic write counter; -1 = not pinned)
     enters ``cfg_key`` — the PLAN-cache key only, never the schedule-cache
     key — so a version-pinned query can never replay a plan admitted under
     a different graph state, while schedules (pure topology) still hit
     across writes and signature misses stay at zero through a write burst."""
-    cfg_key = (model_name, b_max, reuse_slots, policy, cse, graph_version)
+    tile_key = tile_policy.key() if tile_policy is not None else ()
+    cfg_key = (model_name, b_max, reuse_slots, policy, cse, tile_key,
+               graph_version)
     exact_key = None
     if plan_cache is not None:
         exact_key = (tuple(q.key() for q in queries), cfg_key)
@@ -331,20 +340,21 @@ def compile_batch(
         patterns = list(plan.patterns)
         report = SharingReport(nodes_before=plan.nodes_before,
                                nodes_after=n)
-        key = ("cse",) + plan.topology_key() + (b_max, reuse_slots, policy)
+        key = ("cse",) + plan.topology_key() + (b_max, reuse_slots, policy,
+                                                tile_key)
         lower = lambda: plan_to_dag(plan)  # noqa: E731
     else:
         dag = build_batched_dag(qs)
         rel, anchor, patterns = dag.rel, dag.anchor, dag.patterns
         report = SharingReport(nodes_before=dag.n_nodes,
                                nodes_after=dag.n_nodes)
-        key = dag.structure_key() + (b_max, reuse_slots, policy)
+        key = dag.structure_key() + (b_max, reuse_slots, policy, tile_key)
         lower = lambda: dag  # noqa: E731
 
     cached = sched_cache.get(key) if sched_cache is not None else None
     if cached is None:
         sched = schedule(lower(), b_max=b_max, reuse_slots=reuse_slots,
-                         policy=policy)
+                         policy=policy, tile_policy=tile_policy)
         trash = sched.padded_slots
         meta = tuple(s.signature() for s in sched.steps)
         slot_arrays = [

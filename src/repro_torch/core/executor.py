@@ -35,22 +35,34 @@ from repro_torch.core.ops import OpType
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.core.plan import CompiledPlan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.autotune import pool_tile_policy
 from repro_torch.obs.registry import get_registry
 
 
 class PooledExecutor:
     """Operator-level batching engine (the paper's contribution 1), on
-    ``device`` (``cuda`` unless given)."""
+    ``device`` (``cuda`` unless given).
+
+    ``tile_policy`` makes pool padding kernel-aware (``kernels/autotune.py``
+    ``PoolTilePolicy``, or None for pow2 padding). "auto" snapshots a policy
+    from the process tuner AT CONSTRUCTION for this executor's device: the
+    policy (and its cache-key contribution) is then fixed for the
+    executor's lifetime, so its signature universe stays closed. With an
+    untuned tuner the snapshot is None, and every plan is what it was
+    without a tuner."""
 
     def __init__(self, model, b_max: int = 512, reuse_slots: bool = True,
                  policy: str = "max_fillness", cse: bool = True, cache_size: int = 128,
-                 device=None, mat_cache=None):
+                 device=None, mat_cache=None, tile_policy="auto"):
         self.model = model
         self.b_max = b_max
         self.reuse_slots = reuse_slots
         self.policy = policy
         self.cse = cse
         self.device = resolve_device(device)
+        if tile_policy == "auto":
+            tile_policy = pool_tile_policy(model, b_max=b_max, device=self.device)
+        self.tile_policy = tile_policy
         self._sched_cache = CompileCache(cache_size, name="schedule")
         self._encode_cache = CompileCache(cache_size, name="encode")
         # Cross-batch plan cache: persists compiled plans across prepare()
@@ -94,8 +106,8 @@ class PooledExecutor:
         plan = compile_batch(
             queries, model_name=self.model.name, b_max=self.b_max,
             reuse_slots=self.reuse_slots, policy=self.policy, cse=self.cse,
-            sched_cache=self._sched_cache,
-            plan_cache=self._plan_cache, graph_version=graph_version)
+            sched_cache=self._sched_cache, plan_cache=self._plan_cache,
+            tile_policy=self.tile_policy, graph_version=graph_version)
         with self._stats_lock:
             self._nodes_before += plan.report.nodes_before
             self._nodes_after += plan.report.nodes_after

@@ -25,19 +25,32 @@ from repro_torch.core.querydag import BatchedDAG
 PoolKey = Tuple[int, int]
 
 
-def bucket_size(n: int, b_max: int) -> int:
+def bucket_size(n: int, b_max: int, tile: int = 1) -> int:
     """Pad pool sizes to powers of two (capped at b_max) so the set of
     schedule signatures — and hence encode closures — stays bounded. The cap
     applies to the PADDED size too: with a non-pow2 b_max, a pool of n ≤
     b_max rows whose next power of two exceeds b_max pads to b_max exactly
     (padded_n ≥ n always holds because the scheduler never forms a pool
-    larger than b_max)."""
+    larger than b_max).
+
+    ``tile > 1`` is the kernel-aware rule (``kernels/autotune.py``): pad to
+    the smallest multiple of the tuned row tile instead of the bare power of
+    two. The tile is clamped to the pow2 bucket first, so the kernel-aware
+    pad never exceeds the pow2 pad (n = 288 with a 64-row tile pads to 320,
+    not 512) while the padded size stays a whole number of the kernel's row
+    tiles. Signatures stay bounded: padded sizes live on the finite
+    multiples-of-tile ladder up to b_max, and the tile policy is part of
+    every schedule cache key."""
     if n >= b_max:
         return b_max
     p = 1
     while p < n:
         p <<= 1
-    return min(p, b_max)
+    p = min(p, b_max)
+    if tile <= 1:
+        return p
+    t = min(int(tile), p)
+    return min(-(-n // t) * t, b_max)
 
 
 @dataclasses.dataclass
@@ -76,6 +89,18 @@ class ExecutionSchedule:
     def padded_slots(self) -> int:
         return bucket_size(self.n_slots, 1 << 30)
 
+    @property
+    def stats(self) -> Dict[str, float]:
+        ns = [s.n for s in self.steps]
+        return {
+            "steps": len(self.steps),
+            "nodes": self.n_nodes,
+            "peak_slots": self.n_slots,
+            "slot_reuse_ratio": self.n_nodes / max(self.n_slots, 1),
+            "mean_pool_fill": float(np.mean(ns)) if ns else 0.0,
+            "pad_waste": 1.0 - sum(ns) / max(sum(s.padded_n for s in self.steps), 1),
+        }
+
 
 class _SlotAllocator:
     """Free-list allocator implementing Eq. 7 as liveness analysis."""
@@ -102,11 +127,17 @@ def schedule(
     b_max: int = 512,
     reuse_slots: bool = True,
     policy: str = "max_fillness",
+    tile_policy=None,
 ) -> ExecutionSchedule:
     """Algorithm 1. ``policy`` ∈ {max_fillness, fifo} — fifo is the ablation
     baseline (executes pools in discovery order regardless of fill).
-    ``reuse_slots=False`` never frees a slot (no Eq. 7 reclamation). Pools
-    pad to powers of two (``bucket_size``)."""
+    ``reuse_slots=False`` never frees a slot (no Eq. 7 reclamation).
+
+    ``tile_policy`` (duck-typed: ``.tile(op, cardinality, n) -> int``, e.g.
+    ``autotune.PoolTilePolicy``) makes pool padding kernel-aware: each pool
+    pads to the smallest multiple of the tuned row tile for its
+    (op, cardinality) class instead of the bare power of two
+    (``bucket_size``). ``None`` keeps pow2 padding (tile 1)."""
     n = dag.n_nodes
     indeg = np.array([len(inp) for inp in dag.inputs], dtype=np.int64)
     refcount = dag.n_consumers.copy()
@@ -163,7 +194,10 @@ def schedule(
                 out_slots=out_slots,
                 rel_ids=np.where(dag.rel[batch_arr] >= 0, dag.rel[batch_arr], 0),
                 anchor_ids=np.where(dag.anchor[batch_arr] >= 0, dag.anchor[batch_arr], 0),
-                padded_n=bucket_size(len(batch), b_max),
+                padded_n=bucket_size(
+                    len(batch), b_max,
+                    tile_policy.tile(int(op), card, len(batch))
+                    if tile_policy is not None else 1),
             )
         )
 

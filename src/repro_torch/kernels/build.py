@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
             lib.repro_scoring_tile.restype = i
             lib.repro_scoring_aligned.argtypes = [p, i, i]
             lib.repro_scoring_aligned.restype = i
-            lib.repro_intersect_fused.argtypes = [p] * 8 + [i] * 5 + [p]
+            lib.repro_intersect_fused.argtypes = [p] * 8 + [i] * 6 + [p]
             lib.repro_intersect_fused.restype = i
             lib.repro_intersect_backward.argtypes = [p] * 13 + [i] * 4 + [p]
             lib.repro_intersect_backward.restype = i
@@ -118,11 +118,15 @@ def load_library() -> ctypes.CDLL:
             lib.repro_intersect_backward_scratch.restype = ctypes.c_longlong
             lib.repro_intersect_backward_groups.argtypes = [i, i]
             lib.repro_intersect_backward_groups.restype = i
-            lib.repro_intersect_groups.argtypes = [i, i]
+            lib.repro_intersect_groups.argtypes = [i, i, i]
             lib.repro_intersect_groups.restype = i
+            lib.repro_intersect_group_rows.argtypes = [i, i]
+            lib.repro_intersect_group_rows.restype = i
             ll = ctypes.c_longlong
-            lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
+            lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, i, p]
             lib.repro_gather_fuse.restype = i
+            lib.repro_gather_fuse_rows.argtypes = [i]
+            lib.repro_gather_fuse_rows.restype = i
             lib.repro_gather_fuse_backward.argtypes = [p] * 19 + [i, ll, ll, i, i, i, p]
             lib.repro_gather_fuse_backward.restype = i
             lib.repro_gather_fuse_backward_scratch.argtypes = [i, i, i, i]

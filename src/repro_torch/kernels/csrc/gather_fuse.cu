@@ -53,7 +53,8 @@
 //    projection (consumer c sums half c of dl) and consumer 0 fuses the
 //    pass, so that a block's chain of slices is shorter and more SMs take
 //    part.
-// One launch a call either way. Given a zp buffer (training saves it for
+// One launch a call either way; the launch may also name the kernel (the
+// autotuner's knob, kernels/autotune.py). Given a zp buffer (training saves it for
 // the backward), each block also writes its rows' zp there from shared
 // memory (in the split kernel, the blocks of column pass 0); out's bits do
 // not change, and with a null zp nothing is written.
@@ -868,19 +869,32 @@ int device_info(int dev, DeviceInfo* info) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
-int launch(Args a, cudaStream_t stream) {
+int current_info(DeviceInfo* info) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  return device_info<T>(dev, info);
+}
+
+// The kernel's own choice for n rows: where BM-row tiles alone would fill
+// the card, two tiles a block share one stream of weight slices (BROWS rows
+// a block); otherwise a block's two consumers split one tile's work (BM
+// rows), so that more SMs take part.
+int default_rows(int n, const DeviceInfo& info) { return cdiv(n, BM) > info.sms ? BROWS : BM; }
+
+// rows: BROWS (the pair kernel), BM (the split kernel), or 0 for
+// default_rows(n). A geometry that cannot launch returns its error; no
+// other is tried.
+template <typename T>
+int launch(Args a, int rows, cudaStream_t stream) {
   DeviceInfo info;
-  if (const int rc = device_info<T>(dev, &info)) return rc;
+  if (const int rc = current_info<T>(&info)) return rc;
   constexpr int EPC = 16 / sizeof(T);
   a.vec = a.d % EPC == 0 && a.dl % EPC == 0 && aligned16(a.h_str) && aligned16(a.h_sem);
-  // Where BM-row tiles alone would fill the card, two tiles a block share
-  // one stream of weight slices; otherwise a block's two consumers split
-  // one tile's work, so that more SMs take part.
-  if (cdiv(a.n, BM) > info.sms) {
+  if (rows == 0) rows = default_rows(a.n, info);
+  if (rows != BROWS && rows != BM) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == BROWS) {
     const int bytes = Layout<T>(a.dp).total;
     if (bytes > info.smem) return static_cast<int>(cudaErrorInvalidConfiguration);
     gather_fuse_kernel<T><<<cdiv(a.n, BROWS), THREADS, bytes, stream>>>(a);
@@ -898,18 +912,30 @@ int launch(Args a, cudaStream_t stream) {
 // ids, sem_ids [n] int64; h_str [n_str, d] and h_sem [n_sem, dl] of one
 // dtype (repro::DType); wp [dl, dp], bp [dp], wf [d + dp, d], bf [d] fp32;
 // zp: an [n, dp] fp32 buffer that receives z·Wp + bp of each row, or null;
-// out [n, d] in the tables' dtype. Returns the CUDA error of the launch
-// (0 = success).
+// out [n, d] in the tables' dtype; rows: 128 (two 64-row tiles a block, the
+// pair kernel), 64 (one tile and one column pass a block, the split
+// kernel), or 0 for the kernel's own choice from n (the autotuner's knob:
+// out and zp have the same bits under either). Returns the CUDA error of
+// the launch (0 = success; cudaErrorInvalidConfiguration where the chosen
+// kernel's shared memory does not fit a block).
 extern "C" int repro_gather_fuse(const long long* ids, const long long* sem_ids,
                                  const void* h_str, const void* h_sem,
                                  const float* wp, const float* bp, const float* wf,
                                  const float* bf, float* zp, void* out, int n,
                                  long long n_str, long long n_sem, int d, int dl,
-                                 int dp, int dtype, void* stream) {
+                                 int dp, int dtype, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
   const Args a{ids, sem_ids, h_str, h_sem, wp, bp, wf, bf, out, n, n_str, n_sem, d, dl, dp, 0, zp};
-  if (dtype == repro::kF32) return launch<float>(a, s);
-  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, s);
+  if (dtype == repro::kF32) return launch<float>(a, rows, s);
+  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The rows a block that the kernel takes for n rows on the current device
+// when given rows = 0 (128 or 64), or minus a CUDA error.
+extern "C" int repro_gather_fuse_rows(int n) {
+  DeviceInfo info;
+  if (const int rc = current_info<float>(&info)) return -rc;
+  return default_rows(n, info);
 }

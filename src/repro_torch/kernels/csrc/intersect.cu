@@ -14,7 +14,10 @@
 //
 // Design: one launch. W1 is cut into 64-unit hidden blocks × 8 depth
 // chunks (at d = hd = 800: 13 × 8 = 104 pieces of 25.6 KB), and the pool
-// into row groups of whole pool rows (at most RG = 64 input rows). A thread
+// into row groups of whole pool rows: group_rows(k) of them (at most RG = 64
+// input rows), or as many as the launch asks for (the autotuner's knob,
+// kernels/autotune.py; a group of more than RG input rows takes passes of
+// RG, as a pool row of k > RG inputs always does). A thread
 // block cluster of 8 blocks takes one (hidden block, row group); block c
 // loads its chunk of W1 and of the group's x with cp.async at entry (in two
 // halves, so that its FMA chain over the first runs while the second
@@ -88,7 +91,7 @@ struct Args {
   float* partial;        // [T, M] partial logits, one per (hidden tile, input row)
   unsigned* counters;    // [groups], zero between launches
   void* out;
-  int n, k, d, hd, M, T, SL, vec;
+  int n, k, d, hd, G, M, T, SL, vec;  // G: pool rows of a row group
 };
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
@@ -313,7 +316,7 @@ intersect_kernel(Args a) {
   const int c = static_cast<int>(cluster.block_rank());
   const int hb = blockIdx.x / CHUNKS, g = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = group_rows(a.k), p0 = g * G, gp = min(G, a.n - p0);
+  const int G = a.G, p0 = g * G, gp = min(G, a.n - p0);
   const int Mg = gp * a.k, m0 = p0 * a.k, Mmax = min(G, a.n) * a.k;
   const int CH = chunk_len(a.d), k0 = min(c * CH, a.d), len = min(CH, a.d - k0);
   const int j0 = hb * W, width = min(W, a.hd - j0);
@@ -453,11 +456,14 @@ struct Plan {
 };
 
 template <typename T>
-Plan plan(int n, int k, int d, int limit) {
-  const int Mmax = std::min(group_rows(k), n) * k;
+Plan plan(int n, int k, int d, int G, int limit) {
+  const long long Mmax = static_cast<long long>(std::min(G, n)) * k;
+  if (Mmax > limit / static_cast<int>(sizeof(float))) return {cdiv(n, G), 0, 0};
   int SL = chunk_len(d);
-  while (SL >= 4 && smem_layout<T>(SL, Mmax).total > static_cast<size_t>(limit)) SL -= 4;
-  return {cdiv(n, group_rows(k)), std::max(SL, 0), SL >= 4 ? smem_layout<T>(SL, Mmax).total : 0};
+  while (SL >= 4 && smem_layout<T>(SL, static_cast<int>(Mmax)).total > static_cast<size_t>(limit))
+    SL -= 4;
+  return {cdiv(n, G), std::max(SL, 0),
+          SL >= 4 ? smem_layout<T>(SL, static_cast<int>(Mmax)).total : 0};
 }
 
 bool aligned(const void* p, size_t b) { return reinterpret_cast<uintptr_t>(p) % b == 0; }
@@ -466,8 +472,8 @@ template <typename T>
 int launch(Args a, cudaStream_t stream) {
   int limit = 0;
   if (const int rc = smem_limit<T>(&limit)) return rc;
-  const Plan p = plan<T>(a.n, a.k, a.d, limit);
-  // A pool row's k logits must fit a block's shared memory, and the row
+  const Plan p = plan<T>(a.n, a.k, a.d, a.G, limit);
+  // A row group's logits must fit a block's shared memory, and the row
   // groups the grid's y.
   if (p.SL < 4 || p.groups > MAX_GRID_Y) return static_cast<int>(cudaErrorInvalidValue);
   a.M = a.n * a.k;
@@ -486,23 +492,34 @@ int launch(Args a, cudaStream_t stream) {
 // n * k] fp32 scratch (one partial logit per tile and input row).
 extern "C" int repro_intersect_tiles(int hd) { return cdiv(hd, HT); }
 
+// Pool rows of a row group: `rows`, or group_rows(k) for rows = 0 (the
+// kernel's own choice). The tuner's knob: a row's bits do not depend on it.
+extern "C" int repro_intersect_group_rows(int k, int rows) {
+  return rows > 0 ? rows : k < 1 ? 0 : group_rows(k);
+}
+
 // Row groups: the wrapper passes `counters` with at least this many uint32,
 // all zero; every launch leaves them zero. One buffer per stream.
-extern "C" int repro_intersect_groups(int n, int k) { return k < 1 ? 0 : cdiv(n, group_rows(k)); }
+extern "C" int repro_intersect_groups(int n, int k, int rows) {
+  return k < 1 || rows < 0 ? 0 : cdiv(n, repro_intersect_group_rows(k, rows));
+}
 
 // x [n, k, d] (dtype: repro::DType), w1 [d, hd], b1 [hd], w2 [hd], b2 [1]
 // (fp32), partial and counters as above, out [n, d] in x's dtype; n, k, d,
-// hd >= 1 (n = 0 launches nothing). One launch; returns its CUDA error
-// (0 = success; cudaErrorInvalidValue where a pool row's k logits do not
-// fit a block's shared memory).
+// hd >= 1 (n = 0 launches nothing); rows: pool rows of a row group, or 0
+// for group_rows(k). One launch; returns its CUDA error (0 = success;
+// cudaErrorInvalidValue where a row group's logits do not fit a block's
+// shared memory or its row groups the grid; no other geometry is tried).
 extern "C" int repro_intersect_fused(const void* x, const float* w1, const float* b1,
                                      const float* w2, const float* b2, float* partial,
                                      unsigned* counters, void* out, int n, int k, int d,
-                                     int hd, int dtype, void* stream) {
+                                     int hd, int dtype, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
-  if (n < 0 || k < 1 || d < 1 || hd < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, w1, b1, w2, b2, partial, counters, out, n, k, d, hd, 0, 0, 0, 0};
+  if (n < 0 || k < 1 || d < 1 || hd < 1 || rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x,  w1, b1, w2, b2, partial, counters, out, n, k, d, hd,
+               repro_intersect_group_rows(k, rows), 0, 0, 0, 0};
   if (dtype == repro::kF32) return launch<float>(a, s);
   if (dtype == repro::kBF16) return launch<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);

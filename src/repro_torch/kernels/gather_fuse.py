@@ -24,6 +24,13 @@ the dtype, so a row's bits do not depend on the batch it came in with: the
 resident table, the hot-set cache and a streamed chunk give the same row
 bitwise.
 
+Which of the two kernels a launch takes (128 rows a block, the pair
+kernel, or 64 rows and a column pass a block, the split kernel) is the
+autotuner's knob for it (``kernels/autotune.py``): the kernel's own choice
+from n and the SM count unless the launch names one; given none, a launch
+takes the process tuner's for its shape bucket. Out and zp have the same
+bits under either.
+
 ``gather_fuse`` dispatches on where its inputs lie: CPU tensors take the
 plain version ``gather_fuse_ref`` (and autograd through it); CUDA tensors
 launch the kernel or raise. On CUDA it is a ``torch.autograd.Function``
@@ -48,9 +55,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Rows a block of the two kernels: the pair kernel, the split kernel; 0 is
+# the kernel's own choice.
+ROWS = (128, 64)
 # Up to this many rows the backward's segment sum finds each id's rows by
 # scanning the ids (no sort launch); above it the wrapper sorts the ids.
 UNSORTED_ROWS = 4096
@@ -136,15 +146,25 @@ def _check_kernel_inputs(name, tensors, sem_ids):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor:
+def _check_rows(name, rows) -> None:
+    if rows is not None and (rows not in (0, *ROWS) or isinstance(rows, bool)):
+        raise ValueError(f"{name}: rows must be None, 0 or one of {ROWS}, got {rows!r}")
+
+
+def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None, *,
+                rows: int | None = None) -> torch.Tensor:
     """ids [n] (rows of h_str [E, d]) -> fused entity vectors [n, d] in
     h_str's dtype. h_sem is the full H_sem [E, dl] or the hot-set cache
     [budget, dl] with ``sem_ids`` its slots; wp [dl, dp], bp [dp],
-    wf [d + dp, d], bf [d]. Counts each kernel launch in
+    wf [d + dp, d], bf [d]. ``rows`` names the kernel (``ROWS``; 0 the
+    kernel's own choice; None the process tuner's config,
+    ``autotune.tuned_config``); the plain version on CPU tensors takes none,
+    but it is checked all the same. Counts each kernel launch in
     ``gather_fuse.launches``; under autograd its backward launches
     ``gather_fuse_backward`` (fp32 tables only; an h_sem that requires a
     gradient raises, H_sem being frozen)."""
     _check_shapes("gather_fuse", ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+    _check_rows("gather_fuse", rows)
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf]
     if sem_ids is not None:
         tensors.append(sem_ids)
@@ -153,23 +173,23 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None) -> torch.Tensor
     _check_kernel_inputs("gather_fuse", tensors, sem_ids)
     weights = (wp, bp, wf, bf)
     if not torch.is_grad_enabled():
-        return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+        return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, rows=rows)
     if h_sem.requires_grad:
         raise ValueError("gather_fuse: h_sem requires a gradient, but H_sem is "
                          "frozen and its backward gives it none")
     if h_str.dtype != torch.float32 and any(t.requires_grad for t in (h_str, *weights)):
         raise TypeError(f"gather_fuse: the backward takes float32 tables only, "
                         f"got {h_str.dtype} under autograd")
-    return _GatherFuse.apply(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
+    return _GatherFuse.apply(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, rows)
 
 
 class _GatherFuse(torch.autograd.Function):
     """The forward kernel, and the backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids):
+    def forward(ctx, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, rows):
         zp = torch.empty((ids.shape[0], wp.shape[-1]), dtype=torch.float32, device=ids.device)
-        out = _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp)
+        out = _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp, rows=rows)
         ctx.save_for_backward(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, out, zp)
         return out
 
@@ -180,16 +200,19 @@ class _GatherFuse(torch.autograd.Function):
             ids, h_str, h_sem, wp, bp, wf, bf, g.contiguous(), sem_ids=sem_ids, out=out,
             zp=zp)
         grads = (None, dh, None, dwp, dbp, dwf, dbf, None)
-        return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
-def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None) -> torch.Tensor:
+def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None, rows=None) -> torch.Tensor:
     """The forward kernel; given ``zp`` ([n, dp] fp32), it also stores each
-    row's z·Wp + bp there."""
+    row's z·Wp + bp there. ``rows`` as ``gather_fuse`` takes it."""
     n, d, dl, dp = ids.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[-1]
     out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
     if n == 0:
         return out
+    if rows is None:
+        rows = autotune.tuned_config("gather_fuse", (n, d, dl, dp), h_str)["rows"]
     ids64 = ids.long()
     sem64 = ids64 if sem_ids is None else sem_ids.long()
     lib = build.load_library()
@@ -198,7 +221,7 @@ def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None) -> torch.Tensor
             ids64.data_ptr(), sem64.data_ptr(), h_str.data_ptr(),
             h_sem.data_ptr(), wp.data_ptr(), bp.data_ptr(), wf.data_ptr(),
             bf.data_ptr(), None if zp is None else zp.data_ptr(), out.data_ptr(), n,
-            h_str.shape[0], h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype],
+            h_str.shape[0], h_sem.shape[0], d, dl, dp, DTYPES[h_str.dtype], rows,
             build.stream_handle(ids))
     build.check(lib, err, "gather_fuse")
     gather_fuse.launches += 1
@@ -208,13 +231,16 @@ def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None) -> torch.Tensor
 gather_fuse.launches = 0
 
 
-def gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
+def gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None, *,
+                       rows: int | None = None):
     """(``gather_fuse``'s output, zp = h_sem[sem_ids]·Wp + bp [n, dp] fp32):
     what training's forward saves for the backward. CPU tensors take the
     plain versions; CUDA tensors launch the forward kernel once (counted in
-    ``gather_fuse.launches``), which stores zp as it fuses."""
+    ``gather_fuse.launches``; ``rows`` as ``gather_fuse`` takes it), which
+    stores zp as it fuses."""
     n, _, _, dp = _check_shapes("gather_fuse_and_zp", ids, h_str, h_sem, wp, bp, wf, bf,
                                 sem_ids)
+    _check_rows("gather_fuse_and_zp", rows)
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf] + ([] if sem_ids is None else [sem_ids])
     if _on_cpu("gather_fuse_and_zp", tensors):
         dt = _compute_dtype(h_str)
@@ -223,7 +249,7 @@ def gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
                 z @ wp.to(dt) + bp.to(dt))
     _check_kernel_inputs("gather_fuse_and_zp", tensors, sem_ids)
     zp = torch.empty((n, dp), dtype=torch.float32, device=ids.device)
-    return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp), zp
+    return _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=zp, rows=rows), zp
 
 
 def gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None,

@@ -25,6 +25,11 @@ depend on the pool's size or the row's place in it. Any
 k >= 1. The TPU wrapper pads the logit head to 128 lanes; this one does not
 need to.
 
+The pool rows of a row group are the autotuner's knob for it
+(``kernels/autotune.py``): ``group_rows(k)`` unless the launch names
+another; given none, a launch takes the process tuner's for its shape
+bucket. A row's bits do not depend on it.
+
 ``intersect`` dispatches on where its inputs lie: CPU tensors take the plain
 version ``intersect_ref``; CUDA tensors launch the kernel or raise. On CUDA
 it is a ``torch.autograd.Function`` whose backward is the hand-written kernel
@@ -44,9 +49,11 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+RG = 64             # input rows of a default row group (csrc/intersect.cu)
+MAX_GROUPS = 65535  # row groups a launch takes: the grid's y
 
 _lock = threading.Lock()
 # Arrival counters per (device index, stream): the forward's, and the
@@ -89,6 +96,26 @@ def _check_shapes(x, w1, b1, w2, b2):
     return n, k, d, hd
 
 
+def group_rows(k: int) -> int:
+    """Pool rows of the kernel's own row group for k inputs a row: whole
+    rows of at most RG inputs, or one (``csrc/intersect.cu::group_rows``)."""
+    return 1 if k >= RG else RG // k
+
+
+def _check_rows(rows, n: int, k: int) -> None:
+    """``rows``: None (the tuner's), 0 (``group_rows(k)``), or the pool rows
+    of a row group, whose groups must fit the grid. The kernel refuses, and
+    nothing falls back from, a group whose logits overflow shared memory."""
+    if rows is None:
+        return
+    if not isinstance(rows, int) or isinstance(rows, bool) or rows < 0:
+        raise ValueError(f"intersect: rows must be None or an int >= 0, got {rows!r}")
+    groups = -(-n // (rows or group_rows(k)))
+    if groups > MAX_GROUPS:
+        raise ValueError(f"intersect: rows={rows} cuts {n} pool rows into {groups} "
+                         f"row groups; a launch takes at most {MAX_GROUPS}")
+
+
 def _arrival_counters(x: torch.Tensor, groups: int, table=_counters) -> torch.Tensor:
     """A kernel's per-row-group arrival counters for PyTorch's current
     stream on x's device, from ``table`` (the forward's or the backward's):
@@ -116,11 +143,15 @@ def _on_cpu(tensors) -> bool:
     return False
 
 
-def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
+def intersect(x, w1, b1, w2, b2, *, rows: int | None = None) -> torch.Tensor:
     """x [n, k, d], MLP (w1 [d, hd], b1 [hd], w2 [hd, 1], b2 [1]) -> [n, d].
-    Counts each launch of the kernel in ``intersect.launches``; under
-    autograd its backward launches ``intersect_backward``."""
-    _check_shapes(x, w1, b1, w2, b2)
+    ``rows``: the pool rows of a row group (0: ``group_rows(k)``; None: the
+    process tuner's config, ``autotune.tuned_config``); the plain version on
+    CPU tensors takes none, but it is checked all the same. Counts each
+    launch of the kernel in ``intersect.launches``; under autograd its
+    backward launches ``intersect_backward``."""
+    n, k, _, _ = _check_shapes(x, w1, b1, w2, b2)
+    _check_rows(rows, n, k)
     if _on_cpu((x, w1, b1, w2, b2)):
         return intersect_ref(x, w1, b1, w2, b2)
     if x.dtype not in DTYPES or any(p.dtype != torch.float32 for p in (w1, b1, w2, b2)):
@@ -128,38 +159,42 @@ def intersect(x, w1, b1, w2, b2) -> torch.Tensor:
                         f"MLP float32, got {x.dtype}")
     if not all(t.is_contiguous() for t in (x, w1, b1, w2, b2)):
         raise ValueError("intersect: inputs must be contiguous")
-    return _Intersect.apply(x, w1, b1, w2, b2)
+    return _Intersect.apply(x, w1, b1, w2, b2, rows)
 
 
 class _Intersect(torch.autograd.Function):
     """The forward kernel, and the backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, rows):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        return _launch(x, w1, b1, w2, b2)
+        return _launch(x, w1, b1, w2, b2, rows)
 
     @staticmethod
     def backward(ctx, g):
         grads = intersect_backward(*ctx.saved_tensors, g.contiguous())
-        return tuple(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad))
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
-def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
+def _launch(x, w1, b1, w2, b2, rows) -> torch.Tensor:
     n, k, d, hd = x.shape[0], x.shape[1], x.shape[2], w1.shape[1]
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
+    if rows is None:
+        rows = autotune.tuned_config("intersect", (n, k, d, hd), x)["rows"]
+        _check_rows(rows, n, k)
     lib = build.load_library()
     # Scratch: one partial logit per (hidden tile, input row).
     partial = torch.empty((lib.repro_intersect_tiles(hd), n * k),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        counters = _arrival_counters(x, lib.repro_intersect_groups(n, k))
+        counters = _arrival_counters(x, lib.repro_intersect_groups(n, k, rows))
         err = lib.repro_intersect_fused(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                         w2.data_ptr(), b2.data_ptr(), partial.data_ptr(),
                                         counters.data_ptr(), out.data_ptr(), n, k, d, hd,
-                                        DTYPES[x.dtype], build.stream_handle(x))
+                                        DTYPES[x.dtype], rows, build.stream_handle(x))
     build.check(lib, err, "intersect")
     intersect.launches += 1
     return out

@@ -26,13 +26,16 @@ rows are not a multiple of 16 bytes, takes the kernel's element-load variant
 gives the registers and shared memory per block.
 
 ``scoring`` dispatches on where its inputs lie: CPU tensors take the plain
-version ``scoring_ref``; CUDA tensors launch the kernel or raise.
+version ``scoring_ref``; CUDA tensors launch the kernel or raise. Its
+tiling is the autotuner's knob for it (``kernels/autotune.py``): given no
+``tile``, a launch takes the process tuner's for its shape bucket, which is
+the kernel's own choice unless a sweep found a faster one.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 MODES = {"dot": 0, "l1": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,12 +61,14 @@ def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
             mode: str = "dot", *, tile: int | None = None) -> torch.Tensor:
     """Scoring logits q [B, d] × e [N, d] -> fp32 [B, N]. Counts each kernel
     launch in ``scoring.launches``. ``tile`` forces one of the kernel's
-    tilings (``TILES``), to time both sides of its choice; None lets the
-    kernel choose from N. The scores are bitwise the same either way."""
+    tilings (``TILES``), or 0 the kernel's own choice from N; None takes the
+    process tuner's config for the shape (``autotune.tuned_config``). The
+    scores are bitwise the same either way. The plain version on CPU
+    tensors takes no tiling, but ``tile`` is checked all the same."""
     if mode not in MODES:
         raise ValueError(f"unknown scoring mode {mode!r}")
-    if tile is not None and tile not in TILES:
-        raise ValueError(f"scoring: tile must be one of {TILES} or None, got {tile!r}")
+    if tile is not None and tile not in (0, *TILES):
+        raise ValueError(f"scoring: tile must be 0, one of {TILES} or None, got {tile!r}")
     if q.dim() != 2 or e.dim() != 2 or q.shape[1] != e.shape[1]:
         raise ValueError(f"scoring: need q [B, d] and e [N, d], got "
                          f"{tuple(q.shape)} and {tuple(e.shape)}")
@@ -82,11 +87,13 @@ def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
     out = torch.empty((B, N), dtype=torch.float32, device=q.device)
     if B == 0 or N == 0:
         return out
+    if tile is None:
+        tile = autotune.tuned_config("scoring", (B, N, d), q)["tile"]
     lib = build.load_library()
     with torch.cuda.device(q.device):
         err = lib.repro_scoring_tiled(q.data_ptr(), e.data_ptr(), out.data_ptr(),
                                       B, N, d, float(gamma), MODES[mode],
-                                      DTYPES[q.dtype], tile or 0, build.stream_handle(q))
+                                      DTYPES[q.dtype], tile, build.stream_handle(q))
     build.check(lib, err, "scoring")
     scoring.launches += 1
     return out

@@ -19,10 +19,14 @@ Knobs (each reported by ``--report`` / skipped gracefully when unavailable):
 * **thread pins** — OMP/MKL/OPENBLAS thread caps so host BLAS doesn't
   oversubscribe the cores the pipeline's own thread lanes need.
 
-Everything is additive to the caller's environment: a variable the caller
-already set is NEVER overwritten (report says "kept"). The JAX package's
-launcher also sets XLA flags and JAX dtype pins, which mean nothing to
-PyTorch; ``--autotune-cache`` comes with slice 7.
+* **autotune cache** — ``--autotune-cache PATH`` sets
+  ``REPRO_TORCH_AUTOTUNE_CACHE`` for the child, which names the process
+  tuner's persisted cache (``kernels/autotune.py``).
+
+Everything else is additive to the caller's environment: a variable the
+caller already set is NEVER overwritten (report says "kept"); the explicit
+``--autotune-cache`` is set as given. The JAX package's launcher also sets
+XLA flags and JAX dtype pins, which mean nothing to PyTorch.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ TCMALLOC_CANDIDATES = (
 
 #: Sentinel guarding against the launcher re-exec'ing under itself.
 _SENTINEL = "REPRO_ENV_LAUNCHED"
+#: ``kernels/autotune.py::ENV_CACHE``, named here so that this launcher
+#: imports no torch (tests/test_torch_launch.py holds the two equal).
+AUTOTUNE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 
 
 def find_tcmalloc() -> Optional[str]:
@@ -123,6 +130,7 @@ def current_report() -> Dict[str, object]:
         "tcmalloc_found": find_tcmalloc(),
         "ld_preload": os.environ.get("LD_PRELOAD", ""),
         "omp_num_threads": os.environ.get("OMP_NUM_THREADS", ""),
+        "autotune_cache": os.environ.get(AUTOTUNE_ENV, ""),
         "launched_via_env": _SENTINEL in os.environ,
     }
 
@@ -136,7 +144,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="cap OMP/MKL/OpenBLAS threads")
     ap.add_argument("--no-tcmalloc", action="store_true")
     ap.add_argument("--autotune-cache", default=None,
-                    help="persisted kernel-tile cache (slice 7; raises here)")
+                    help=f"set {AUTOTUNE_ENV} for the child (the persisted "
+                         "kernel launch-geometry cache)")
     ap.add_argument("--report", action="store_true",
                     help="print the plan (and current-process state) and exit")
     ap.add_argument("--dry-run", action="store_true",
@@ -144,11 +153,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="command to exec (prefix with --)")
     args = ap.parse_args(argv)
-    if args.autotune_cache is not None:
-        raise NotImplementedError("--autotune-cache is not ported yet: it comes "
-                                  "with slice 7 (autotuning)")
 
     plan = build_plan(threads=args.threads, tcmalloc=not args.no_tcmalloc)
+    if args.autotune_cache:
+        plan.env[AUTOTUNE_ENV] = args.autotune_cache
+        plan.notes.append((AUTOTUNE_ENV, repr(args.autotune_cache)))
 
     if args.report:
         print(plan.report())

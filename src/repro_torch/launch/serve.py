@@ -39,7 +39,10 @@ replay, and ``--metrics PATH`` a final registry snapshot as JSONL; read both
 with ``python -m repro_torch.obs.report``. Unlike the JAX package's launcher,
 which traces the single-engine path only, the replica tier traces its timed
 pass too (the tenants' lanes, each replica's batcher, ``route`` spans).
-``--autotune-cache`` comes with slice 7 and ``--mesh`` with slice 9.
+``--autotune-cache PATH`` loads the kernel launch geometries a training
+run's ``--autotune`` kept there into the process tuner before any executor
+exists, so every executor pads its pools to them and every launch takes
+them; serving tunes nothing. ``--mesh`` comes with slice 9.
 
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two
@@ -281,6 +284,9 @@ def main(argv=None) -> None:
                     help="traffic share per tenant, e.g. "
                          "'gold=0.25,bronze=0.75' (default: equal shares); "
                          "needs --tenants")
+    ap.add_argument("--autotune-cache", default=None, metavar="PATH",
+                    help="persisted kernel launch-geometry cache to serve "
+                         "with (written by launch.train --autotune)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace-event/Perfetto JSON timeline "
                          "of the timed replay (lanes: client N or tenant T, "
@@ -341,6 +347,15 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init_params(gen, kg.n_entities, kg.n_relations,
                                semantic_cache=cache)
+    if args.autotune_cache:
+        # Before any executor exists: each snapshots its kernel-aware tile
+        # policy from the process tuner at construction.
+        from repro_torch.kernels import autotune as kat
+
+        tuner = kat.KernelTuner(path=args.autotune_cache)
+        kat.set_tuner(tuner)
+        print(f"autotune: {len(tuner)} tuned configs loaded from {tuner.path}"
+              + (f" (rejected: {tuner.load_error})" if tuner.load_error else ""))
     if tier:
         _serve_tier(args, kg, model, params, device)
         return

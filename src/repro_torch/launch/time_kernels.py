@@ -121,7 +121,11 @@ def declare_baseline(lib, kernel: str):
         lib.repro_scoring.argtypes = [p, p, p, i, i, i, f, i, i, p]
         lib.repro_scoring.restype = i
     elif kernel == "gather_fuse":
-        lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i, p]
+        # Since the autotuner the entry takes the kernel's rows before the
+        # stream (0: the kernel's own choice); ``repro_gather_fuse_rows``
+        # came with it.
+        rows = [i] if hasattr(lib, "repro_gather_fuse_rows") else []
+        lib.repro_gather_fuse.argtypes = [p] * 10 + [i, ll, ll, i, i, i, i] + rows + [p]
         lib.repro_gather_fuse.restype = i
     elif kernel == "intersect":
         lib.repro_intersect.argtypes = [p] * 7 + [i] * 5 + [p]
@@ -166,11 +170,12 @@ def baseline_gather_fuse(lib, ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None):
     sem = ids if sem_ids is None else sem_ids
     out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
     zp = torch.empty((n, wp.shape[1]), dtype=torch.float32, device=ids.device)
+    rows = [0] if hasattr(lib, "repro_gather_fuse_rows") else []
     err = lib.repro_gather_fuse(
         ids.data_ptr(), sem.data_ptr(), h_str.data_ptr(), h_sem.data_ptr(), wp.data_ptr(),
         bp.data_ptr(), wf.data_ptr(), bf.data_ptr(), zp.data_ptr(), out.data_ptr(), n,
         h_str.shape[0], h_sem.shape[0], d, h_sem.shape[1], wp.shape[1],
-        gf.DTYPES[h_str.dtype], build.stream_handle(ids))
+        gf.DTYPES[h_str.dtype], *rows, build.stream_handle(ids))
     build.check(lib, err, "baseline gather_fuse")
     return out
 

@@ -20,10 +20,17 @@ the device, staged on the scheduler thread with ``--pipeline``:
 and ``--metrics PATH`` one JSONL record a step plus a final registry
 snapshot; read both with ``python -m repro_torch.obs.report``.
 
+``--autotune`` sweeps the kernels' launch geometries for the model before
+the trainer exists (``kernels/autotune.py::tune_for_model``), and
+``--autotune-cache PATH`` keeps the winners in a file, so that a later run
+loads them and sweeps nothing:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model betae \
+        --autotune --autotune-cache tiles.json
+
 The options are the JAX package's launcher's, with ``--device`` and
 ``--reduced`` (the small CPU stand-in graph, which is the JAX package's only
-graph) added. ``--mesh``/``--profile`` come with slice 9 and
-``--autotune``/``--autotune-cache`` with slice 7; each raises
+graph) added. ``--mesh``/``--profile`` come with slice 9 and raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune as kat
 from repro_torch.models import ModelConfig, make_model, model_names
 from repro_torch.obs import TRACER, get_registry
 from repro_torch.sampling import OnlineSampler
@@ -137,18 +145,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "as JSONL, with a final registry snapshot record; "
                          "summarize with python -m repro_torch.obs.report")
     ap.add_argument("--autotune-cache", default=None, metavar="PATH",
-                    help="persisted kernel-tile autotune cache (slice 7; "
-                         "raises here)")
+                    help="persisted kernel launch-geometry cache: loaded "
+                         "into the process tuner, and written by --autotune")
     ap.add_argument("--autotune", action="store_true",
-                    help="run the tile sweep before training (slice 7; "
-                         "raises here)")
+                    help="sweep the kernels' launch geometries for the model "
+                         "before training")
     args = ap.parse_args(argv)
     if args.mesh is not None or args.profile is not None:
         raise NotImplementedError("--mesh/--profile are not ported yet: they come "
                                   "with slice 9 (distribution)")
-    if args.autotune or args.autotune_cache is not None:
-        raise NotImplementedError("--autotune/--autotune-cache are not ported yet: "
-                                  "they come with slice 7 (autotuning)")
     if args.semantic_store:
         args.semantic = True
     device = resolve_device(args.device)
@@ -195,6 +200,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cse=not args.no_cse, materialized_rows=args.materialized_rows,
         metrics_path=args.metrics,
     )
+    # Kernel autotuning must be settled BEFORE the trainer exists: the
+    # executor snapshots its kernel-aware tile policy at construction.
+    if args.autotune_cache or args.autotune:
+        tuner = (kat.KernelTuner(path=args.autotune_cache) if args.autotune_cache
+                 else kat.get_tuner())
+        if args.autotune_cache:
+            kat.set_tuner(tuner)
+        if args.autotune:
+            t0 = time.time()
+            n_sw = kat.tune_for_model(model, tuner, b_max=cfg.b_max, batch=cfg.batch_size,
+                                      n_entities=kg.n_entities, device=device)
+            print(f"autotune: {n_sw} sweeps in {time.time()-t0:.1f}s, "
+                  f"{len(tuner)} cached configs"
+                  + (f" @ {tuner.path}" if tuner.path else ""))
+        elif len(tuner):
+            print(f"autotune: {len(tuner)} tuned configs loaded"
+                  + (f" from {tuner.path}" if tuner.path else ""))
     trainer = NGDBTrainer(model, kg, cfg, semantic_table=table,
                           semantic_cache=cache)
     if trainer.resume():

@@ -520,7 +520,7 @@ def test_gather_fuse_entry_takes_a_null_zp(dev):
             ids.data_ptr(), ids.data_ptr(), h_str.data_ptr(), h_sem.data_ptr(),
             wp.data_ptr(), bp.data_ptr(), wf.data_ptr(), bf.data_ptr(),
             None if zp is None else zp.data_ptr(), out.data_ptr(), n, E, E, d, dl,
-            dp, 0, build.stream_handle(ids))
+            dp, 0, 0, build.stream_handle(ids))
         build.check(lib, err, "gather_fuse")
         outs.append(out)
     torch.cuda.synchronize()
@@ -1195,3 +1195,165 @@ def test_incremental_finetune_leaves_engine_tensors_on_gpu(dev):
         assert new[k].data_ptr() != params[k].data_ptr(), k
     assert not torch.equal(new["entity"], params["entity"])
     assert losses[-1] < losses[0]
+
+
+# ------------------------------------------------------------- autotuning
+@pytest.fixture
+def empty_tuner():
+    """A fresh, empty process tuner, the previous one restored after."""
+    from repro_torch.kernels import autotune as at
+
+    prev = at.set_tuner(at.KernelTuner())
+    yield at.get_tuner()
+    at.set_tuner(prev)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("N", [333, 4096, 14951])
+@pytest.mark.parametrize("mode", ["dot", "l1"])
+def test_scoring_every_tile_is_bitwise_the_default(dev, empty_tuner, misaligned, N, mode):
+    """Each tiling (the tuner's knob) gives the default launch's bits, on a
+    16-byte aligned table and off one (the element-load variant); an empty
+    tuner's launch is the default's, one lookup miss a launch."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((16, 400), generator=g, device=dev)
+    e = torch.randn((N, 400), generator=g, device=dev)
+    e = _misaligned(e) if misaligned else e
+    want = kops.scoring(q, e, 12.0, mode, tile=0)
+    misses = int(empty_tuner.lookup_misses)
+    assert torch.equal(kops.scoring(q, e, 12.0, mode), want)
+    assert int(empty_tuner.lookup_misses) == misses + 1
+    for tile in TILES:
+        assert torch.equal(kops.scoring(q, e, 12.0, mode, tile=tile), want), tile
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_intersect_every_row_group_is_bitwise_the_default(dev, empty_tuner, k, dtype):
+    """Every row-group size the tuner tries (powers of two up to 64 // k, and
+    group_rows(k) itself) gives the default launch's bits, at pools of 1 to
+    512 rows; the library's group_rows is the wrapper's."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.intersect import group_rows
+
+    assert build.load_library().repro_intersect_group_rows(k, 0) == group_rows(k)
+    g = torch.Generator(device=dev).manual_seed(k)
+    for n in (1, 2, 3, 7, 8, 16, 21, 31, 64, 100, 256, 300, 512):
+        x, w1, b1, w2, b2 = intersect_inputs(n, k, 800, 800, dtype, g)
+        want = kops.intersect(x, w1, b1, w2, b2, rows=0)
+        assert torch.equal(kops.intersect(x, w1, b1, w2, b2), want)
+        r = 1
+        while r <= group_rows(k):
+            got = kops.intersect(x, w1, b1, w2, b2, rows=r)
+            assert torch.equal(got, want), (n, r)
+            r *= 2
+        assert torch.equal(kops.intersect(x, w1, b1, w2, b2, rows=group_rows(k)), want)
+
+
+@pytest.mark.parametrize("layout", ["resident", "cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_fuse_pair_and_split_kernels_are_bitwise(dev, empty_tuner, layout, dtype):
+    """The pair kernel (128 rows a block) and the split kernel (64 and a
+    column pass) give the default launch's out and zp bitwise, for n = 1 to
+    E, with H_sem resident and through shuffled hot-set slots."""
+    E = 14951
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, E, 400, 1024, 64, E, dtype)
+    sem_ids = None
+    if layout == "cache":
+        slot_of = torch.randperm(E, generator=torch.Generator(device=dev).manual_seed(3),
+                                 device=dev)
+        cache = torch.empty_like(h_sem)
+        cache[slot_of] = h_sem
+        h_sem, sem_ids = cache, slot_of[ids]
+    for n in (1, 48, 64, 65, 128, 129, 1000, 4096, 8448, 8449, E):
+        args = (ids[:n], h_str, h_sem, wp, bp, wf, bf, None if sem_ids is None else sem_ids[:n])
+        want = kops.gather_fuse(*args, rows=0)
+        assert torch.equal(kops.gather_fuse(*args), want)
+        zps = []
+        for rows in (0, 128, 64):
+            assert torch.equal(kops.gather_fuse(*args, rows=rows), want), (n, rows)
+            if dtype == torch.float32:
+                out, zp = gf.gather_fuse_and_zp(*args, rows=rows)
+                assert torch.equal(out, want)
+                zps.append(zp)
+        for zp in zps[1:]:
+            assert torch.equal(zp, zps[0]), n
+
+
+def test_a_forced_geometry_that_cannot_launch_raises(dev, empty_tuner):
+    """A knob the kernel cannot launch raises; nothing falls back to
+    another geometry, and nothing is counted as launched."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    # intersect: one row group of 20,000 rows × 3 inputs: its logits overflow
+    # a block's shared memory; 65,536 groups overflow the grid.
+    x, w1, b1, w2, b2 = intersect_inputs(20000, 3, 800, 800, torch.float32, g)
+    before = kops.intersect.launches
+    with pytest.raises(RuntimeError, match="intersect kernel launch failed"):
+        kops.intersect(x, w1, b1, w2, b2, rows=20000)
+    mlp = intersect_inputs(1, 2, 8, 8, torch.float32, g)[1:]
+    with pytest.raises(ValueError, match="row groups"):
+        kops.intersect(torch.zeros((65536, 2, 8), device=dev), *mlp, rows=1)
+    assert kops.intersect.launches == before
+    # gather_fuse: the pair kernel's zp tile does not fit a block at dp = 192.
+    ids, h_str, h_sem, wp, bp, wf, bf = _fuse_inputs(dev, 300, 400, 256, 192, 300)
+    before = kops.gather_fuse.launches
+    with pytest.raises(RuntimeError, match="gather_fuse kernel launch failed"):
+        kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, rows=128)
+    assert kops.gather_fuse.launches == before
+    with pytest.raises(ValueError, match="rows"):
+        kops.gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, rows=32)
+    with pytest.raises(ValueError, match="tile"):
+        kops.scoring(h_str[:4], h_str, tile=8)
+
+
+def test_tuner_on_the_card(dev, tmp_path):
+    """A sweep on the card: every candidate bitwise the default (no
+    rejects), the tuned time at most the default's, the entry keyed and
+    stamped with the card's name; the wrapper then takes the tuned knob
+    (one lookup hit a launch), and a second tuner on the file sweeps
+    nothing."""
+    from repro_torch.kernels import autotune as at
+
+    path = str(tmp_path / "tiles.json")
+    tuner = at.KernelTuner(path=path)
+    buckets = [("intersect", at.intersect_bucket(64, 2, 800, 800)),
+               ("scoring", at.scoring_bucket(16, 4096, 400)),
+               ("gather_fuse", at.gather_fuse_bucket(128, 400, 1024, 64))]
+    for op, bucket in buckets:
+        tuner.tune(op, bucket)
+    name = torch.cuda.get_device_name(dev)
+    assert int(tuner.verify_rejects) == 0 and len(tuner) == 3
+    for key, e in tuner.entries().items():
+        assert key.endswith("|" + name) and e["device"] == name
+        assert e["us"] <= e["default_us"] and e["n_rejected"] == 0
+        assert e["default"] is not None and e["n_candidates"] >= 2
+    prev = at.set_tuner(tuner)
+    try:
+        x, w1, b1, w2, b2 = intersect_inputs(64, 2, 800, 800, torch.float32,
+                                             torch.Generator(device=dev).manual_seed(0))
+        hits = int(tuner.lookup_hits)
+        want = kops.intersect(x, w1, b1, w2, b2, rows=0)
+        assert torch.equal(kops.intersect(x, w1, b1, w2, b2), want)
+        assert int(tuner.lookup_hits) == hits + 1
+    finally:
+        at.set_tuner(prev)
+    again = at.KernelTuner(path=path)
+    for op, bucket in buckets:
+        again.tune(op, bucket)
+    assert int(again.sweeps) == 0 and len(again) == 3
+
+
+def test_empty_tuner_lookup_costs_under_2us_on_the_gpu_host(dev, empty_tuner):
+    """What a wrapper given no knob adds to a launch with an empty tuner:
+    under 2 µs a call on the GPU's host, the disabled span's gate."""
+    import time
+
+    from repro_torch.kernels import autotune as at
+
+    t = torch.empty(1, device=dev)
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        at.tuned_config("intersect", (64, 2, 800, 800), t)
+    ns = (time.perf_counter() - t0) / n * 1e9
+    assert ns < 2000, f"{ns:.0f} ns an empty-tuner lookup"

@@ -49,4 +49,5 @@ def test_module_imports_without_jax_or_reference(mod, import_report):
 def test_every_module_probed():
     assert "repro_torch.launch.serve" in MODULES
     assert "repro_torch.kernels.build" in MODULES
+    assert "repro_torch.kernels.autotune" in MODULES
     assert len(MODULES) >= 25

@@ -109,11 +109,64 @@ def test_train_cli_resumes_a_checkpoint_of_the_jax_cli(tmp_path, monkeypatch, ca
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["--mesh", "data=2"], "slice 9"), (["--profile", "fsdp"], "slice 9"),
-    (["--autotune"], "slice 7"), (["--autotune-cache", "tiles.json"], "slice 7")])
+    (["--mesh", "data=2"], "slice 9"), (["--profile", "fsdp"], "slice 9")])
 def test_train_cli_later_slices_raise(argv, slice_, capsys):
     with pytest.raises(NotImplementedError, match=slice_):
         _train(["--steps", "1"] + argv, capsys)
+
+
+@pytest.fixture
+def process_tuner():
+    """The port's process tuner, restored after a CLI replaced it."""
+    from repro_torch.kernels import autotune as kat
+
+    prev = kat.set_tuner(None)
+    yield kat
+    kat.set_tuner(prev)
+
+
+@pytest.mark.parametrize("model", ["betae", "gqe"])
+def test_train_cli_autotune_writes_the_cache_then_sweeps_nothing(model, tmp_path, capsys,
+                                                                 process_tuner):
+    """``--autotune --autotune-cache F``: the sweep runs before the trainer
+    exists and writes F; a second run loads F and runs 0 sweeps."""
+    cache = str(tmp_path / "tiles.json")
+    argv = ["--model", model, "--steps", "1", "--autotune", "--autotune-cache", cache]
+    out = _train(argv, capsys)
+    line = next(l for l in out.splitlines() if l.startswith("autotune: "))
+    n_sweeps = int(line.split()[1])
+    assert n_sweeps > 0 and f"{n_sweeps} cached configs @ {cache}" in line
+    entries = json.load(open(cache))["entries"]
+    assert len(entries) == n_sweeps and all(k.endswith("|cpu") for k in entries)
+    _eval_line(out)
+    out = _train(argv, capsys)
+    assert "autotune: 0 sweeps in" in out and f"{n_sweeps} cached configs" in out
+    assert process_tuner.get_tuner().stats()["sweeps"] == 0
+    out = _train(["--model", model, "--steps", "1", "--autotune-cache", cache], capsys)
+    assert f"autotune: {n_sweeps} tuned configs loaded from {cache}" in out
+
+
+def test_train_cli_autotune_tunes_the_scoring_bucket_of_its_graph(tmp_path, capsys,
+                                                                   process_tuner):
+    """``--autotune`` sweeps scoring at the graph's own entity count: the
+    bucket the run's scoring launches hit."""
+    from repro_torch.data import load_dataset
+
+    at = process_tuner
+    cache = str(tmp_path / "tiles.json")
+    _train(["--model", "gqe", "--steps", "1", "--autotune", "--autotune-cache", cache],
+           capsys)
+    kg = load_dataset("FB15k", reduced=True)[0]
+    entries = json.load(open(cache))["entries"]
+    scoring = {k for k, e in entries.items() if e["op"] == "scoring"}
+    assert scoring == {at.cache_key("scoring", at.scoring_bucket(16, kg.n_entities, 8),
+                                    "float32", "cpu")}
+
+
+def test_train_cli_autotune_without_a_cache_tunes_the_process_tuner(capsys, process_tuner):
+    out = _train(["--model", "betae", "--steps", "1", "--autotune"], capsys)
+    assert "autotune: " in out and " @ " not in out.split("autotune: ")[1].splitlines()[0]
+    assert len(process_tuner.get_tuner()) > 0 and process_tuner.get_tuner().path is None
 
 
 def test_train_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
@@ -166,6 +219,21 @@ def test_serve_cli_traces_the_replica_tier(tmp_path, capsys):
     assert "trace: wrote" in capsys.readouterr().out
 
 
+def test_serve_cli_loads_the_autotune_cache_and_tunes_nothing(tmp_path, capsys,
+                                                              process_tuner):
+    from repro_torch.launch.serve import main
+
+    cache = str(tmp_path / "tiles.json")
+    _train(["--model", "betae", "--steps", "1", "--autotune", "--autotune-cache", cache],
+           capsys)
+    n = len(json.load(open(cache))["entries"])
+    main(["--model", "betae", "--reduced", "--device", "cpu", "--dim", "8",
+          "--requests", "32", "--autotune-cache", cache])
+    assert f"autotune: {n} tuned configs loaded from {cache}" in capsys.readouterr().out
+    stats = process_tuner.get_tuner().stats()
+    assert stats["path"] == cache and stats["sweeps"] == 0 and stats["entries"] == n
+
+
 # -------------------------------------------------------------- launch.env
 XLA_AND_JAX = ("XLA_FLAGS", "JAX_ENABLE_X64", "JAX_DEFAULT_DTYPE_BITS",
                "TF_CPP_MIN_LOG_LEVEL")
@@ -199,7 +267,27 @@ def test_env_cli(capsys):
     assert env.main(["--threads", "2", "--dry-run", "--", "echo", "hi"]) == 0
     assert "would exec: echo hi" in capsys.readouterr().err
     assert env.main([]) == 2
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        env.main(["--autotune-cache", "tiles.json", "--report"])
     with pytest.raises(SystemExit):
         env.main(["--host-devices", "8", "--report"])   # an XLA-only option
+
+
+@pytest.mark.parametrize("base", [{}, {"REPRO_TORCH_AUTOTUNE_CACHE": "old.json"}])
+def test_env_cli_records_the_autotune_cache(base, monkeypatch, capsys):
+    """``--autotune-cache F`` sets the port's variable (the process tuner's
+    cache file) for the child, over a value the caller had, and the plan
+    records it; the reference's variable is not touched."""
+    from repro_torch.kernels.autotune import ENV_CACHE
+    from repro_torch.launch import env
+
+    assert env.AUTOTUNE_ENV == ENV_CACHE == "REPRO_TORCH_AUTOTUNE_CACHE"
+    for k, v in base.items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+    monkeypatch.setattr(env.os, "execvpe", lambda f, cmd, e: seen.update(e))
+    assert env.main(["--autotune-cache", "tiles.json", "--", "echo", "hi"]) == 0
+    assert seen[ENV_CACHE] == "tiles.json" and "REPRO_AUTOTUNE_CACHE" not in seen
+    assert f"{ENV_CACHE:<18} 'tiles.json'" in capsys.readouterr().err
+    assert env.main(["--autotune-cache", "tiles.json", "--report"]) == 0
+    out = capsys.readouterr().out
+    assert "REPRO_TORCH_AUTOTUNE_CACHE 'tiles.json'" in out
+    assert f"current: autotune_cache = {base.get(ENV_CACHE, '')!r}" in out
