@@ -204,13 +204,40 @@ non-zero (printing no result) on any failed check:
    hot set of every row) loads F and sweeps nothing. (d) Tuned against
    untuned pooled BetaE steps/s in ten alternating pairs (printed, not
    gated).
-10. The last line: ``{"ok": true, "device": {...}}``.
+10. Distribution (runs after 9, before the kernels line of 6), at
+   ``ModelConfig()`` width on phase 4's graph and phase 5's batches, the
+   ranks spawned from this script (``_phase10_rank``; any rank's failure or
+   a 300 s limit fails the run), after checking that no engine batcher or
+   prefetcher thread of phases 7-9 is alive. (b) Two gloo ranks on the one
+   card, ``data=2``, fsdp: BetaE and GQE+H_sem through a hot set, 8 steps,
+   with the entity rows padded to 14,952 as the launcher pads them to the
+   mesh: losses within 1e-3 of a single-device run of that configuration
+   here; after step 1, each rank's Adam m shards (0.1 of the gradient the
+   trainer reduced) norm-wise within the first-step tolerance (1e-4; BetaE
+   1e-3) of the single-device step's, its v shards within twice that, its
+   parameter shards within 2 lr, exact-zero gradients still rounding; each
+   rank holding half the entity rows and of their moments, both hot sets
+   bitwise equal, each rank's launches equal to its plans' ops. (c) The pair at ``data=1,
+   model=2``, 2d: entity rows split over model, the whole batch on both
+   ranks, losses within 1e-3. (f) ``compressed_psum`` on CUDA tensors
+   bitwise its formula; (g) ``gpipe_forward`` over ``pod=2`` within 1e-5 of
+   the sequential loop, its point-to-point ops staged through host tensors
+   (gloo cannot send CUDA memory; counted and printed). (a) One NCCL rank,
+   ``data=1``, fsdp: BetaE and GQE+H_sem resident, sync and pipelined,
+   losses bitwise phase 5's and 5c's; (d) (b)'s checkpoint restored there,
+   parameters, moments and step bitwise; (f) on NCCL. (e) ``torchrun
+   --nproc-per-node 1 -m repro_torch.launch.train --mesh data=1`` (BetaE,
+   3 steps). Printed, not gated: steps/s a rank, dispatch ms a step (a sum
+   above the timed steps' wall fails) and collective ms a step beside the
+   single-device ones, with the card's name and power limit.
+11. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import atexit
 import collections
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -219,6 +246,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1992,6 +2020,10 @@ def main() -> None:
     phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store, sem_dir,
            sync_runs, attn_calls, fuse_calls)
 
+    # ------------------------------------------------- 10. distribution
+    phase10(torch, dev, main_path, kg0, batches, tcfg, store, sem_dir, budget, sync_runs,
+            pipelined_losses)
+
     # ------------------------------------------------- 6. the kernels line
     entries = []
     for key, (launches, shapes) in main_path.items():
@@ -2787,6 +2819,531 @@ def phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store,
         main_path[key] = (k_n + n, counter)
     print(f"autotuning: launches {dict(added)} added to the kernels line | phase 9 in "
           f"{time.perf_counter() - t9:.1f} s")
+
+
+# ----------------------------------------------------------- 10. distribution
+PHASE10_STEPS = 8          # (b)'s steps a family on two gloo ranks, (c)'s half
+RANK_TIMEOUT_S = 300       # any rank's failure or this timeout fails the run
+
+
+def _phase10_state(tr) -> dict:
+    """``tr``'s trainable parameters and Adam moments, on the host."""
+    names = [k for k in tr.params if k not in tr.cfg.adam.frozen]
+    return {"params": {k: tr.params[k].cpu() for k in names},
+            **{part: {k: tr.opt_state[part][k].cpu() for k in names} for part in ("m", "v")}}
+
+
+def _phase10_step1_gaps(tr, path: str) -> dict:
+    """After one step of ``tr`` (a mesh rank), what the trainer's own update
+    wrote against the shards ``ctx.shard`` keeps of a single-device step's
+    state (``_phase10_state``, saved at ``path``), for each trainable name:
+    the norm-wise relative difference of the Adam ``m`` and ``v`` shards,
+    and the largest difference of the parameter shard in units of the
+    learning rate (a first Adam step moves an element by at most lr, so
+    rounding can at most flip one: 2). A name whose gradient is exactly zero
+    (the single-device ``m`` at most 1e-6 of the largest) is rounding on
+    both sides: its moments get instead the largest ``m`` of the shard over
+    that bound ("rounding", at most 1.0 to pass). The rule of
+    ``tests/torch_mesh_worker.py::step1_gaps``."""
+    import torch
+
+    ref = torch.load(path, map_location=tr.device)
+    lr = tr.cfg.adam.lr
+    top = max(float(m.abs().max()) for m in ref["m"].values())
+    out = {}
+    for k in sorted(ref["m"]):
+        out["params", k] = float((tr.params[k] - tr.ctx.shard(k, ref["params"][k])).abs().max()) / lr
+        if float(ref["m"][k].abs().max()) <= 1e-6 * top:
+            out["rounding", k] = float(tr.opt_state["m"][k].abs().max()) / (1e-6 * top)
+            continue
+        for part in ("m", "v"):
+            want = tr.ctx.shard(k, ref[part][k])
+            out[part, k] = (float((tr.opt_state[part][k] - want).norm())
+                            / max(float(want.norm()), 1e-30))
+    return out
+
+
+def _phase10_plan_calls(tr, kg, batches, n_negatives: int) -> dict:
+    """The kernel calls this rank's plans make over ``batches`` (after a run:
+    the plans are cached): BetaE's intersections and unions for ``intersect``
+    and its backward, a semantic model's EMBED ops plus one loss call a plan
+    for ``gather_fuse`` and its backward."""
+    from repro_torch.core import OpType
+    from repro_torch.data.pipeline import rank_slice
+    from repro_torch.sampling import OnlineSampler
+
+    attn = (int(OpType.INTERSECT), int(OpType.UNION))
+    calls = collections.Counter()
+    sampler = OnlineSampler(kg, seed=0)   # the queries matter here, not the negatives
+    for b in batches:
+        queries, pos, neg = sampler.to_training_arrays(b, n_negatives)
+        if tr.ctx.is_sharded:
+            queries = rank_slice(tr.ctx, queries, pos, neg)[1]
+        meta = tr.executor.prepare(queries).meta
+        n_attn = sum(1 for op, _c, _n in meta if op in attn)
+        n_fuse = sum(1 for op, _c, _n in meta if op == int(OpType.EMBED)) + 1
+        if tr.model.name == "betae":
+            calls["intersect"] += n_attn
+            calls["intersect_backward"] += n_attn
+        if tr.model.cfg.semantic_dim:
+            calls["gather_fuse"] += n_fuse
+            calls["gather_fuse_backward"] += n_fuse
+    return calls
+
+
+def _phase10_collective_ms(tr, n: int) -> float:
+    """One step's collectives alone, synchronised: the parameter gather and
+    the gradient all-reduce of a flat buffer of the trainable names' size
+    (median of 3, ms)."""
+    import torch
+
+    frozen = set(tr.cfg.adam.frozen)
+    size = sum(int(np.prod(s)) for k, s in tr.model.full_shapes.items() if k not in frozen)
+    flat = torch.zeros(size, device=tr.device)
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = tr.full_params()
+        if tr.ctx.batch_axes(n):
+            tr.ctx.reduce_batch(flat, n)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        del full
+    return statistics.median(out)
+
+
+def _phase10_train(tr, kg, batches, n_negatives: int, timed_from: int = 2,
+                   timed_to: Optional[int] = None, after_first=None) -> dict:
+    """Sync steps on ``batches`` with the kernels' counts zeroed just before
+    and read just after: the losses, launches against this rank's plans,
+    the mesh's gathered bytes a step, ``after_first(tr)`` after the first
+    step, and over ``batches[timed_from:timed_to]`` (after the warm-up,
+    which pays for the communicators' set-up) steps/s and the trainer's
+    dispatch ms a step (gather, loss, backward, all-reduce, Adam), read from
+    its ``phase_seconds{phase=dispatch}`` counter over those steps alone: a
+    sum above their wall time fails."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    names = ("intersect", "intersect_backward", "gather_fuse", "gather_fuse_backward")
+    torch.cuda.synchronize()
+    for name in names:
+        getattr(kops, name).launches = 0
+    gathered0 = tr.ctx.mesh.bytes["all_gather"] if tr.ctx.is_sharded else 0
+    timed_to = len(batches) if timed_to is None else timed_to
+    tr.train_step(batches[0])   # no forced checkpoint here, unlike train()
+    first = after_first(tr) if after_first is not None else None
+    tr.train(timed_from - 1, log_every=0, batches=batches[1:timed_from])
+    torch.cuda.synchronize()
+    dispatch0 = tr._phase_s["dispatch"].value
+    t0 = time.perf_counter()
+    for b in batches[timed_from:timed_to]:
+        tr.train_step(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dispatch = tr._phase_s["dispatch"].value - dispatch0
+    if not 0 < dispatch <= wall:
+        raise RuntimeError(f"phase 10: {dispatch:.3f} s of dispatch over timed steps of "
+                           f"{wall:.3f} s")
+    for b in batches[timed_to:]:
+        tr.train_step(b)
+    launches = {name: getattr(kops, name).launches for name in names}
+    gathered = ((tr.ctx.mesh.bytes["all_gather"] - gathered0) / len(batches)
+                if tr.ctx.is_sharded else 0)
+    return {"losses": [r["loss"] for r in tr.history], "launches": launches,
+            "want": dict(_phase10_plan_calls(tr, kg, batches, n_negatives)),
+            "steps_s": (timed_to - timed_from) / wall, "gathered_bytes": gathered,
+            "dispatch_ms": dispatch / (timed_to - timed_from) * 1e3, "first": first}
+
+
+def _phase10_psum(torch, ctx, world: int) -> dict:
+    """``compressed_psum`` of rank-seeded CUDA tensors against its formula
+    computed on this rank for every rank's inputs (bitwise)."""
+    from repro_torch.training.compression import compressed_psum, dequantize_int8, quantize_int8
+
+    def inputs(r):
+        g = np.random.default_rng(r).normal(size=4096).astype(np.float32)
+        e = np.random.default_rng(100 + r).normal(scale=0.01, size=4096).astype(np.float32)
+        return torch.from_numpy(g).to(ctx.device), torch.from_numpy(e).to(ctx.device)
+
+    g, e = inputs(ctx.mesh.rank)
+    out, err = compressed_psum(g, None, e)
+    qs = [quantize_int8(gr + er) for gr, er in map(inputs, range(world))]
+    summed = sum(q.to(torch.int32) for q, _ in qs)
+    max_scale = torch.stack([s for _, s in qs]).max()
+    want = summed.to(torch.float32) * max_scale / float(world)
+    q, s = qs[ctx.mesh.rank]
+    want_err = (g + e) - dequantize_int8(q, s)
+    return {"equal": bool(torch.equal(out, want) and torch.equal(err, want_err)),
+            "max_abs_err": float((out - want).abs().max())}
+
+
+def _phase10_rank(rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of phase 10 (spawned): on the gloo pair (b), (c), (f), (g);
+    alone on NCCL (a), (d), (f). Pickles what it saw to
+    ``work/<backend>.r<rank>.pkl``."""
+    import datetime
+    import hashlib
+    import pickle
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{work}/pg_{backend}{world}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.distributed import gpipe_forward, make_execution_context
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.semantic import SemanticCache, SemanticStore
+    from repro_torch.training import NGDBTrainer, TrainConfig
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    batches, budget = inp["batches"], inp["budget"]
+    kg = generate_synthetic_kg(*FB15K, seed=0, name="FB15k-shaped")
+    store = SemanticStore(inp["sem_dir"])
+    tcfg = TrainConfig()
+    pad = ModelConfig(entity_pad=2)
+    pad_sem = ModelConfig(semantic_dim=SEM_DIM, entity_pad=2)
+    ck = os.path.join(work, "ck")
+    out = {}
+    dev = torch.device("cuda:0")
+    if world == 2:
+        # (b) data=2, fsdp: BetaE, then GQE+H_sem through a hot set.
+        ctx = make_execution_context("data=2", profile="fsdp", device=dev, backend="gloo")
+        for label, family, mcfg, hot in (("betae", "betae", pad, False),
+                                         ("gqe+H_sem hot set", "gqe", pad_sem, True)):
+            cache = SemanticCache(store, budget, ctx=ctx) if hot else None
+            cfg = (TrainConfig(checkpoint_dir=ck, checkpoint_every=PHASE10_STEPS)
+                   if family == "betae" else tcfg)
+            tr = NGDBTrainer(make_model(family, mcfg, device=dev), kg, cfg,
+                             **({"semantic_cache": cache} if hot else {}), ctx=ctx)
+            path = os.path.join(work, f"step1_{family}.pt")
+            r = _phase10_train(tr, kg, batches[:PHASE10_STEPS], tcfg.n_negatives,
+                               timed_to=PHASE10_STEPS - 1,
+                               after_first=lambda t: _phase10_step1_gaps(t, path))
+            r["collective_ms"] = _phase10_collective_ms(tr, tcfg.batch_size)
+            r["local"] = {k: tuple(t["entity"].shape) for k, t in
+                          (("params", tr.params), ("m", tr.opt_state["m"]),
+                           ("v", tr.opt_state["v"]))}
+            r["full_rows"] = tr.model.full_shapes["entity"][0]
+            if cache is not None:
+                r["hot_set"] = (hashlib.sha256(cache.buffer.cpu().numpy().tobytes()).hexdigest(),
+                                hashlib.sha256(cache.slot_map.cpu().numpy().tobytes()).hexdigest())
+            out[label] = r
+            del tr, cache
+            torch.cuda.empty_cache()
+        out["staged_b"] = ctx.mesh.staged
+        # (c) data=1, model=2, 2d: the entity rows over model, the whole
+        # batch on both ranks.
+        ctx_c = make_execution_context("data=1,model=2", profile="2d", device=dev,
+                                       backend="gloo")
+        tr = NGDBTrainer(make_model("betae", pad, device=dev), kg, tcfg, ctx=ctx_c)
+        r = _phase10_train(tr, kg, batches[:PHASE10_STEPS // 2], tcfg.n_negatives)
+        r["local_rows"] = tuple(tr.params["entity"].shape)
+        r["rows"] = len(ctx_c.batch_rows(tcfg.batch_size))
+        out["c"] = r
+        del tr
+        torch.cuda.empty_cache()
+        out["psum"] = _phase10_psum(torch, ctx, world)
+        # (g) gpipe over pod=2 against the sequential loop.
+        pp = make_execution_context("pod=2,data=1", device=dev, backend="gloo")
+        rng = np.random.default_rng(3)
+        w = torch.from_numpy(rng.normal(size=(2, 256, 256)).astype(np.float32) / 16).to(dev)
+        bias = torch.from_numpy(rng.normal(size=(2, 256)).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.normal(size=(8, 32, 256)).astype(np.float32)).to(dev)
+
+        def stage(p, h):
+            return torch.tanh(h @ p["w"] + p["b"])
+
+        y = gpipe_forward(stage, {"w": w, "b": bias}, x, pp.mesh)
+        want = torch.stack([stage({"w": w[1], "b": bias[1]}, stage({"w": w[0], "b": bias[0]}, xm))
+                            for xm in x])
+        out["gpipe"] = {"max_abs_err": float((y - want).abs().max()), "staged": pp.mesh.staged,
+                        "ok": bool(torch.allclose(y, want, rtol=1e-5, atol=1e-5))}
+    else:
+        # (a) NCCL at world 1, data=1, fsdp: phase 5's and 5c's runs.
+        ctx = make_execution_context("data=1", profile="fsdp", device=dev)
+        table = np.concatenate([rows for _, rows in store.iter_shards()])
+        for label, family, mcfg, sem in (("betae", "betae", ModelConfig(), {}),
+                                         ("gqe+semantic [resident]", "gqe",
+                                          ModelConfig(semantic_dim=SEM_DIM),
+                                          {"semantic_table": table})):
+            for pipeline in (False, True):
+                tr = NGDBTrainer(make_model(family, mcfg, device=dev), kg,
+                                 TrainConfig(pipeline=pipeline), **sem, ctx=ctx)
+                names = ("intersect", "intersect_backward", "gather_fuse",
+                         "gather_fuse_backward")
+                if pipeline:
+                    for name in names:
+                        getattr(kops, name).launches = 0
+                    losses = [h["loss"] for h in tr.train(len(batches), log_every=0,
+                                                          batches=batches)]
+                    ph = tr.step_phases
+                    r = {"losses": losses,
+                         "steps_s": (len(ph) - TRAIN_WARMUP) / (ph[-1]["t_retired"]
+                                                                - ph[TRAIN_WARMUP - 1]["t_retired"]),
+                         "launches": {n: getattr(kops, n).launches for n in names}}
+                else:
+                    r = _phase10_train(tr, kg, batches, tcfg.n_negatives)
+                    r["collective_ms"] = _phase10_collective_ms(tr, tcfg.batch_size)
+                    # The same run single-device in this process, for its
+                    # steps/s and dispatch ms.
+                    del tr
+                    tr = NGDBTrainer(make_model(family, mcfg, device=dev), kg, tcfg, **sem)
+                    r["single"] = _phase10_train(tr, kg, batches, tcfg.n_negatives)
+                out[label, pipeline] = r
+                del tr
+                torch.cuda.empty_cache()
+        del table
+        # (d) (b)'s checkpoint restored here.
+        tr = NGDBTrainer(make_model("betae", pad, device=dev), kg,
+                         TrainConfig(checkpoint_dir=ck), ctx=ctx)
+        resumed = tr.resume()
+        step, arrays, _ = load_checkpoint(ck)
+        same = all(np.array_equal(v.cpu().numpy(), arrays[f"params/{k}"])
+                   for k, v in tr.params.items())
+        same_opt = all(np.array_equal(v.cpu().numpy(), arrays[f"opt/{part}/{k}"])
+                       for part in ("m", "v") for k, v in tr.opt_state[part].items())
+        out["d"] = {"resumed": resumed, "step": (tr.step, step,
+                                                 int(tr.opt_state["step"]),
+                                                 int(arrays["opt/step"])),
+                    "params": same, "moments": same_opt}
+        out["psum"] = _phase10_psum(torch, ctx, world)
+    out["counts"] = ctx.mesh.stats()
+    with open(os.path.join(work, f"{backend}{world}.r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _phase10_spawn(world: int, backend: str, work: str) -> list:
+    """Spawn ``world`` ranks of ``_phase10_rank`` and wait for them (each
+    rank's failure, or the time limit, fails the run); their results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    pc = mp.start_processes(_phase10_rank, args=(world, backend, work), nprocs=world,
+                            join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not pc.join(timeout=1):
+            if time.monotonic() > deadline:
+                fail(f"phase 10: the {world}-rank {backend} spawn ran past "
+                     f"{RANK_TIMEOUT_S} s")
+    except mp.ProcessException as e:
+        fail(f"phase 10: a {backend} rank failed: {e}")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"{backend}{world}.r{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase10(torch, dev, main_path, kg0, batches, tcfg, store, sem_dir, budget, sync_runs,
+            pipelined_losses) -> None:
+    """Distribution on the card (module docstring, 10). Launches of the
+    ranks' training runs are added to ``main_path``."""
+    import pickle
+
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.semantic import SemanticCache
+    from repro_torch.training import NGDBTrainer
+
+    t10 = time.perf_counter()
+    others = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    leaked = [n for n in others if n.endswith("(_run)") or n.endswith("-batcher")]
+    if leaked:
+        fail(f"phase 10: threads of earlier phases are still alive: {leaked}")
+    print(f"phase 10: threads besides the main one: {others or 'none'}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+        pickle.dump({"batches": batches, "budget": budget, "sem_dir": sem_dir}, f)
+    # Single-device baselines of (b) and (c) on the card: the launcher pads
+    # the entity rows to the mesh size, so (b)'s tables draw 14,952 rows,
+    # not phase 5's 14,951.
+    base = {}
+    for label, family, mcfg, hot in (("betae", "betae", ModelConfig(entity_pad=2), False),
+                                     ("gqe+H_sem hot set", "gqe",
+                                      ModelConfig(semantic_dim=SEM_DIM, entity_pad=2), True)):
+        cache = SemanticCache(store, budget, device=dev) if hot else None
+        tr = NGDBTrainer(make_model(family, mcfg, device=dev), kg0, tcfg,
+                         **({"semantic_cache": cache} if hot else {}))
+        path = os.path.join(work, f"step1_{family}.pt")
+        r = _phase10_train(tr, kg0, batches[:PHASE10_STEPS], tcfg.n_negatives,
+                           timed_to=PHASE10_STEPS - 1,
+                           after_first=lambda t: torch.save(_phase10_state(t), path))
+        base[label] = (r["losses"], r["steps_s"], tr.model)
+        del tr, cache
+    torch.cuda.empty_cache()
+
+    # (b), (c), (f), (g): two gloo ranks on the one card.
+    t0 = time.perf_counter()
+    gloo = _phase10_spawn(2, "gloo", work)
+    gloo_s = time.perf_counter() - t0
+    added = collections.Counter()
+    for label in ("betae", "gqe+H_sem hot set"):
+        want_l, base_sps, model = base[label]
+        rs = [o[label] for o in gloo]
+        if rs[0]["losses"] != rs[1]["losses"]:
+            fail(f"phase 10 (b) {label}: the ranks' losses differ: {rs[0]['losses']} "
+                 f"{rs[1]['losses']}")
+        # What the trainer's update wrote after step 1 (m is 0.1 of the
+        # reduced gradient, v 1e-3 of its square) against the single-device
+        # step's, on each rank.
+        tol = 1e-3 if label == "betae" else 1e-4
+        limits = {"m": tol, "v": 2 * tol, "params": 2.001, "rounding": 1.0}
+        worst = {}
+        for r, o in enumerate(rs):
+            for (part, k), g in o["first"].items():
+                if not g <= limits[part]:
+                    fail(f"phase 10 (b) {label}: after step 1, rank {r}'s {part} of {k} lies "
+                         f"{g:.3g} from the single-device step's (gate {limits[part]})")
+                worst[part] = max(worst.get(part, (0.0, "")), (g, k))
+        gap = max(abs(a - b) for a, b in zip(rs[0]["losses"], want_l))
+        if not np.isfinite(rs[0]["losses"]).all() or gap > 1e-3:
+            fail(f"phase 10 (b) {label}: losses {rs[0]['losses']} against the single-device "
+                 f"run's {want_l} (gap {gap:.3g}, gate 1e-3)")
+        half = rs[0]["full_rows"] // 2
+        for r, o in enumerate(rs):
+            if set(o["local"].values()) != {(half, model.cfg.dim)}:
+                fail(f"phase 10 (b) {label}: rank {r} holds {o['local']} of "
+                     f"{rs[0]['full_rows']} entity rows")
+            if o["launches"] != {k: o["want"].get(k, 0) for k in o["launches"]}:
+                fail(f"phase 10 (b) {label}: rank {r} launched {o['launches']}, its plans "
+                     f"call for {o['want']}")
+            for k, n in o["launches"].items():
+                added[k] += n
+        if label != "betae" and rs[0]["hot_set"] != rs[1]["hot_set"]:
+            fail(f"phase 10 (b) {label}: the ranks' hot sets differ")
+        print(f"phase 10 (b) {label} [gloo, 2 ranks on one card, data=2, fsdp]: "
+              f"{PHASE10_STEPS} steps, losses within {gap:.3g} of the single-device run "
+              f"(gate 1e-3), the ranks bitwise equal; after step 1 the furthest Adam m "
+              f"{worst['m'][1]} at {worst['m'][0]:.3g} of its norm (gate {tol}), v "
+              f"{worst['v'][1]} at {worst['v'][0]:.3g} (gate {2 * tol}), parameters "
+              f"{worst['params'][1]} at {worst['params'][0]:.3g} lr (gate 2.001)"
+              + (f", exact-zero gradients {sorted({k for (p, k) in rs[0]['first'] if p == 'rounding'})} "
+                 f"at most {worst['rounding'][0]:.3g} of the rounding bound"
+                 if "rounding" in worst else "")
+              + f"; entity table and moments "
+              f"{rs[0]['local']['params']} a rank of {rs[0]['full_rows']} rows; launches "
+              f"{[o['launches'] for o in rs]} = the local plans' ops"
+              + (" ; hot sets bitwise equal" if label != "betae" else "")
+              + f" | steps/s a rank {rs[0]['steps_s']:.3f} (single-device {base_sps:.3f}), "
+              f"dispatch ms a step {rs[0]['dispatch_ms']:.3f}, "
+              f"collective ms a step {rs[0]['collective_ms']:.3f}, gathered "
+              f"{rs[0]['gathered_bytes'] / 1e6:.2f} MB a step a rank | {card}")
+    c = [o["c"] for o in gloo]
+    want_c = base["betae"][0][:len(c[0]["losses"])]
+    gap = max(abs(a - b) for a, b in zip(c[0]["losses"], want_c))
+    if (c[0]["losses"] != c[1]["losses"] or gap > 1e-3
+            or any(o["local_rows"] != (base["betae"][2].full_shapes["entity"][0] // 2,
+                                       ModelConfig().dim) or o["rows"] != tcfg.batch_size
+                   for o in c)):
+        fail(f"phase 10 (c): {c}")
+    for o in c:
+        for k, n in o["launches"].items():
+            added[k] += n
+    print(f"phase 10 (c) betae [gloo, data=1, model=2, 2d]: {len(c[0]['losses'])} steps, "
+          f"entity rows {c[0]['local_rows']} a rank, every rank on the whole batch of "
+          f"{c[0]['rows']}, losses within {gap:.3g} of the single-device run (gate 1e-3)")
+    if not all(o["psum"]["equal"] for o in gloo):
+        fail(f"phase 10 (f) gloo: compressed_psum is not its formula: {[o['psum'] for o in gloo]}")
+    g = [o["gpipe"] for o in gloo]
+    if not all(x["ok"] for x in g):
+        fail(f"phase 10 (g): gpipe_forward against the sequential loop: {g}")
+    print(f"phase 10 (f) gloo: compressed_psum on 2 ranks bitwise its formula | (g) "
+          f"gpipe_forward over pod=2, 8 microbatches: max abs err {g[0]['max_abs_err']:.3g} "
+          f"against the sequential loop (gate 1e-5) | gloo host staging: "
+          f"{[x['staged'] for x in g]} point-to-point ops a rank in (g) staged through host "
+          f"tensors (gloo's send/recv cannot read CUDA memory), "
+          f"{[o['staged_b'] for o in gloo]} in (b) | two ranks in {gloo_s:.1f} s")
+
+    # (a), (d), (f): one rank on NCCL.
+    t0 = time.perf_counter()
+    (nccl,) = _phase10_spawn(1, "nccl", work)
+    nccl_s = time.perf_counter() - t0
+    for label, want in (("betae", (sync_runs["betae", "pooled"][0], pipelined_losses["betae"])),
+                        ("gqe+semantic [resident]",
+                         (sync_runs["gqe+semantic [resident]", "pooled"][0],) * 2)):
+        for pipeline in (False, True):
+            r = nccl[label, pipeline]
+            if r["losses"] != want[pipeline]:
+                fail(f"phase 10 (a) {label} [{'pipelined' if pipeline else 'sync'}]: losses "
+                     f"{r['losses']} are not phase 5's {want[pipeline]} bitwise")
+            for k, n in r["launches"].items():
+                added[k] += n
+        sync = nccl[label, False]
+        if sync["launches"] != {k: sync["want"].get(k, 0) for k in sync["launches"]}:
+            fail(f"phase 10 (a) {label}: launches {sync['launches']}, plans {sync['want']}")
+        base_sps = TRAIN_STEPS / sync_runs[label, "pooled"][1]
+        one = sync["single"]
+        print(f"phase 10 (a) {label} [NCCL, world 1, data=1, fsdp]: sync and pipelined "
+              f"{len(sync['losses'])} losses bitwise phase 5's and 5c's | steps/s sync "
+              f"{sync['steps_s']:.3f}, pipelined {nccl[label, True]['steps_s']:.3f} against "
+              f"phase 5's single-device {base_sps:.3f} and {one['steps_s']:.3f} single-device "
+              f"in the rank's process; dispatch ms a step {sync['dispatch_ms']:.3f} "
+              f"(single-device {one['dispatch_ms']:.3f}); collective ms a step "
+              f"{sync['collective_ms']:.3f}, gathered {sync['gathered_bytes'] / 1e6:.2f} MB "
+              f"a step | {card}")
+    d = nccl["d"]
+    if not (d["resumed"] and len(set(d["step"])) == 1 and d["step"][0] == PHASE10_STEPS
+            and d["params"] and d["moments"]):
+        fail(f"phase 10 (d): (b)'s checkpoint restored at world 1: {d}")
+    if not nccl["psum"]["equal"]:
+        fail(f"phase 10 (f) nccl: compressed_psum is not its formula: {nccl['psum']}")
+    print(f"phase 10 (d): (b)'s 2-rank checkpoint (step {d['step'][0]}) restored on NCCL at "
+          f"world 1: parameters, moments and step bitwise | (f) nccl: compressed_psum bitwise "
+          f"its formula | NCCL staged {nccl['counts']['staged']} | one rank in {nccl_s:.1f} s")
+
+    # (e) The training CLI under torchrun.
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", "-m", "repro_torch.launch.train", "--mesh", "data=1", "--profile", "fsdp",
+            "--model", "betae", "--dim", str(ModelConfig().dim), "--steps", "3",
+            "--batch-size", str(tcfg.batch_size), "--negatives", str(tcfg.n_negatives),
+            "--lr", str(tcfg.adam.lr), "--eval-queries", "64", "--log-every", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+                          cwd=work, env={**os.environ, "PYTHONPATH": str(SRC)})
+    lines = proc.stdout.splitlines()
+    if (proc.returncode != 0
+            or "execution context: mesh(data=1, model=1) profile=fsdp (1 devices, dp=1)"
+            not in lines or sum(l.startswith("step ") for l in lines) != 3
+            or not any(l.startswith("eval: ") for l in lines)):
+        fail(f"phase 10 (e): torchrun rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    print(f"phase 10 (e): {' '.join(argv[1:])} ({time.perf_counter() - t0:.1f} s)")
+    for line in lines:
+        if line.startswith(("execution context", "entity table", "step ", "trained", "eval")):
+            print(f"  | {line[:300]}")
+
+    for name, key in (("intersect", "intersect[training]"),
+                      ("intersect_backward", "intersect_backward"),
+                      ("gather_fuse", "gather_fuse[training]"),
+                      ("gather_fuse_backward", "gather_fuse_backward")):
+        if added[name]:
+            n, counter = main_path[key]
+            main_path[key] = (n + added[name], counter)
+    print(f"distribution: launches {dict(added)} of the ranks added to the kernels line | "
+          f"phase 10 in {time.perf_counter() - t10:.1f} s")
 
 
 if __name__ == "__main__":

@@ -35,6 +35,7 @@ from repro_torch.core.ops import OpType
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.core.plan import CompiledPlan
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import ExecutionContext
 from repro_torch.kernels.autotune import pool_tile_policy
 from repro_torch.obs.registry import get_registry
 
@@ -49,11 +50,23 @@ class PooledExecutor:
     policy (and its cache-key contribution) is then fixed for the
     executor's lifetime, so its signature universe stays closed. With an
     untuned tuner the snapshot is None, and every plan is what it was
-    without a tuner."""
+    without a tuner.
+
+    ``ctx`` (a ``distributed.context.ExecutionContext``) is held for the
+    trainer; under a mesh the executor runs on the rank's device (unless
+    ``device`` names one) and each rank compiles the plan of its own slice
+    of a batch's queries (``ctx.batch_rows``). The JAX package rounds the
+    workspace up to a multiple of the DP size under a mesh
+    (``src/repro/core/executor.py:159-170``) only so that GSPMD's batch
+    constraint divides it; a per-rank plan has no such constraint, so the
+    workspace is the single-device one."""
 
     def __init__(self, model, b_max: int = 512, reuse_slots: bool = True,
                  policy: str = "max_fillness", cse: bool = True, cache_size: int = 128,
-                 device=None, mat_cache=None, tile_policy="auto"):
+                 device=None, mat_cache=None, tile_policy="auto", ctx=None):
+        self.ctx = ctx or ExecutionContext.single_device()
+        if device is None:
+            device = self.ctx.device
         self.model = model
         self.b_max = b_max
         self.reuse_slots = reuse_slots
@@ -246,12 +259,20 @@ class QueryLevelExecutor:
     reuse and no CSE); the per-pattern-group fragmentation lives in
     ``encode`` and the trainer's query-level step."""
 
-    def __init__(self, model, b_max: int = 512, device=None):
+    def __init__(self, model, b_max: int = 512, device=None, ctx=None):
         self.model = model
         # cse=False: the baseline frameworks never share work across queries
         # — leaving CSE on would quietly hand the baseline the paper's win.
         self._inner = PooledExecutor(model, b_max=b_max, reuse_slots=True,
-                                     policy="fifo", cse=False, device=device)
+                                     policy="fifo", cse=False, device=device, ctx=ctx)
+
+    @property
+    def ctx(self):
+        return self._inner.ctx
+
+    @property
+    def device(self):
+        return self._inner.device
 
     def prepare(self, queries: Sequence[QueryInstance]) -> CompiledPlan:
         """Schedule one (single-pattern) group — callers group first."""

@@ -51,12 +51,6 @@ if TYPE_CHECKING:
     from repro_torch.sampling.online import OnlineSampler, SampledQuery
 
 
-def _no_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("a mesh ctx is not ported yet: it comes with "
-                                  "slice 9 (distribution)")
-
-
 class BatchPrefetcher:
     """``workers`` sampling threads, each with its own RNG stream, filling a
     queue of ``depth`` raw batches. ``close()`` stops and joins them."""
@@ -165,13 +159,30 @@ def batch_entity_ids(queries, pos: np.ndarray, neg: np.ndarray) -> np.ndarray:
         + [np.asarray(pos).ravel(), np.asarray(neg).ravel()])
 
 
+def rank_slice(ctx, queries, pos: np.ndarray, neg: np.ndarray) -> tuple:
+    """This rank's share of a global batch under a mesh ``ctx``: ``(rows,
+    queries, pos, neg, order)`` — its rows (``ctx.batch_rows``), their
+    queries, positives and negatives, and the global batch's canonical
+    order (the order a single-device plan of the whole batch puts its
+    queries in, which the trainer gathers per-query losses into).
+    Single-device: every row, and no order (the plan's own is it)."""
+    if not ctx.is_sharded:
+        return np.arange(len(queries)), queries, pos, neg, None
+    rows = ctx.batch_rows(len(queries))
+    order = np.asarray(sorted(range(len(queries)), key=lambda i: queries[i].key()),
+                       dtype=np.int64)
+    return rows, [queries[i] for i in rows], pos[rows], neg[rows], order
+
+
 @dataclasses.dataclass
 class PreparedWorkItem:
     """One fully host-scheduled training step, ready for dispatch.
 
     ``pos``/``neg`` are already permuted into the plan's canonical
     (pattern-sorted) order, and ``steps``/``ans``/``pos``/``neg`` already lie
-    on the executor's device. On CUDA they were copied on the scheduler
+    on the executor's device. Under a mesh the plan and tensors are this
+    rank's ``rows`` of the global batch, ``n_queries`` counts the global
+    batch, and ``patterns`` follow its canonical order ``global_order``. On CUDA they were copied on the scheduler
     thread's side stream: ``event`` marks the copies' end, ``buffers`` are
     the device buffers they wrote (the views above point into them), and
     ``host`` the pinned buffers they read, kept for the item's life. Call
@@ -184,6 +195,8 @@ class PreparedWorkItem:
     neg: torch.Tensor           # [B, K] negatives, canonical order
     patterns: List[str]         # canonical order, for adaptive sampling
     n_queries: int
+    rows: Optional[np.ndarray] = None          # mesh: this rank's rows
+    global_order: Optional[np.ndarray] = None  # mesh: the batch's canonical order
     sem_stage: object = None    # semantic.store.SemStage planned on the
     #                             scheduler thread; the main thread applies
     #                             it right before this item's dispatch
@@ -239,9 +252,14 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
     never consumes those rows.
 
     ``stream``: on a CUDA executor, the side stream every copy goes on
-    (required there; module docstring). ``ctx`` (a mesh) comes with slice 9.
+    (required there; module docstring).
+
+    ``ctx`` (a mesh ``ExecutionContext``): every rank draws the negatives of
+    the whole global batch (the same on every rank, from the same sampler
+    seed), stages the global batch's entity ids into its replicated hot set,
+    and compiles the plan of its own rows only (``rank_slice``). No
+    collective runs here: this is the scheduler thread.
     """
-    _no_ctx(ctx)
     device = executor.device
     if device.type == "cuda" and stream is None:
         raise ValueError("prepare_work_item on CUDA needs the side stream it "
@@ -262,6 +280,11 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
     if mat_cache is not None:
         mat_version = mat_cache.version
         mat_hits = mat_cache.probe([q.key() for q in queries], version=mat_version)
+    n_global, patterns, rows, global_order = len(queries), None, None, None
+    if ctx is not None and ctx.is_sharded:
+        rows, local, pos, neg, global_order = rank_slice(ctx, queries, pos, neg)
+        patterns = [queries[i].pattern for i in global_order]
+        queries = local
     t0 = time.perf_counter()
     with TRACER.span("schedule", n=len(queries)):
         prepared = executor.prepare(queries)
@@ -304,8 +327,10 @@ def prepare_work_item(sampler, executor, batch, n_negatives: int,
         ans=ans,
         pos=pos_dev,
         neg=neg_dev,
-        patterns=prepared.patterns,
-        n_queries=len(queries),
+        patterns=prepared.patterns if patterns is None else patterns,
+        n_queries=n_global,
+        rows=rows,
+        global_order=global_order,
         sem_stage=sem_stage,
         mat_hits=mat_hits,
         mat_version=mat_version,
@@ -340,6 +365,9 @@ class PreparedBatchPrefetcher:
     (``sample``). An error in the thread surfaces on ``next()`` as
     ``RuntimeError("prepared-batch prefetcher failed")``; ``close()`` returns
     within 5 s.
+
+    ``ctx`` (a mesh): each item is this rank's slice of the global batch
+    (``prepare_work_item(ctx=)``); the thread issues no collective.
     """
 
     def __init__(
@@ -355,7 +383,7 @@ class PreparedBatchPrefetcher:
         ctx=None,
         mat_cache=None,
     ):
-        _no_ctx(ctx)
+        self.ctx = ctx
         self.sampler = sampler
         self.executor = executor
         self.n_negatives = n_negatives
@@ -370,7 +398,7 @@ class PreparedBatchPrefetcher:
         if batch_fn is None:
             self._batches = BatchPrefetcher(sampler, batch_size, depth=depth,
                                             workers=workers)
-            self._next_batch = self._batches.next
+            self._next_batch = self._sampled
         else:
             self._next_batch = batch_fn
         # Device copies of the static slot arrays, by structure key. LRU so
@@ -384,6 +412,16 @@ class PreparedBatchPrefetcher:
                          "transfer")}
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+
+    def _sampled(self) -> Optional[List[SampledQuery]]:
+        """The sampling workers' next batch, waited for in short slices so
+        that ``close()`` ends this thread promptly (None once it has)."""
+        while not self._stop.is_set():
+            try:
+                return self._batches.next(timeout=0.25)
+            except queue.Empty:
+                continue
+        return None
 
     def _run(self) -> None:
         TRACER.set_lane("pipeline scheduler")
@@ -402,11 +440,13 @@ class PreparedBatchPrefetcher:
                 # own lanes carry the sampling spans).
                 with TRACER.span("sample"):
                     batch = self._next_batch()
+                if batch is None:
+                    return
                 sample_s = time.perf_counter() - t0
                 item = prepare_work_item(self.sampler, self.executor, batch,
                                          self.n_negatives, self._dev_static,
                                          sem_cache=self.sem_cache,
-                                         stream=self.stream,
+                                         ctx=self.ctx, stream=self.stream,
                                          mat_cache=self.mat_cache)
                 item.phases["sample_s"] = sample_s
                 # This thread's CPU time for the item: with the main thread's

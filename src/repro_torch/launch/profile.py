@@ -230,7 +230,7 @@ def profile_training(family: str, mode: str, kg, device, store=None,
             for group in ex.prepare_groups(queries)[0].values():
                 ex.prepare(group)
             t2 = time.perf_counter()
-            trainer._query_level_step(queries, pos, neg)   # its plans are cached now
+            trainer._query_level_step(queries, pos, neg, len(queries))   # plans cached
         t3 = time.perf_counter()
         phases.append((ts - t0, t2 - t1, t3 - t2, t1 - ts))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

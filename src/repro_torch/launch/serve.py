@@ -42,7 +42,8 @@ pass too (the tenants' lanes, each replica's batcher, ``route`` spans).
 ``--autotune-cache PATH`` loads the kernel launch geometries a training
 run's ``--autotune`` kept there into the process tuner before any executor
 exists, so every executor pads its pools to them and every launch takes
-them; serving tunes nothing. ``--mesh`` comes with slice 9.
+them; serving tunes nothing. ``--mesh`` (serving under a mesh) comes with
+slice 9b.
 
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two

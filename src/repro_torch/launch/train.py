@@ -28,22 +28,37 @@ loads them and sweeps nothing:
     PYTHONPATH=src python -m repro_torch.launch.train --model betae \
         --autotune --autotune-cache tiles.json
 
+``--mesh data=N[,model=M]`` shards the run over one process a device
+(``distributed/context.py``), under ``torchrun``, which gives each process
+its rank; the default group is initialised from its environment (NCCL on the
+card, gloo with ``--device cpu``), and ``--profile`` picks the rules:
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh data=1 \
+        --profile fsdp --model betae --steps 3
+
+Entity rows are padded to a multiple of the mesh size. Rank 0 alone prints
+and writes checkpoints; each rank writes its own ``--trace`` and
+``--metrics`` file, the rank before the suffix (``m.rank1.jsonl``).
+
 The options are the JAX package's launcher's, with ``--device`` and
 ``--reduced`` (the small CPU stand-in graph, which is the JAX package's only
-graph) added. ``--mesh``/``--profile`` come with slice 9 and raise
-``NotImplementedError`` here.
+graph) added.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed import (ExecutionContext, init_process_group_from_env,
+                                     make_execution_context)
 from repro_torch.kernels import autotune as kat
 from repro_torch.models import ModelConfig, make_model, model_names
 from repro_torch.obs import TRACER, get_registry
@@ -124,9 +139,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--max-inflight", type=int, default=2,
                     help="pipelined dispatch window (2 = double-buffered)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="mesh-shard the run (slice 9; raises here)")
-    ap.add_argument("--profile", default=None, choices=["2d", "fsdp"],
-                    help="sharding profile for --mesh (slice 9; raises here)")
+                    help="mesh-shard the run: data=N[,model=M][,pod=P], one "
+                         "process a device under torchrun --nproc-per-node "
+                         "(the product); omit for the single-device default")
+    ap.add_argument("--profile", default="2d", choices=["2d", "fsdp"],
+                    help="sharding profile for --mesh: 2d = TP x FSDP rule "
+                         "table; fsdp = ZeRO-3 (every large table/param "
+                         "shards its largest divisible dim over all devices "
+                         "— the profile that splits the entity table 1/N "
+                         "on a pure data mesh)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--live-writes", type=int, default=0, metavar="N",
                     help="after training, commit N fresh triple bursts into "
@@ -151,18 +172,43 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="sweep the kernels' launch geometries for the model "
                          "before training")
     args = ap.parse_args(argv)
-    if args.mesh is not None or args.profile is not None:
-        raise NotImplementedError("--mesh/--profile are not ported yet: they come "
-                                  "with slice 9 (distribution)")
     if args.semantic_store:
         args.semantic = True
-    device = resolve_device(args.device)
+    ctx, owns_group = ExecutionContext.single_device(), False
+    if args.mesh is not None:
+        if not dist.is_initialized():
+            init_process_group_from_env(args.device)
+            owns_group = True
+        ctx = make_execution_context(args.mesh, profile=args.profile, device=args.device)
+    try:
+        _run(args, ctx)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _rank_path(path: Optional[str], ctx) -> Optional[str]:
+    """``path`` with this rank before its suffix under a mesh."""
+    if path is None or not ctx.is_sharded:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{ctx.rank}{ext}"
+
+
+def _run(args, ctx) -> None:
+    device = ctx.device if ctx.is_sharded else resolve_device(args.device)
+    rank0 = ctx.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    trace_path, metrics_path = _rank_path(args.trace, ctx), _rank_path(args.metrics, ctx)
+    if ctx.is_sharded:
+        say(f"execution context: {ctx.describe()} "
+            f"({ctx.n_devices} devices, dp={ctx.dp_size})")
     if args.trace:
         TRACER.enable()
         TRACER.set_lane("main dispatch")
 
     kg, full_kg, _ = load_dataset(args.dataset, reduced=args.reduced)
-    print(f"dataset={args.dataset} ({'reduced stand-in' if args.reduced else 'Table 4 shape'}): "
+    say(f"dataset={args.dataset} ({'reduced stand-in' if args.reduced else 'Table 4 shape'}): "
           f"{kg.n_entities} entities, {kg.n_relations} relations, {len(kg)} train "
           f"triples; device {device}")
 
@@ -170,14 +216,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     sem_dim = 0
     if args.semantic_store:
         sem_dim = args.semantic_dim
-        store = open_or_build_store(args.semantic_store, kg, sem_dim,
-                                    args.semantic_quant, device)
+        if rank0:
+            store = open_or_build_store(args.semantic_store, kg, sem_dim,
+                                        args.semantic_quant, device)
+        if ctx.is_sharded:
+            ctx.mesh.barrier()  # rank 0 has built the store; the others open it
+            if not rank0:
+                store = SemanticStore(args.semantic_store)
         # Working set of one step: anchors (<=3/query) + positive + negatives.
         per_batch = args.batch_size * (4 + args.negatives)
         budget = args.semantic_budget_rows or min(kg.n_entities, 4 * per_batch)
         budget = max(budget, min(kg.n_entities, per_batch))
-        cache = SemanticCache(store, budget_rows=budget, device=device)
-        print(f"semantic cache: {budget} device rows "
+        cache = SemanticCache(store, budget_rows=budget, device=device, ctx=ctx)
+        say(f"semantic cache: {budget} device rows "
               f"({cache.device_resident_sem_bytes/1e6:.2f} MB device-resident "
               f"vs {kg.n_entities * sem_dim * 4/1e6:.2f} MB full-resident)")
     elif args.semantic:
@@ -186,11 +237,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       device=device)
         table = precompute_semantic_table(kg, pte)
         sem_dim = args.semantic_dim
-        print(f"semantic precompute: {table.shape} in {time.time()-t0:.1f}s; "
+        say(f"semantic precompute: {table.shape} in {time.time()-t0:.1f}s; "
               f"PTE unloaded")
 
+    # Pad entity rows to a multiple of the mesh size so the tables divide
+    # whichever axis the profile assigns them (indivisible rows make the
+    # rule table silently replicate the biggest buffer in the run).
     model = make_model(args.model, ModelConfig(dim=args.dim, gamma=12.0,
-                                               semantic_dim=sem_dim),
+                                               semantic_dim=sem_dim,
+                                               entity_pad=max(1, ctx.n_devices)),
                        device=device)
     cfg = TrainConfig(
         batch_size=args.batch_size, n_negatives=args.negatives,
@@ -198,7 +253,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         executor=args.executor, checkpoint_dir=args.ckpt_dir,
         pipeline=args.pipeline, max_inflight=args.max_inflight,
         cse=not args.no_cse, materialized_rows=args.materialized_rows,
-        metrics_path=args.metrics,
+        metrics_path=metrics_path,
     )
     # Kernel autotuning must be settled BEFORE the trainer exists: the
     # executor snapshots its kernel-aware tile policy at construction.
@@ -211,16 +266,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             t0 = time.time()
             n_sw = kat.tune_for_model(model, tuner, b_max=cfg.b_max, batch=cfg.batch_size,
                                       n_entities=kg.n_entities, device=device)
-            print(f"autotune: {n_sw} sweeps in {time.time()-t0:.1f}s, "
+            say(f"autotune: {n_sw} sweeps in {time.time()-t0:.1f}s, "
                   f"{len(tuner)} cached configs"
                   + (f" @ {tuner.path}" if tuner.path else ""))
         elif len(tuner):
-            print(f"autotune: {len(tuner)} tuned configs loaded"
+            say(f"autotune: {len(tuner)} tuned configs loaded"
                   + (f" from {tuner.path}" if tuner.path else ""))
     trainer = NGDBTrainer(model, kg, cfg, semantic_table=table,
-                          semantic_cache=cache)
+                          semantic_cache=cache, ctx=ctx)
     if trainer.resume():
-        print(f"resumed from checkpoint at step {trainer.step}")
+        say(f"resumed from checkpoint at step {trainer.step}")
 
     t0 = time.time()
     trainer.train(args.steps, log_every=args.log_every)
@@ -230,50 +285,59 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                     "metrics": get_registry().snapshot()})
         trainer.metrics_sink.close()
     if args.trace:
-        TRACER.write(args.trace)
+        TRACER.write(trace_path)
         TRACER.disable()
-        print(f"trace: wrote {args.trace} (load at ui.perfetto.dev)")
+        say(f"trace: wrote {trace_path} (load at ui.perfetto.dev)")
     qps = args.steps * args.batch_size / dt
     # Pipelined mode needs the pooled executor; train() runs the sync loop
     # otherwise — report what actually ran.
     mode = "pipelined" if (args.pipeline and args.executor == "pooled") else "sync"
     if args.pipeline and mode == "sync":
-        print("note: --pipeline requires --executor pooled; ran the sync path")
-    print(f"trained {args.steps} steps [{mode}] in {dt:.1f}s ({qps:.0f} queries/sec)")
+        say("note: --pipeline requires --executor pooled; ran the sync path")
+    say(f"trained {args.steps} steps [{mode}] in {dt:.1f}s ({qps:.0f} queries/sec)")
     cs = trainer.executor.cache_stats()
-    print("executor caches: " + ", ".join(
+    say("executor caches: " + ", ".join(
         f"{name} {c['size']} entries, hit rate {c['hit_rate']:.2%} "
         f"({c['misses']} misses)" for name, c in cs.items()))
     sh = trainer.executor.sharing_stats()
     # Report the executor's ACTUAL mode: the query-level baseline pins CSE
     # off whatever the flag says.
     cse_on = getattr(trainer.executor, "cse", False)
-    print(f"plan compiler: CSE {'on' if cse_on else 'off'}"
+    say(f"plan compiler: CSE {'on' if cse_on else 'off'}"
           f"{' (query-level baseline)' if args.executor != 'pooled' else ''}"
           f" — {sh['pooled_rows_saved']} pooled rows saved "
           f"({sh['saved_frac']:.1%} of {sh['nodes_before']})")
     pc = sh.get("plan_cache")
     if pc is not None:
-        print(f"plan cache: {pc['size']} canonical plans, "
+        say(f"plan cache: {pc['size']} canonical plans, "
               f"hit rate {pc['hit_rate']:.2%} "
               f"({pc['canonicalize_calls']} canonicalizations, "
               f"{pc['misses']} rebuilds)")
     mc = sh.get("materialized")
     if mc is not None:
-        print(f"materialized rows: hit rate {mc['hit_rate']:.2%}, "
+        say(f"materialized rows: hit rate {mc['hit_rate']:.2%}, "
               f"{mc['live']} live rows, {mc['invalidations']} invalidations "
               f"({mc['stale_drops']} stale inserts dropped)")
+    if ctx.is_sharded:
+        shapes = model.full_shapes["entity"]
+        ent = trainer.params["entity"]
+        say(f"entity table: {np.prod(shapes) * ent.element_size()/1e6:.2f} MB logical, "
+            f"{ent.numel() * ent.element_size()/1e6:.2f} MB/device "
+            f"({ctx.param_spec('entity', shapes)} over {ctx.describe()})")
     if cache is not None:
         cs = cache.stats()
-        print(f"semantic cache: hit rate {cs['hit_rate']:.2%}, "
+        say(f"semantic cache: hit rate {cs['hit_rate']:.2%}, "
               f"{cs['evictions']} evictions, "
               f"{cs['device_resident_sem_bytes']/1e6:.2f} MB device-resident, "
               f"prefetch overlap {cs['prefetch_overlap_frac']:.2%} "
               f"({cs['sync_stages']} synchronous mid-step reads)")
 
+    # Evaluation (and the live-write smoke) runs on the whole parameter set,
+    # gathered on every rank under a mesh.
+    params = trainer.full_params()
     if args.live_writes > 0:
         if cache is not None:
-            print("live-write smoke skipped: hot-set (sem_cache) params do "
+            say("live-write smoke skipped: hot-set (sem_cache) params do "
                   "not support live maintenance")
         else:
             from repro_torch.training import incremental_finetune
@@ -287,13 +351,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 fresh = kg.insert_triples(cand[~kg.contains(cand)][:4])
                 if not len(fresh):
                     continue
-                trainer.params, losses = incremental_finetune(
-                    model, trainer.params, fresh, lr=args.lr,
+                params, losses = incremental_finetune(
+                    model, params, fresh, lr=args.lr,
                     seed=kg.graph_version, executor=trainer.executor)
-                print(f"live write {i}: v{kg.graph_version} "
+                say(f"live write {i}: v{kg.graph_version} "
                       f"{len(fresh)} fresh triples, fine-tune loss "
                       f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-            print(f"live-write smoke: graph version {v0} -> "
+            say(f"live-write smoke: graph version {v0} -> "
                   f"{kg.graph_version}, {len(kg)} triples")
 
     eval_qs = [b.query for b in OnlineSampler(kg, seed=123).sample_batch(args.eval_queries)]
@@ -305,14 +369,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         try:
             stage = cache.plan(anchors)
         except RuntimeError as e:
-            print(f"eval skipped: {e}")
+            say(f"eval skipped: {e}")
             return
         if stage is not None:
-            trainer.params = cache.apply_to(trainer.params, stage)
+            params = cache.apply_to(params, stage)
         score_all_fn = lambda p, q: model.score_all_chunked(p, q, store.read_rows)  # noqa: E731
-    metrics = evaluate(model, trainer.params, trainer.executor, full_kg,
+    metrics = evaluate(model, params, trainer.executor, full_kg,
                        eval_qs, train_kg=kg, score_all_fn=score_all_fn)
-    print("eval:", json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
+    say("eval:", json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
 
 
 if __name__ == "__main__":

@@ -142,8 +142,13 @@ class QueryEncoder(nn.Module):
         as buffers, the rest as parameters."""
         return ("sem_table", "sem_cache", "sem_slot")
 
-    def _set_params(self, tensors: Mapping[str, torch.Tensor],
-                    n_entities: int) -> Dict[str, torch.Tensor]:
+    def _set_params(self, tensors: Mapping[str, torch.Tensor], n_entities: int,
+                    full_shapes: Optional[Mapping[str, tuple]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Register ``tensors``. ``full_shapes`` (name -> the whole tensor's
+        shape) is given where they are one rank's shards; ``full_shapes``
+        keeps it (the tensors' own shapes otherwise)."""
+        self.full_shapes = dict(full_shapes or {k: tuple(v.shape) for k, v in tensors.items()})
         # A new parameter set replaces the old one whole (a resident table
         # must not linger beside a later hot-set layout).
         self._parameters.clear()
@@ -167,7 +172,7 @@ class QueryEncoder(nn.Module):
 
     def init_params(self, generator: torch.Generator, n_entities: int,
                     n_relations: int, semantic_table=None,
-                    semantic_cache=None) -> Dict[str, torch.Tensor]:
+                    semantic_cache=None, ctx=None) -> Dict[str, torch.Tensor]:
         """Random parameters at the reference's shapes and distributions,
         drawn from ``generator`` (on the model's device). With
         ``semantic_dim > 0`` the semantic layout is decided by which buffer
@@ -179,6 +184,11 @@ class QueryEncoder(nn.Module):
           carry its bounded ``sem_cache`` hot set and the ``sem_slot``
           entity-id -> slot indirection instead of the table. Gathers must be
           preceded by ``cache.plan``/``apply_to``.
+
+        ``ctx`` (a mesh ``distributed.context.ExecutionContext``): every rank
+        draws the full tables from ``generator``, bitwise the single-device
+        draw, and keeps (and registers) only its shard of each
+        (``ctx.shard``); ``sem_cache`` and ``sem_slot`` stay replicated.
         """
         d = self.cfg.dim
         rows = self.padded_entities(n_entities)
@@ -212,7 +222,10 @@ class QueryEncoder(nn.Module):
             p["sem_proj_b"] = torch.zeros((dp,), device=dev)
             p["fuse_w"] = glorot((d + dp, d), generator, dev)
             p["fuse_b"] = torch.zeros((d,), device=dev)
-        return self._set_params(p, n_entities)
+        shapes = {k: tuple(v.shape) for k, v in p.items()}
+        if ctx is not None:
+            p = {k: ctx.shard(k, v) for k, v in p.items()}
+        return self._set_params(p, n_entities, shapes)
 
     # --- shared fused-entity path (Eq. 11 + 12) --------------------------------
     def semantic_rows(self, params: Params, ent_ids) -> torch.Tensor:

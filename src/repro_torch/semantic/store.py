@@ -484,10 +484,16 @@ class SemanticCache:
     ``plan`` -> ``apply_to`` is an ordered handshake (``seq``): stages must be
     applied in plan order. ``reconcile()`` drops all residency if a planned
     stage was never applied (a pipeline closed with stages still queued).
+
+    Under a mesh ``ctx`` the hot set is replicated, as the sharding rules pin
+    ``sem_cache``/``sem_slot``: each rank holds the whole buffer on its device
+    (``ctx.device`` unless ``device`` names one), and the trainer stages the
+    ids of the whole global batch on every rank, so the ranks' hot sets stay
+    identical with no collective.
     """
 
     def __init__(self, store, budget_rows: int, n_rows: Optional[int] = None,
-                 name: str = "sem_cache", device=None):
+                 name: str = "sem_cache", device=None, ctx=None):
         if isinstance(store, np.ndarray):
             store = _ArrayReader(store)
         if budget_rows < 1:
@@ -497,6 +503,8 @@ class SemanticCache:
         self.n_rows = int(n_rows if n_rows is not None else store.n_rows)
         self.dim = int(store.dim)
         self.name = name
+        if device is None and ctx is not None:
+            device = ctx.device
         self.device = resolve_device(device)
         # Device state, handed to init_params and updated in place by apply_to.
         self.buffer = torch.zeros((self.budget_rows, self.dim),

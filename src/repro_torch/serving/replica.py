@@ -21,7 +21,7 @@ Replicas are dense-params only: the out-of-core ``sem_cache`` hot set is a
 single shared device buffer that admitted-params replay cannot coexist
 with (the engine rejects the combination), and live-graph attachment
 (``kg=``) uses the same version axis — both stay on the single-engine
-path. A mesh ``ctx`` comes with slice 9.
+path. A mesh ``ctx`` (serving under a mesh) comes with slice 9b.
 """
 from __future__ import annotations
 

@@ -8,6 +8,10 @@
                keys of the nested dict (``params/entity``, ``opt/m/entity``,
                ``opt/step``), the keys the reference's pytree paths give, so
                a checkpoint written by either package loads in the other.
+  * mesh-agnostic — arrays are stored whole: under a mesh the trainer
+               gathers them, rank 0 writes and the others wait; a restore
+               reads the full arrays and keeps the current mesh's shard of
+               each (``load_checkpoint(ctx=)``), whatever mesh wrote them.
 """
 from __future__ import annotations
 
@@ -87,18 +91,24 @@ def list_checkpoints(directory: str) -> List[str]:
     return [os.path.join(directory, n) for n in names]
 
 
-def _unflatten(template, arrays: Mapping[str, np.ndarray], prefix: str = ""):
+def _unflatten(template, arrays: Mapping[str, np.ndarray], ctx=None, prefix: str = "",
+               name: str = ""):
     """``template``'s nested dict of tensors with each leaf replaced by the
-    array of its key, as a tensor on that leaf's device and in its dtype."""
+    array of its key, as a tensor on that leaf's device and in its dtype —
+    under a mesh ``ctx``, this rank's shard of it, by the name of the leaf
+    (the nearest key that is not ``m`` or ``v``, so a moment is sharded like
+    its parameter)."""
     if isinstance(template, Mapping):
-        return {k: _unflatten(v, arrays, f"{prefix}{k}/") for k, v in template.items()}
-    return torch.from_numpy(np.array(arrays[prefix[:-1]])).to(template.device, template.dtype)
+        return {k: _unflatten(v, arrays, ctx, f"{prefix}{k}/", name if k in ("m", "v") else k)
+                for k, v in template.items()}
+    full = torch.from_numpy(np.array(arrays[prefix[:-1]])).to(template.device, template.dtype)
+    return full if ctx is None else ctx.shard(name, full)
 
 
-def load_checkpoint(directory: str, template=None):
+def load_checkpoint(directory: str, template=None, ctx=None):
     """Load the newest VALID checkpoint. Returns (step, tree, metadata) or
     None; ``tree`` is the flat {key: array} dict, or ``template``'s
-    structure of tensors."""
+    structure of tensors (each this rank's shard under a mesh ``ctx``)."""
     for path in reversed(list_checkpoints(directory)):
         if not _verify(path):
             continue  # corrupted (e.g. node died mid-write pre-rename) — skip
@@ -108,7 +118,7 @@ def load_checkpoint(directory: str, template=None):
             arrays = {k: z[k] for k in z.files}
         if template is None:
             return manifest["step"], arrays, manifest["metadata"]
-        return manifest["step"], _unflatten(template, arrays), manifest["metadata"]
+        return manifest["step"], _unflatten(template, arrays, ctx), manifest["metadata"]
     return None
 
 
@@ -120,16 +130,28 @@ class CheckpointManager:
         self.keep = keep
         self.every = every
 
-    def maybe_save(self, step: int, tree, metadata=None, force=False) -> Optional[str]:
-        if not force and (self.every <= 0 or step % self.every != 0):
+    def due(self, step: int, force: bool = False) -> bool:
+        return force or (self.every > 0 and step % self.every == 0)
+
+    def maybe_save(self, step: int, tree, metadata=None, force=False,
+                   ctx=None) -> Optional[str]:
+        """Save ``tree`` when ``step`` is due. Under a mesh ``ctx`` every rank
+        calls this with the gathered (full) tree: rank 0 writes, and every
+        rank waits at a barrier until it has."""
+        if not self.due(step, force):
             return None
-        path = save_checkpoint(self.directory, step, tree, metadata)
-        self._gc()
+        sharded = ctx is not None and ctx.is_sharded
+        path = None
+        if not sharded or ctx.rank == 0:
+            path = save_checkpoint(self.directory, step, tree, metadata)
+            self._gc()
+        if sharded:
+            ctx.mesh.barrier()
         return path
 
     def _gc(self) -> None:
         for old in list_checkpoints(self.directory)[: -self.keep]:
             shutil.rmtree(old, ignore_errors=True)
 
-    def restore(self, template=None):
-        return load_checkpoint(self.directory, template)
+    def restore(self, template=None, ctx=None):
+        return load_checkpoint(self.directory, template, ctx)

@@ -74,7 +74,20 @@ mat_hits``).
 ``incremental_finetune`` is the live graph's embedding maintenance: a few
 Adam steps of 1p loss on the written triples, on a copy of the params.
 
-A mesh ``ctx`` comes with slice 9 and raises ``NotImplementedError`` here.
+Under a mesh ``ctx`` (``distributed/context.py``) the trainer is ZeRO-3 by
+hand: each rank keeps only its shard of each parameter and of both Adam
+moments; a step gathers the sharded parameters into full tensors, runs the
+encode and the loss on this rank's rows of the global batch (its own plan),
+sums the gradients over the batch axes, keeps its shard of each and runs
+Adam on the shards. Every rank samples the same global batch and draws the
+same negatives from the same seed; the local loss is the local mean times
+local/global rows (exactly 1.0 at one rank), the logged loss the sum over
+the batch axes, and the per-query losses are gathered into the global
+batch's canonical order on every rank, for adaptive sampling, whose π must
+not diverge between ranks. Every collective runs on the main thread, in one
+order on every rank (the pipelined scheduler thread issues none).
+Single-device runs the same step: the context's gather, shard and batch
+reduction are identities there and local/global is exactly 1.0.
 """
 from __future__ import annotations
 
@@ -92,7 +105,8 @@ from repro_torch.core.executor import PooledExecutor, QueryLevelExecutor
 from repro_torch.core.matcache import MaterializedSubqueryCache
 from repro_torch.core.patterns import TEMPLATES, QueryInstance
 from repro_torch.data.pipeline import (BatchPrefetcher, PreparedBatchPrefetcher,
-                                       batch_entity_ids)
+                                       batch_entity_ids, rank_slice)
+from repro_torch.distributed.context import ExecutionContext
 from repro_torch.obs.registry import get_registry
 from repro_torch.obs.sink import MetricsSink
 from repro_torch.obs.trace import TRACER
@@ -100,7 +114,7 @@ from repro_torch.sampling.adaptive import AdaptiveDistribution, pattern_losses_f
 from repro_torch.sampling.online import OnlineSampler, SampledQuery
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.loss import negative_sampling_loss
-from repro_torch.training.optim import AdamConfig, adam_init, adam_update
+from repro_torch.training.optim import AdamConfig, adam_init, adam_update, global_norm
 
 
 @dataclasses.dataclass
@@ -132,10 +146,6 @@ class TrainConfig:
 
 # step_phases keys that the JSONL step record leaves out.
 _PORT_ONLY_PHASES = ("scheduler_cpu_s", "dispatch_cpu_s", "t_retired")
-
-
-def _later(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with {where}")
 
 
 def incremental_finetune(model, params, triples, *, steps: int = 4,
@@ -204,12 +214,21 @@ class NGDBTrainer:
     ``torch.Generator`` seeded with ``cfg.seed``; ``params`` and
     ``opt_state`` are updated in place each step. ``semantic_table`` or
     ``semantic_cache`` carry H_sem for a model with ``semantic_dim > 0``
-    (``QueryEncoder.init_params``)."""
+    (``QueryEncoder.init_params``). Under a mesh ``ctx`` (module docstring)
+    ``params`` and ``opt_state`` hold this rank's shards, the model must sit
+    on ``ctx.device``, and ``full_params()`` gathers the whole set. The
+    updates are in place: a ``ctx`` with ``donate_params=False`` is
+    refused."""
 
     def __init__(self, model, kg, cfg: TrainConfig, semantic_table=None,
                  semantic_cache=None, ctx=None):
-        if ctx is not None:
-            _later("a mesh ctx", "slice 9 (distribution)")
+        self.ctx = ctx or ExecutionContext.single_device()
+        if not self.ctx.donate_params:
+            raise ValueError("NGDBTrainer updates parameters and moments in place; "
+                             "donate_params=False is not supported")
+        if self.ctx.is_sharded and model.device != self.ctx.device:
+            raise ValueError(f"the model is on {model.device}, the mesh rank's device "
+                             f"is {self.ctx.device}")
         if cfg.executor not in ("pooled", "query_level"):
             raise ValueError(f"executor must be 'pooled' or 'query_level', "
                              f"got {cfg.executor!r}")
@@ -228,22 +247,26 @@ class NGDBTrainer:
             self.executor = PooledExecutor(model, b_max=cfg.b_max, cse=cfg.cse,
                                            cache_size=cfg.compile_cache_size,
                                            device=self.device,
-                                           mat_cache=self.mat_cache)
+                                           mat_cache=self.mat_cache, ctx=self.ctx)
         else:
-            self.executor = QueryLevelExecutor(model, b_max=cfg.b_max, device=self.device)
+            self.executor = QueryLevelExecutor(model, b_max=cfg.b_max, device=self.device,
+                                               ctx=self.ctx)
         # Out of core, the params carry the cache's bounded hot set and its
         # id -> slot map instead of H_sem; every step stages its rows first.
         self.sem_cache = semantic_cache
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.params = model.init_params(gen, kg.n_entities, kg.n_relations,
                                         semantic_table=semantic_table,
-                                        semantic_cache=semantic_cache)
-        self.opt_state = adam_init(self.params, cfg.adam)
+                                        semantic_cache=semantic_cache, ctx=self.ctx)
+        self.opt_state = adam_init(self.params, cfg.adam, ctx=self.ctx)
         self.sampler = OnlineSampler(kg, patterns=cfg.patterns, seed=cfg.seed)
         self.adaptive = AdaptiveDistribution(cfg.patterns) if cfg.adaptive else None
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir, every=cfg.checkpoint_every)
                      if cfg.checkpoint_dir else None)
         self.step = 0
+        self.last_per_q: Optional[np.ndarray] = None  # the last retired step's
+        #                                 per-query losses (under a mesh in the
+        #                                 global batch's canonical order)
         self.history: List[Dict] = []
         self.step_phases: List[Dict[str, float]] = []
         self._obs = get_registry().group("trainer")
@@ -265,15 +288,18 @@ class NGDBTrainer:
         n = self.kg.n_entities
         self.params = params_from_numpy(self.model, arrays, device=self.device,
                                         n_entities=n)
+        shapes = self.model.full_shapes
         if self.sem_cache is not None:
             cache = self.sem_cache
             with torch.no_grad():
                 cache.buffer.copy_(self.params["sem_cache"])
                 cache.slot_map.copy_(self.params["sem_slot"])
-            self.params = self.model._set_params(
-                {**self.params, "sem_cache": cache.buffer, "sem_slot": cache.slot_map}, n)
+            self.params = {**self.params, "sem_cache": cache.buffer,
+                           "sem_slot": cache.slot_map}
             cache.reset()
-        self.opt_state = adam_init(self.params, self.cfg.adam)
+        self.params = {k: self.ctx.shard(k, v) for k, v in self.params.items()}
+        self.params = self.model._set_params(self.params, n, shapes)
+        self.opt_state = adam_init(self.params, self.cfg.adam, ctx=self.ctx)
 
     # ------------------------------------------------------------------ fns
     def _split_frozen(self, params):
@@ -284,30 +310,111 @@ class NGDBTrainer:
         frozen = {k: v for k, v in params.items() if k in frozen_names}
         return trainable, frozen
 
-    def loss_and_grads(self, prepared, pos: np.ndarray, neg: np.ndarray):
+    def loss_and_grads(self, prepared, pos: np.ndarray, neg: np.ndarray, params=None):
         """(loss, per-query loss, {name: gradient}) of one prepared batch, its
-        ``pos``/``neg`` already in the plan's order. Frozen names get (1,)
-        zero tokens, and a parameter the batch does not reach a zero
-        gradient, as the reference's ``value_and_grad`` gives."""
+        ``pos``/``neg`` already in the plan's order, at ``params`` (the
+        trainer's by default; under a mesh pass ``full_params()``). Frozen
+        names get (1,) zero tokens, and a parameter the batch does not reach
+        a zero gradient, as the reference's ``value_and_grad`` gives."""
         dev = self.device
         steps, ans = prepared.device_args(dev)
         return self._loss_and_grads(prepared, steps, ans, torch.from_numpy(pos).to(dev),
-                                    torch.from_numpy(neg).to(dev))
+                                    torch.from_numpy(neg).to(dev), params)
 
-    def _loss_and_grads(self, prepared, steps, ans, pos: torch.Tensor, neg: torch.Tensor):
-        """``loss_and_grads`` on inputs already on the device."""
+    def _loss_and_grads(self, prepared, steps, ans, pos: torch.Tensor, neg: torch.Tensor,
+                        params=None, scale: float = 1.0):
+        """``loss_and_grads`` on inputs already on the device; the loss (and
+        so every gradient) times ``scale`` where it is not 1."""
         dev = self.device
-        trainable, frozen = self._split_frozen(self.params)
+        trainable, frozen = self._split_frozen(self.params if params is None else params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
         p = {**leaves, **frozen}
         with torch.enable_grad():
             q = self.executor.encode_fn(prepared)(p, steps, ans)
             loss, per_q = negative_sampling_loss(self.model, p, q, pos, neg)
+            if scale != 1.0:
+                loss = loss * scale
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         out = {k: torch.zeros_like(v) if g is None else g
                for (k, v), g in zip(leaves.items(), grads)}
         out.update({k: torch.zeros((1,), dtype=torch.float32, device=dev) for k in frozen})
         return loss.detach(), per_q.detach(), out
+
+    # ------------------------------------------------------------------ mesh
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole parameter set: under a mesh gathered from every rank's
+        shards (collective: call it on every rank, in the same place);
+        single-device the params' own tensors. ``evaluate`` runs on it."""
+        shapes = self.model.full_shapes
+        return {k: self.ctx.gather(k, self.params[k], shapes[k]) for k in sorted(self.params)}
+
+    def _full_tree(self, params, opt_state) -> Dict:
+        """A checkpoint's tree ({"params", "opt"}) of whole tensors: under a
+        mesh gathered from the shards (collective), the moments of frozen
+        names being (1,) tokens."""
+        shapes = self.model.full_shapes
+        frozen = set(self.cfg.adam.frozen)
+        gather = self.ctx.gather
+        full = {k: gather(k, params[k], shapes[k]) for k in sorted(params)}
+        moments = {part: {k: gather(k, opt_state[part][k], (1,) if k in frozen else shapes[k])
+                          for k in sorted(opt_state[part])} for part in ("m", "v")}
+        return {"params": full, "opt": {**moments, "step": opt_state["step"]}}
+
+    def _save(self, step: int, params, opt_state, metadata=None, force=False) -> None:
+        """Checkpoint at ``step`` if due (collective under a mesh: every rank
+        gathers, rank 0 writes)."""
+        if self.ckpt.due(step, force):
+            self.ckpt.maybe_save(step, self._full_tree(params, opt_state), metadata=metadata,
+                                 force=force, ctx=self.ctx)
+
+    def _update(self, grads: Dict[str, torch.Tensor], n: int) -> None:
+        """Adam, in place, on one step's gradients: summed over the axes a
+        batch of ``n`` is split over (one flat all-reduce of the trainable
+        names; none single-device), clipped by their global norm, and cut to
+        this rank's shards (the whole tensors single-device)."""
+        cfg = self.cfg.adam
+        if self.ctx.batch_axes(n):
+            names = [k for k in sorted(grads) if k not in cfg.frozen]
+            flat = self.ctx.reduce_batch(torch.cat([grads[k].reshape(-1) for k in names]), n)
+            sizes = [grads[k].numel() for k in names]
+            grads = {**grads, **{k: g.view(grads[k].shape) for k, g in
+                                 zip(names, torch.split(flat, sizes))}}
+        if cfg.clip_norm > 0:
+            # adam_update's own clip, on the whole gradients rather than the
+            # shards.
+            g_norm = global_norm(grads)
+            clip = torch.clamp(cfg.clip_norm / (g_norm + 1e-9), max=1.0)
+            grads = {k: g * clip for k, g in grads.items()}
+            cfg = dataclasses.replace(cfg, clip_norm=0.0)
+        adam_update({k: self.ctx.shard(k, g) for k, g in grads.items()}, self.opt_state,
+                    self.params, cfg)
+
+    def _global(self, loss: torch.Tensor, per_q: torch.Tensor, local_order, n: int,
+                global_order) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Under a mesh, the step's loss summed over the batch axes and its
+        per-query losses (``per_q[j]`` belongs to local row
+        ``local_order[j]``) gathered into the global batch's canonical order
+        ``global_order``: the same on every rank. Collective. Single-device
+        both pass through."""
+        if not self.ctx.is_sharded:
+            return loss, per_q
+        loss = self.ctx.reduce_batch(loss.clone(), n)
+        inv = np.empty_like(local_order)
+        inv[local_order] = np.arange(len(local_order))
+        rows = self.ctx.gather_rows(per_q[torch.from_numpy(inv).to(per_q.device)], n)
+        return loss, rows[torch.from_numpy(global_order).to(per_q.device)]
+
+    def _step(self, prepared, steps, ans, pos, neg, n: int, global_order):
+        """One pooled step of this rank's plan (of the whole batch of ``n``
+        single-device): gather, local loss and gradients (times local/global
+        rows), update; returns the global loss and per-query losses as
+        device tensors."""
+        full = self.full_params()
+        loss, per_q, grads = self._loss_and_grads(prepared, steps, ans, pos, neg, full,
+                                                  len(prepared.order) / n)
+        del full
+        self._update(grads, n)
+        return self._global(loss, per_q, prepared.order, n, global_order)
 
     # ----------------------------------------------------------------- steps
     def train_step(self, batch: Optional[List[SampledQuery]] = None) -> Dict[str, float]:
@@ -319,27 +426,34 @@ class NGDBTrainer:
         phases: Dict[str, float] = {}
         if self.sem_cache is not None:
             # Sync staging, before the step and outside its timing window.
+            # Under a mesh every rank stages the whole global batch's ids.
             tp = time.perf_counter()
             with TRACER.span("sem_prefetch"):
                 stage = self.sem_cache.plan(batch_entity_ids(queries, pos, neg))
             if stage is not None:
                 self.sem_cache.apply_to(self.params, stage)
             phases["sem_prefetch_s"] = time.perf_counter() - tp
+        n = len(queries)
+        _, lq, lpos, lneg, global_order = rank_slice(self.ctx, queries, pos, neg)
         t0 = time.perf_counter()
         if isinstance(self.executor, PooledExecutor):
-            with TRACER.span("schedule", n=len(queries)):
-                prepared = self.executor.prepare(queries)
+            with TRACER.span("schedule", n=len(lq)):
+                prepared = self.executor.prepare(lq)
             phases["schedule_s"] = time.perf_counter() - t0
             td = time.perf_counter()
             with TRACER.span("dispatch"):
-                loss, per_q, grads = self.loss_and_grads(
-                    prepared, pos[prepared.order], neg[prepared.order])
-                adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+                dev = self.device
+                steps, ans = prepared.device_args(dev)
+                loss, per_q = self._step(
+                    prepared, steps, ans, torch.from_numpy(lpos[prepared.order]).to(dev),
+                    torch.from_numpy(lneg[prepared.order]).to(dev), n, global_order)
             phases["dispatch_s"] = time.perf_counter() - td
             self._phase_s["dispatch"].inc(phases["dispatch_s"])
             patterns = prepared.patterns
         else:  # query-level baseline: one fragmented pass per pattern group
-            loss, per_q, patterns = self._query_level_step(queries, pos, neg)
+            loss, per_q, patterns = self._query_level_step(lq, lpos, lneg, n, global_order)
+        if global_order is not None:
+            patterns = [queries[i].pattern for i in global_order]
         if self.mat_cache is not None:
             # The params were just updated in place: rows encoded under the
             # old values must never be served.
@@ -349,8 +463,9 @@ class NGDBTrainer:
             loss = float(loss)
         phases["retire_s"] = time.perf_counter() - tr
         self._phase_s["retire"].inc(phases["retire_s"])
+        self.last_per_q = per_q.cpu().numpy()
         if self.adaptive:
-            self.adaptive.update(pattern_losses_from_batch(patterns, per_q.cpu().numpy()))
+            self.adaptive.update(pattern_losses_from_batch(patterns, self.last_per_q))
         self._steps_done.inc()
         self.step += 1
         rec = {
@@ -364,22 +479,25 @@ class NGDBTrainer:
             # shape.
             self.metrics_sink.write({"kind": "step", "mode": "sync", **rec, **phases})
         if self.ckpt:
-            self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
-                                 metadata={"loss": loss})
+            self._save(self.step, self.params, self.opt_state, metadata={"loss": loss})
         return rec
 
-    def _query_level_step(self, queries, pos, neg):
+    def _query_level_step(self, queries, pos, neg, n_global: int, global_order=None):
         """Baseline: independent fragmented micro-steps per pattern, their
         gradients weighted by group size, summed, divided by B, then one
-        Adam step. The loss is the group losses' size-weighted mean."""
+        Adam step. The loss is the group losses' size-weighted mean. Under a
+        mesh the groups are this rank's rows' (of a global batch of
+        ``n_global``), at the gathered parameters, and the loss and
+        gradients are scaled by local/global rows before the update."""
+        params = self.full_params()
         groups, idx = self.executor.prepare_groups(queries)
-        losses, sizes, per_q_all, patterns = [], [], [], []
+        losses, sizes, per_q_all, patterns, order = [], [], [], [], []
         grads_acc = None
         for pat, sub in groups.items():
             rows = np.asarray(idx[pat])
             prepared = self.executor.prepare(sub)
             loss, per_q, grads = self.loss_and_grads(
-                prepared, pos[rows][prepared.order], neg[rows][prepared.order])
+                prepared, pos[rows][prepared.order], neg[rows][prepared.order], params)
             w = len(rows)
             if grads_acc is None:
                 grads_acc = {k: g * w for k, g in grads.items()}
@@ -389,11 +507,20 @@ class NGDBTrainer:
             sizes.append(w)
             per_q_all.append(per_q)
             patterns.extend([pat] * w)
+            order.append(rows[prepared.order])
+        del params
         n = sum(sizes)
         grads_acc = {k: g / n for k, g in grads_acc.items()}
-        adam_update(grads_acc, self.opt_state, self.params, self.cfg.adam)
         total = sum(float(l) * w for l, w in zip(torch.stack(losses).cpu(), sizes))
-        return total / n, torch.cat(per_q_all), patterns
+        per_q = torch.cat(per_q_all)
+        scale = n / n_global
+        if scale != 1.0:
+            grads_acc = {k: g * scale for k, g in grads_acc.items()}
+        self._update(grads_acc, n_global)
+        loss = torch.tensor(total / n * scale, dtype=torch.float64, device=self.device)
+        loss, per_q = self._global(loss, per_q, np.concatenate(order), n_global,
+                                   global_order)
+        return loss, per_q, patterns
 
     # ------------------------------------------------------------------ loop
     def train(self, n_steps: int, log_every: int = 50, batches=None) -> List[Dict]:
@@ -405,7 +532,10 @@ class NGDBTrainer:
             return self._train_pipelined(n_steps, log_every, batches=batches)
         TRACER.set_lane("main dispatch")
         prefetcher = None
-        if batches is None and self.cfg.prefetch > 0 and not self.adaptive:
+        # Under a mesh every rank samples inline from its seeded sampler:
+        # the workers' own streams would differ between ranks.
+        if (batches is None and self.cfg.prefetch > 0 and not self.adaptive
+                and not self.ctx.is_sharded):
             prefetcher = BatchPrefetcher(self.sampler, self.cfg.batch_size,
                                          depth=self.cfg.prefetch)
         try:
@@ -418,21 +548,26 @@ class NGDBTrainer:
                     batch = prefetcher.next() if prefetcher else None
                 rec = self.train_step(batch)
                 if log_every and (i + 1) % log_every == 0:
-                    print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
-                          f"q/s {rec['queries_per_sec']:.0f}")
+                    self._log(rec)
         finally:
             if prefetcher is not None:
                 prefetcher.close()
         if self.ckpt:
-            self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
-                                 force=True)
+            self._save(self.step, self.params, self.opt_state, force=True)
         return self.history
+
+    def _log(self, rec: Dict) -> None:
+        """The loss line (rank 0 alone under a mesh)."""
+        if self.ctx.rank == 0:
+            print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
+                  f"q/s {rec['queries_per_sec']:.0f}")
 
     # ------------------------------------------------------------- pipelined
     def _prefetcher(self, batches=None) -> PreparedBatchPrefetcher:
         """The scheduler thread of a pipelined run, fed by ``batches`` (as in
         ``train``), by adaptive sampling with the latest π, or by sampling
-        workers."""
+        workers (under a mesh: by the trainer's seeded sampler, on the
+        scheduler thread, so that every rank samples the same batches)."""
         batch_fn = None
         if callable(batches):
             batch_fn = batches
@@ -444,16 +579,21 @@ class NGDBTrainer:
             # in the scheduler thread with a (≤ max_inflight steps) stale π.
             batch_fn = lambda: self.sampler.sample_batch(  # noqa: E731
                 self.cfg.batch_size, self.adaptive.distribution())
+        elif self.ctx.is_sharded:
+            batch_fn = lambda: self.sampler.sample_batch(self.cfg.batch_size)  # noqa: E731
         return PreparedBatchPrefetcher(
             self.sampler, self.executor, self.cfg.batch_size, self.cfg.n_negatives,
             depth=max(self.cfg.prefetch, 1), batch_fn=batch_fn,
-            sem_cache=self.sem_cache, mat_cache=self.mat_cache)
+            sem_cache=self.sem_cache, mat_cache=self.mat_cache, ctx=self.ctx)
 
     def _dispatch(self, item) -> tuple:
         """Launch one prepared step on the main thread's current stream: wait
         for its copies, apply its hot-set stage, then the encode, loss,
         backward and Adam. No host sync: returns the loss and per-query loss
-        as device tensors, read back by ``_retire``."""
+        as device tensors, read back by ``_retire``. Under a mesh the step's
+        collectives run here, after ``ready()`` has ordered the side
+        stream's copies before them (NCCL waits on the current stream), and
+        the two tensors are the global loss and per-query losses."""
         item.ready()
         if item.sem_stage is not None:
             ta = time.perf_counter()
@@ -463,9 +603,8 @@ class NGDBTrainer:
             self._phase_s["sem_apply"].inc(item.phases["sem_apply_s"])
         td, cd = time.perf_counter(), time.thread_time()
         with TRACER.span("dispatch"):
-            loss, per_q, grads = self._loss_and_grads(item.prepared, item.steps, item.ans,
-                                                      item.pos, item.neg)
-            adam_update(grads, self.opt_state, self.params, self.cfg.adam)
+            loss, per_q = self._step(item.prepared, item.steps, item.ans, item.pos, item.neg,
+                                     item.n_queries, item.global_order)
         if self.mat_cache is not None:
             # Adam updated the params in place: the scheduler thread's probes
             # pinned to the old version stop matching.
@@ -494,11 +633,12 @@ class NGDBTrainer:
         tr = time.perf_counter()
         with TRACER.span("retire"):
             loss = float(loss)
-            per_q = per_q.cpu().numpy() if self.adaptive else None
+            per_q = per_q.cpu().numpy()
         now = time.perf_counter()
         phases["retire_s"] = now - tr
         phases["t_retired"] = now
         self._phase_s["retire"].inc(phases["retire_s"])
+        self.last_per_q = per_q
         if self.adaptive:
             self.adaptive.update(pattern_losses_from_batch(patterns, per_q))
         self.step += 1
@@ -520,12 +660,9 @@ class NGDBTrainer:
                 "wall_s": wall,
             })
         if log_every and self.step % log_every == 0:
-            print(f"step {rec['step']:6d} loss {rec['loss']:.4f} "
-                  f"q/s {rec['queries_per_sec']:.0f}")
+            self._log(rec)
         if self.ckpt and snap is not None:
-            params, opt_state = snap
-            self.ckpt.maybe_save(self.step, {"params": params, "opt": opt_state},
-                                 metadata={"loss": loss})
+            self._save(self.step, *snap, metadata={"loss": loss})
         return now
 
     def _train_pipelined(self, n_steps: int, log_every: int, batches=None) -> List[Dict]:
@@ -573,8 +710,7 @@ class NGDBTrainer:
             if self.sem_cache is not None:
                 self.sem_cache.reconcile()
         if self.ckpt:
-            self.ckpt.maybe_save(self.step, {"params": self.params, "opt": self.opt_state},
-                                 force=True)
+            self._save(self.step, self.params, self.opt_state, force=True)
         return self.history
 
     # ---------------------------------------------------------------- resume
@@ -582,10 +718,13 @@ class NGDBTrainer:
         """Restore the newest valid checkpoint into the parameters and
         optimizer state (in place). False when there is none. Under a
         semantic cache its residency is reset: the restored hot set does not
-        match the metadata, so the next step restages its rows."""
+        match the metadata, so the next step restages its rows. Under a mesh
+        every rank reads the whole arrays and keeps this mesh's shard of
+        each, whatever mesh wrote them."""
         if not self.ckpt:
             return False
-        restored = self.ckpt.restore(template={"params": self.params, "opt": self.opt_state})
+        restored = self.ckpt.restore(template={"params": self.params, "opt": self.opt_state},
+                                     ctx=self.ctx)
         if restored is None:
             return False
         self.step, tree, _ = restored

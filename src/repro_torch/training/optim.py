@@ -30,9 +30,16 @@ class AdamConfig:
 
 
 def adam_init(params: Mapping[str, torch.Tensor],
-              cfg: AdamConfig = AdamConfig()) -> Dict:
+              cfg: AdamConfig = AdamConfig(), ctx=None) -> Dict:
     """Zero moments; frozen buffers get (1,) token moments — they receive no
-    updates, so real moments would only take memory."""
+    updates, so real moments would only take memory.
+
+    Under a mesh ``ctx`` the params are this rank's shards
+    (``init_params(ctx=)``), so each moment, zeros like its parameter, is
+    the shard ``ctx.shard`` keeps of the full moment: the moments are
+    sharded like their parameters, and ``adam_update`` runs unchanged on
+    the local shards. The context is taken for the reference's signature;
+    the shards carry all it would say."""
 
     def zeros(k, p):
         if k in cfg.frozen:

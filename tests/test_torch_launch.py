@@ -108,10 +108,41 @@ def test_train_cli_resumes_a_checkpoint_of_the_jax_cli(tmp_path, monkeypatch, ca
     assert load_checkpoint(ckpt)[0] == 3
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["--mesh", "data=2"], "slice 9"), (["--profile", "fsdp"], "slice 9")])
-def test_train_cli_later_slices_raise(argv, slice_, capsys):
-    with pytest.raises(NotImplementedError, match=slice_):
+def test_train_cli_mesh_under_a_one_rank_group(tmp_path, capsys):
+    """``--mesh data=1 --profile fsdp`` in a process that already holds a
+    one-rank gloo group: the reference's context and entity-table lines,
+    a loss line a step (the mesh samples inline from the seeded sampler, so
+    two runs agree), the rank's metrics file, and eval."""
+    from torch_parity import one_rank_group
+
+    argv = ["--model", "gqe", "--steps", "3", "--log-every", "1", "--mesh", "data=1",
+            "--profile", "fsdp"]
+    with one_rank_group(tmp_path):
+        out = _train(argv + ["--metrics", str(tmp_path / "m.jsonl")], capsys)
+        again = _train(argv, capsys)
+    assert "execution context: mesh(data=1, model=1) profile=fsdp (1 devices, dp=1)" in out
+    assert "MB/device" in out and "entity table:" in out
+
+    def losses(text):
+        return [l.split(" q/s")[0] for l in text.splitlines() if l.startswith("step ")]
+
+    assert len(losses(out)) == 3 and losses(out) == losses(again)
+    assert [r["step"] for r in read_jsonl(str(tmp_path / "m.rank0.jsonl"))
+            if r["kind"] == "step"] == [1, 2, 3]
+    _eval_line(out)
+
+
+@pytest.mark.parametrize("argv,need", [(["--mesh", "data=2"], 2),
+                                       (["--mesh", "data=2,model=2", "--profile", "fsdp"], 4)])
+def test_train_cli_mesh_raises_naming_torchrun(argv, need, tmp_path, capsys):
+    """A mesh whose product is not the group's world size names the size
+    and ``torchrun``; so does ``--mesh`` with no group and no launcher."""
+    from torch_parity import one_rank_group
+
+    with one_rank_group(tmp_path):
+        with pytest.raises(ValueError, match=f"world size {need}.*torchrun --nproc-per-node {need}"):
+            _train(["--steps", "1"] + argv, capsys)
+    with pytest.raises(ValueError, match="torchrun"):
         _train(["--steps", "1"] + argv, capsys)
 
 

@@ -271,5 +271,14 @@ def test_trainer_still_refuses_later_slices(tmp_path):
                                             metrics_path=str(path)))
     tr.train(1, log_every=0)
     assert [r["kind"] for r in read_jsonl(str(path))] == ["step"]
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        NGDBTrainer(model, kg, TrainConfig(), ctx=object())
+    # A mesh ctx came with slice 9: beside a mat cache, every step bumps it.
+    from repro_torch.distributed import make_execution_context
+    from torch_parity import one_rank_group
+
+    with one_rank_group(tmp_path):
+        ctx = make_execution_context("data=1", device="cpu")
+        tr = NGDBTrainer(model, kg, TrainConfig(batch_size=8, n_negatives=2, b_max=32,
+                                                prefetch=0, materialized_rows=8), ctx=ctx)
+        v0 = tr.mat_cache.version
+        tr.train(2, log_every=0)
+        assert tr.mat_cache.version == v0 + 2 and tr.ctx.is_sharded

@@ -32,9 +32,14 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _tracer_off():
-    """Every test leaves both process-wide tracers disabled."""
+    """Every test leaves both process-wide tracers disabled and empty
+    (``disable()`` keeps the events and ``enable()`` clears them), so a
+    later test file in the same process, such as ``tests/test_obs.py``,
+    finds none."""
     yield
+    TRACER.enable(profiler_annotations=False)
     TRACER.disable()
+    J.TRACER.enable(jax_annotations=False)
     J.TRACER.disable()
 
 

@@ -264,12 +264,24 @@ def test_dev_static_keyed_by_structure_not_signature():
     assert again.ans is a.ans and int(cache.hits) == 1
 
 
-def test_prepare_work_item_refuses_a_mesh_ctx():
+def test_prepare_work_item_under_a_one_rank_mesh(replay_batches, tmp_path):
+    """Under a one-rank mesh the work item is the single-device one (the
+    same negatives, plan and patterns) plus its rows (all of them) and the
+    global batch's canonical order, which the plan's order is."""
     from repro_torch.data.pipeline import prepare_work_item
+    from repro_torch.distributed import make_execution_context
+    from torch_parity import one_rank_group
 
-    tr = _trainer(False)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        prepare_work_item(tr.sampler, tr.executor, [], 4, ctx=object())
+    batch = replay_batches[0]
+    single = prepare_work_item(_trainer(False).sampler, _trainer(False).executor, batch, 4)
+    with one_rank_group(tmp_path):
+        ctx = make_execution_context("data=1", profile="fsdp", device="cpu")
+        tr = _trainer(False)
+        item = prepare_work_item(tr.sampler, tr.executor, batch, 4, ctx=ctx)
+    assert item.n_queries == len(batch) and item.patterns == single.patterns
+    np.testing.assert_array_equal(item.rows, np.arange(len(batch)))
+    np.testing.assert_array_equal(item.global_order, item.prepared.order)
+    assert torch.equal(item.pos, single.pos) and torch.equal(item.neg, single.neg)
 
 
 def test_prefetcher_propagates_worker_error():
@@ -298,6 +310,21 @@ def test_prefetcher_close_is_prompt(replay_batches):
     pf.close()
     assert time.monotonic() - t0 < 5.0
     assert not pf._thread.is_alive()
+
+
+def test_prefetcher_over_sampling_workers_closes_its_thread():
+    """Fed by its own sampling workers, the scheduler thread waits for a
+    batch in short slices: ``close()`` ends it and every worker in 5 s."""
+    from repro_torch.data.pipeline import PreparedBatchPrefetcher
+
+    tr = _trainer(False)
+    pf = PreparedBatchPrefetcher(tr.sampler, tr.executor, 16, 4, depth=1, workers=1)
+    pf.next(timeout=30.0)
+    t0 = time.monotonic()
+    pf.close()
+    assert time.monotonic() - t0 < 5.0
+    assert not pf._thread.is_alive()
+    assert not any(t.is_alive() for t in pf._batches.threads())
 
 
 def test_batch_prefetcher_close_joins_its_threads():

@@ -303,8 +303,18 @@ def test_trainer_raises_for_later_slices(tmp_path):
     tr.train(2, log_every=0)
     assert [(r["kind"], r["mode"], r["step"]) for r in read_jsonl(str(path))] == [
         ("step", "sync", 1), ("step", "sync", 2)]
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        NGDBTrainer(model, kg, TrainConfig(), ctx=object())
+    # A mesh ctx came with slice 9: at one rank it trains the single-device
+    # run's losses, bitwise.
+    from repro_torch.distributed import make_execution_context
+    from torch_parity import one_rank_group
+
+    cfg = TrainConfig(batch_size=8, n_negatives=2, b_max=32, prefetch=0)
+    want = [r["loss"] for r in NGDBTrainer(model, kg, cfg).train(2, log_every=0)]
+    with one_rank_group(tmp_path):
+        ctx = make_execution_context("data=1", profile="fsdp", device="cpu")
+        tr = NGDBTrainer(model, kg, cfg, ctx=ctx)
+        assert [r["loss"] for r in tr.train(2, log_every=0)] == want
+        assert tr.ctx.mesh.counts["all_reduce"] > 0
 
 
 # ------------------------------------------------------------- evaluation

@@ -1,5 +1,7 @@
 """Shared set-up for the PyTorch port's parity tests (``test_torch_*.py``):
 the same seeded graph, queries and weights built in both packages."""
+import contextlib
+import datetime
 import functools
 
 import jax
@@ -62,3 +64,17 @@ def carried_models(name: str, dim: int = 16, seed: int = 0,
 def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
+
+
+@contextlib.contextmanager
+def one_rank_group(directory):
+    """A one-rank gloo default process group (file rendezvous in
+    ``directory``) for the body of the ``with``; destroyed after it."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{directory}/pg", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
