@@ -347,6 +347,53 @@ class ExecutionContext:
         order = [self.mesh.index(axes, r) for r in self.mesh.members(axes)]
         return torch.cat([pieces[j] for j in np.argsort(order)])
 
+    # ------------------------------------------------- row-split tables
+    def row_axes(self, name: str, shape: Sequence[int]) -> Tuple[str, ...]:
+        """The axes ``name``'s rule splits the rows (dim 0) of a table of
+        ``shape`` over (``()`` where it replicates them). Raises where the
+        rule splits another dim: a row-wise reader could not use it."""
+        if self.mesh is None:
+            return ()
+        spec = self.param_spec(name, tuple(shape))
+        if any(_entry_axes(e) for e in spec[1:]):
+            raise ValueError(f"{name} {tuple(shape)} is split off its rows under "
+                             f"{self.describe()} (spec {spec}); serving reads it by rows")
+        return _entry_axes(spec[0]) if spec else ()
+
+    def gather_blocks(self, local: torch.Tensor, axes: Sequence[str],
+                      dim: int) -> torch.Tensor:
+        """Every member's ``local`` over ``axes`` concatenated along ``dim`` in
+        block order (``index(axes)``): e.g. each rank's columns of the
+        [B, E] scores against its rows of the entity table. Collective."""
+        if self.mesh is None or not axes:
+            return local
+        pieces = self.mesh.all_gather(local, axes)
+        order = [self.mesh.index(axes, r) for r in self.mesh.members(axes)]
+        return torch.cat([pieces[j] for j in np.argsort(order)], dim=dim)
+
+    def fetch_rows(self, local: torch.Tensor, axes: Sequence[str],
+                   ids: np.ndarray) -> torch.Tensor:
+        """Rows ``ids`` (global row ids) of a table split by rows over
+        ``axes``, of which this rank holds ``local`` (block ``index(axes)``).
+        Each rank contributes the rows it holds, zeros elsewhere, to one
+        all-gather, and every row is taken from its owner's piece: the rows
+        are bitwise the owner's, -0.0 and NaN included. Collective."""
+        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=local.device)
+        if self.mesh is None or not axes:
+            return local[ids_t]
+        n = local.shape[0]
+        block = ids_t // n
+        me = self.mesh.index(axes)
+        mine = block == me
+        contrib = local.new_zeros((len(ids_t),) + tuple(local.shape[1:]))
+        contrib[mine] = local[ids_t[mine] - me * n]
+        pieces = self.mesh.all_gather(contrib, axes)
+        slot = torch.empty(self.mesh.ways(axes), dtype=torch.long)
+        for j, r in enumerate(self.mesh.members(axes)):
+            slot[self.mesh.index(axes, r)] = j
+        owner = slot.to(local.device)[block]
+        return torch.stack(pieces)[owner, torch.arange(len(ids_t), device=local.device)]
+
 
 # --------------------------------------------------------------------------
 # Mesh-spec parsing (the launch surface: ``--mesh data=N[,model=M]``)

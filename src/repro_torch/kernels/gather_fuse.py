@@ -376,10 +376,12 @@ def semantic_source(params, ids):
     return params["sem_table"], None
 
 
-def gather_fuse_params(params, ids) -> torch.Tensor:
+def gather_fuse_params(params, ids, rows=None) -> torch.Tensor:
     """Fuse ``ids`` straight from a model params mapping, in either semantic
-    layout (``semantic_source``)."""
+    layout (``semantic_source``). ``rows`` are the ids' rows of ``entity``
+    (and of a resident ``sem_table``) where the table holds only some ids'
+    rows; ``ids`` by default."""
     h_sem, sem_ids = semantic_source(params, ids)
-    return gather_fuse(ids, params["entity"], h_sem, params["sem_proj_w"],
-                       params["sem_proj_b"], params["fuse_w"],
-                       params["fuse_b"], sem_ids=sem_ids)
+    return gather_fuse(ids if rows is None else rows, params["entity"], h_sem,
+                       params["sem_proj_w"], params["sem_proj_b"],
+                       params["fuse_w"], params["fuse_b"], sem_ids=sem_ids)

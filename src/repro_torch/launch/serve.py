@@ -42,8 +42,22 @@ pass too (the tenants' lanes, each replica's batcher, ``route`` spans).
 ``--autotune-cache PATH`` loads the kernel launch geometries a training
 run's ``--autotune`` kept there into the process tuner before any executor
 exists, so every executor pads its pools to them and every launch takes
-them; serving tunes nothing. ``--mesh`` (serving under a mesh) comes with
-slice 9b.
+them; serving tunes nothing.
+
+``--mesh data=N[,model=M]`` (with ``--profile 2d|fsdp``) serves under a
+mesh of one process a device, launched with ``torchrun --nproc-per-node N``
+(NCCL on the card, gloo with ``--device cpu``):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh data=2 \
+        --profile fsdp --model gqe
+
+Every rank holds its shard of each table (entity rows padded to a multiple
+of the mesh size); rank 0 admits the requests, forms the micro-batches and
+prints, the other ranks serve the same batches (``ServingEngine.follow``).
+``--live-writes``/``--max-staleness`` are refused under a mesh (slice 9c);
+``--trace``/``--metrics`` write one file a rank (``m.rank1.jsonl``); a
+follower's trace spans the warmup too, which it cannot tell from the timed
+pass.
 
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two
@@ -58,10 +72,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import PooledExecutor
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed import (ExecutionContext, init_process_group_from_env,
+                                     make_execution_context)
 from repro_torch.models import ModelConfig, make_model, model_names
 from repro_torch.obs import TRACER, MetricsSink, get_registry
 from repro_torch.serving import (ServingConfig, ServingEngine, make_workload,
@@ -73,33 +90,51 @@ __all__ = ["serve_batch", "topk_desc", "main"]  # topk_desc re-exported
 
 def serve_batch(model, params, executor, queries, top_k: int = 10,
                 device=None, score_all_fn=None, sem_cache=None,
-                n_entities=None):
+                n_entities=None, ctx=None, sem_rows_fn=None):
     """One-shot synchronous batch serving on ``device`` (``cuda`` unless
     given) — the offline baseline the engine is verified against. Encoding
     goes through the executor's per-signature closures and scoring through
     the model's cached scorer (``scorer_for``) or ``score_all_fn``. With a
     ``sem_cache`` the anchors stage into the hot set first, which needs a
-    chunked ``score_all_fn``. ``n_entities`` overrides the model's entity
-    count for the score mask (a retained version's count, from
-    ``ServingEngine.params_at``). Returns ``(results, params)``."""
-    device = resolve_device(device)
+    chunked scorer: ``sem_rows_fn`` (e.g. ``store.read_rows``, through the
+    scorer's ``chunked``, as the engine scores) or ``score_all_fn``.
+    ``n_entities`` overrides the model's entity count for the score mask (a
+    retained version's count, from ``ServingEngine.params_at``).
+
+    Under a mesh ``ctx`` (``params`` this rank's shards, the device
+    ``ctx.device``) the call is collective: every rank calls it with the
+    same queries, as the engine's ranks serve rank 0's batches, and every
+    rank returns the same results. Returns ``(results, params)``."""
+    sharded = ctx is not None and ctx.is_sharded
+    device = resolve_device(ctx.device if sharded and device is None else device)
     if executor.device != device:
         raise ValueError(f"executor runs on {executor.device}, not {device}")
+    if sharded and score_all_fn is not None:
+        raise ValueError("under a mesh the scorer scores each rank's rows; pass "
+                         "sem_rows_fn for the chunked path, not score_all_fn")
     if sem_cache is not None:
-        if score_all_fn is None:
+        if score_all_fn is None and sem_rows_fn is None:
             # Hot-set params cannot dense-score (score_all refuses the
             # bounded buffer); fail before doing any staging work.
             raise ValueError(
-                "serve_batch with sem_cache needs score_all_fn (e.g. "
-                "lambda p, q: model.score_all_chunked(p, q, store.read_rows))")
+                "serve_batch with sem_cache needs sem_rows_fn (e.g. "
+                "store.read_rows) or score_all_fn (e.g. lambda p, q: "
+                "model.score_all_chunked(p, q, store.read_rows))")
         stage = sem_cache.plan(np.concatenate([q.anchors for q in queries]))
         if stage is not None:
             params = sem_cache.apply_to(params, stage)
-    states = executor.encode(params, queries)
-    if score_all_fn is None:
-        scores = scorer_for(model)(params, states, n_entities)
-    else:
+    scorer = scorer_for(model, ctx)
+    view = enc = params
+    if sharded:
+        view = scorer.mesh.view(params)
+        enc = scorer.mesh.encode_params(view, queries)
+    states = executor.encode(enc, queries)
+    if score_all_fn is not None:
         scores = score_all_fn(params, states)
+    elif sem_rows_fn is not None:
+        scores = scorer.chunked(view, states, sem_rows_fn)
+    else:
+        scores = scorer(view, states, n_entities)
     if isinstance(scores, torch.Tensor):
         scores = scores.cpu().numpy()
     idx = topk_desc(scores, top_k)
@@ -143,10 +178,11 @@ def _parse_tenants(tenants_spec, mix_spec):
     return specs, {n: w / total for n, w in weights.items()}
 
 
-def _serve_tier(args, kg, model, params, device) -> None:
+def _serve_tier(args, kg, model, params, device, ctx) -> None:
     """Multi-replica serving tier: rendezvous plan-cache-affinity routing
     over ``--replicas`` engines with per-tenant priority admission and typed
-    low-priority sheds."""
+    low-priority sheds. Under a mesh every rank builds the same replicas;
+    rank 0 routes and the others follow its batches."""
     from repro_torch.serving import (ReplicaPool, Router, TenantLoad,
                                      run_tenant_mix)
 
@@ -156,7 +192,10 @@ def _serve_tier(args, kg, model, params, device) -> None:
                         queue_depth=args.queue_depth, top_k=args.top_k,
                         latency_window=args.latency_window)
     pool = ReplicaPool(model, params, n_replicas=args.replicas, cfg=cfg,
-                       mat_budget_rows=args.materialize, device=device)
+                       mat_budget_rows=args.materialize, device=device, ctx=ctx)
+    if ctx.rank != 0:
+        _follow_rank(pool, args, ctx)
+        return
     router = Router(pool, tenants=specs)
     workload = make_workload(kg, args.requests, seed=7)
     # Warmup builds every signature each home replica will see (placement
@@ -185,7 +224,7 @@ def _serve_tier(args, kg, model, params, device) -> None:
     else:
         print(run_open_loop(router, workload, qps=args.qps).describe())
     if args.trace:
-        _write_trace(args.trace)
+        _write_trace(_rank_path(args.trace, ctx))
     st = router.stats()
     for rid, rs in sorted(st["pool"]["per_replica"].items()):
         mc = rs.get("mat_cache")
@@ -202,8 +241,32 @@ def _serve_tier(args, kg, model, params, device) -> None:
                   f"{ts['completed']}/{ts['submitted']} completed, "
                   f"shed {sheds or 0}, p99 {ts['latency_ms']['p99']:.1f} ms")
     if args.metrics:
-        _write_metrics(args.metrics)
+        _write_metrics(_rank_path(args.metrics, ctx))
     router.close()
+
+
+def _follow_rank(server, args, ctx) -> None:
+    """A rank other than 0 under a mesh: serve rank 0's batches until it
+    closes (``server`` an engine or a replica pool), then write this rank's
+    trace and metrics. A follower cannot tell the warmup's batches from the
+    timed pass's, so its trace spans both."""
+    if args.trace:
+        TRACER.enable()
+        TRACER.set_lane("follower main")
+    server.follow()
+    server.close()
+    if args.trace:
+        _write_trace(_rank_path(args.trace, ctx))
+    if args.metrics:
+        _write_metrics(_rank_path(args.metrics, ctx))
+
+
+def _rank_path(path, ctx):
+    """``path`` with this rank before its suffix under a mesh."""
+    if path is None or not ctx.is_sharded:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{ctx.rank}{ext}"
 
 
 def _write_trace(path: str) -> None:
@@ -288,6 +351,12 @@ def main(argv=None) -> None:
     ap.add_argument("--autotune-cache", default=None, metavar="PATH",
                     help="persisted kernel launch-geometry cache to serve "
                          "with (written by launch.train --autotune)")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="serve under a mesh: data=N[,model=M], one process a "
+                         "device under torchrun --nproc-per-node N")
+    ap.add_argument("--profile", default="2d", choices=["2d", "fsdp"],
+                    help="sharding profile for --mesh: 2d = entity rows over "
+                         "model, fsdp = over every axis")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace-event/Perfetto JSON timeline "
                          "of the timed replay (lanes: client N or tenant T, "
@@ -314,40 +383,74 @@ def main(argv=None) -> None:
         ap.error("--live-writes/--max-staleness do not compose with "
                  "--semantic-store (the device hot set is incompatible with "
                  "version-pinned replay)")
+    if live and args.mesh is not None:
+        ap.error("--live-writes/--max-staleness under --mesh come with slice 9c: "
+                 "a graph write and its fine-tune would land at different points "
+                 "on different ranks, and their collectives would not pair")
+    ctx, owns_group = ExecutionContext.single_device(), False
+    if args.mesh is not None:
+        if not dist.is_initialized():
+            init_process_group_from_env(args.device)
+            owns_group = True
+        ctx = make_execution_context(args.mesh, profile=args.profile, device=args.device)
+    try:
+        _run(args, ctx)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
-    device = resolve_device(args.device)
+
+def _run(args, ctx) -> None:
+    tier = args.replicas > 1 or args.tenants
+    live = args.live_writes > 0 or args.max_staleness > 0
+    device = ctx.device if ctx.is_sharded else resolve_device(args.device)
+    rank0 = ctx.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if ctx.is_sharded:
+        say(f"execution context: {ctx.describe()} "
+            f"({ctx.n_devices} devices, dp={ctx.dp_size})")
     kg, _, _ = load_dataset(args.dataset, reduced=args.reduced, seed=args.seed)
-    print(f"graph: {kg.name} {kg.n_entities} entities, {kg.n_relations} "
-          f"relations, {len(kg)} training triples; device {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    say(f"graph: {kg.name} {kg.n_entities} entities, {kg.n_relations} "
+        f"relations, {len(kg)} training triples; device {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else ""))
     store, cache = None, None
     if args.semantic_store:
         from repro_torch.semantic import (SemanticCache, SemanticStore,
                                           StubPTE,
                                           precompute_semantic_table_to_store)
 
-        if os.path.isfile(os.path.join(args.semantic_store, "meta.json")):
-            store = SemanticStore(args.semantic_store)
-        else:
+        if rank0 and not os.path.isfile(os.path.join(args.semantic_store, "meta.json")):
             t0 = time.time()
-            store = precompute_semantic_table_to_store(
-                kg, args.semantic_store, StubPTE(device=device))
-            print(f"semantic store: built in {time.time() - t0:.1f}s")
+            precompute_semantic_table_to_store(kg, args.semantic_store,
+                                               StubPTE(device=device))
+            say(f"semantic store: built in {time.time() - t0:.1f}s")
+        if ctx.is_sharded:
+            ctx.mesh.barrier()  # rank 0 has built the store; every rank opens it
+        store = SemanticStore(args.semantic_store)
         if store.n_rows != kg.n_entities:
             raise ValueError(f"the store at {args.semantic_store} holds "
                              f"{store.n_rows} rows, the graph "
                              f"{kg.n_entities} entities")
         cache = SemanticCache(store, budget_rows=min(args.semantic_budget_rows,
                                                      kg.n_entities),
-                              device=device)
-        print(f"semantic store: {store.n_rows}x{store.dim} {store.quant}, "
-              f"{cache.device_resident_sem_bytes/1e6:.2f} MB device-resident")
+                              device=device, ctx=ctx)
+        say(f"semantic store: {store.n_rows}x{store.dim} {store.quant}, "
+            f"{cache.device_resident_sem_bytes/1e6:.2f} MB device-resident")
+    # Entity rows padded to a multiple of the mesh size, so the table splits.
     model = make_model(args.model, ModelConfig(
-        dim=args.dim, semantic_dim=store.dim if store else 0), device=device)
+        dim=args.dim, semantic_dim=store.dim if store else 0,
+        entity_pad=max(1, ctx.n_devices)), device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init_params(gen, kg.n_entities, kg.n_relations,
-                               semantic_cache=cache)
+                               semantic_cache=cache,
+                               ctx=ctx if ctx.is_sharded else None)
+    if ctx.is_sharded:
+        shape = model.full_shapes["entity"]
+        ent = params["entity"]
+        say(f"entity table: {np.prod(shape) * ent.element_size()/1e6:.2f} MB logical, "
+            f"{ent.numel() * ent.element_size()/1e6:.2f} MB/device "
+            f"({ctx.param_spec('entity', shape)} over {ctx.describe()})")
     if args.autotune_cache:
         # Before any executor exists: each snapshots its kernel-aware tile
         # policy from the process tuner at construction.
@@ -355,20 +458,20 @@ def main(argv=None) -> None:
 
         tuner = kat.KernelTuner(path=args.autotune_cache)
         kat.set_tuner(tuner)
-        print(f"autotune: {len(tuner)} tuned configs loaded from {tuner.path}"
-              + (f" (rejected: {tuner.load_error})" if tuner.load_error else ""))
+        say(f"autotune: {len(tuner)} tuned configs loaded from {tuner.path}"
+            + (f" (rejected: {tuner.load_error})" if tuner.load_error else ""))
     if tier:
-        _serve_tier(args, kg, model, params, device)
+        _serve_tier(args, kg, model, params, device, ctx)
         return
     executor = PooledExecutor(model, b_max=256, cse=not args.no_cse,
-                              device=device)
+                              device=device, ctx=ctx)
     mat_cache = None
     if args.materialize > 0:
         from repro_torch.core import MaterializedSubqueryCache
 
         mat_cache = MaterializedSubqueryCache(args.materialize)
         mat_cache.watch_kg(kg)
-        print(f"materialized cache: {args.materialize} rows "
+        say(f"materialized cache: {args.materialize} rows "
               f"(invalidated on param update / KG write)")
     cfg = ServingConfig(max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms,
@@ -378,7 +481,10 @@ def main(argv=None) -> None:
     engine = ServingEngine(model, params, executor=executor, cfg=cfg,
                            device=device, sem_cache=cache,
                            sem_rows_fn=store.read_rows if store else None,
-                           mat_cache=mat_cache, kg=kg if live else None)
+                           mat_cache=mat_cache, kg=kg if live else None, ctx=ctx)
+    if not rank0:
+        _follow_rank(engine, args, ctx)
+        return
     workload = make_workload(kg, args.requests, seed=7)
     # Warmup pass builds every signature the replay will form; the timed
     # pass then reports steady-state numbers (and its retrace count).
@@ -421,7 +527,7 @@ def main(argv=None) -> None:
         writer.join()
         live_db.flush()
     if args.trace:
-        _write_trace(args.trace)
+        _write_trace(_rank_path(args.trace, ctx))
     st = engine.stats()
     print(report.describe())
     print(f"engine: {st['batches']} micro-batches "
@@ -456,7 +562,7 @@ def main(argv=None) -> None:
         print(f"semantic cache: hit rate {cs['hit_rate']:.2%}, "
               f"{cs['rows_staged']} rows staged from store")
     if args.metrics:
-        _write_metrics(args.metrics)
+        _write_metrics(_rank_path(args.metrics, ctx))
     engine.close()
 
 

@@ -250,11 +250,21 @@ class QueryEncoder(nn.Module):
         """x_i = sigma(W [h_str ⊕ F(h_sem)] + b) — Eq. 12, through the
         ``gather_fuse`` kernel (its plain version for CPU tensors).
         Differentiable in ``entity`` and the fusion weights: on the card
-        autograd runs the ``gather_fuse_backward`` kernel."""
-        if self.cfg.semantic_dim == 0:
-            return params["entity"][ent_ids]
+        autograd runs the ``gather_fuse_backward`` kernel.
+
+        Params carrying ``entity_ids`` (sorted global ids) hold in ``entity``,
+        and in a resident ``sem_table``, only those ids' rows, so ``ent_ids``
+        are first translated to rows among them; the hot set stays indexed
+        by global id through ``sem_slot``."""
         ids = torch.as_tensor(ent_ids, device=params["entity"].device)
-        out = kops.gather_fuse_params(params, ids.reshape(-1).contiguous())
+        rows = ids
+        if "entity_ids" in params:
+            held = params["entity_ids"]
+            rows = torch.searchsorted(held, ids.to(held.dtype))
+        if self.cfg.semantic_dim == 0:
+            return params["entity"][rows]
+        out = kops.gather_fuse_params(params, ids.reshape(-1).contiguous(),
+                                      rows=rows.reshape(-1).contiguous())
         return out.reshape(*ids.shape, out.shape[-1])
 
     def embed(self, params: Params, ent_ids) -> torch.Tensor:
@@ -272,14 +282,16 @@ class QueryEncoder(nn.Module):
             return kops.scoring(q, ev, gamma=self.cfg.gamma, mode=self.score_mode)
         return self.cfg.gamma - self.distance(params, q[:, None, :], ev[None, :, :])
 
-    def score_all(self, params: Params, q, n_entities: Optional[int] = None
-                  ) -> torch.Tensor:
+    def score_all(self, params: Params, q, n_entities: Optional[int] = None,
+                  row_offset: int = 0) -> torch.Tensor:
         """Logits against EVERY entity (vectorized logit formulation, Eq. 6).
         Table rows at or past the real entity count are masked to -1e30: the
         count is ``n_entities`` when given (a serving engine passes the count
         it retained with a pinned version's params), else the model's
         current ``n_entities``. With a resident semantic table every entity
-        is fused first, in one ``gather_fuse`` launch."""
+        is fused first, in one ``gather_fuse`` launch. ``row_offset`` is the
+        global id of the table's first row, where the params hold one
+        rank's block of rows under a mesh."""
         if "sem_slot" in params:
             raise RuntimeError(
                 "score_all needs every entity's semantic row, but these "
@@ -292,8 +304,8 @@ class QueryEncoder(nn.Module):
             ev = self.fused_entity_vec(params, torch.arange(rows, device=ev.device))
         scores = self._score(params, q, ev)
         n_real = getattr(self, "n_entities", rows) if n_entities is None else n_entities
-        if n_real < rows:
-            ids = torch.arange(rows, device=scores.device)
+        if n_real < row_offset + rows:
+            ids = torch.arange(row_offset, row_offset + rows, device=scores.device)
             scores = torch.where(ids[None, :] < n_real, scores,
                                  torch.full_like(scores, -1e30))
         return scores
@@ -307,25 +319,37 @@ class QueryEncoder(nn.Module):
         ``gather_fuse`` (local ``sem_ids`` into the chunk) and scores it; the
         full ``[E, d_l]`` table never exists anywhere. Returns host numpy
         [B, n_real]. ``sem_rows_fn`` is e.g. ``SemanticStore.read_rows``."""
+        rows = params["entity"].shape[0]
+        n_real = getattr(self, "n_entities", rows)
+        return self.score_rows_chunked(params, q, sem_rows_fn, 0, n_real,
+                                       chunk=chunk).cpu().numpy()
+
+    @torch.no_grad()
+    def score_rows_chunked(self, params: Params, q, sem_rows_fn, lo: int, hi: int,
+                           chunk: int = 4096, row_offset: int = 0) -> torch.Tensor:
+        """``score_all_chunked``'s scores against the global rows [lo, hi) as
+        a device tensor [B, hi - lo]: chunks of ``chunk`` rows from ``lo``.
+        ``row_offset`` is the global id of the params table's first row (one
+        rank's block under a mesh)."""
         entity = params["entity"]
         dev = entity.device
-        rows = entity.shape[0]
-        n_real = getattr(self, "n_entities", rows)
         outs = []
-        for lo in range(0, n_real, chunk):
-            hi = min(lo + chunk, n_real)
+        for a in range(lo, hi, chunk):
+            b = min(a + chunk, hi)
             if self.cfg.semantic_dim > 0:
                 z = torch.from_numpy(np.ascontiguousarray(
-                    sem_rows_fn(np.arange(lo, hi)), dtype=np.float32)).to(dev)
+                    sem_rows_fn(np.arange(a, b)), dtype=np.float32)).to(dev)
                 ev = kops.gather_fuse(
-                    torch.arange(lo, hi, device=dev), entity, z,
+                    torch.arange(a - row_offset, b - row_offset, device=dev), entity, z,
                     params["sem_proj_w"], params["sem_proj_b"],
                     params["fuse_w"], params["fuse_b"],
-                    sem_ids=torch.arange(hi - lo, device=dev))
+                    sem_ids=torch.arange(b - a, device=dev))
             else:
-                ev = entity[lo:hi]
+                ev = entity[a - row_offset:b - row_offset]
             outs.append(self._score(params, q, ev))
-        return torch.cat(outs, dim=1).cpu().numpy()
+        if not outs:   # a rank whose rows are all padding
+            return torch.empty((q.shape[0], 0), dtype=torch.float32, device=dev)
+        return torch.cat(outs, dim=1)
 
 
 def _carried(v, device) -> torch.Tensor:
@@ -339,16 +363,21 @@ def _carried(v, device) -> torch.Tensor:
 
 
 def params_from_numpy(model: QueryEncoder, np_params: Mapping[str, np.ndarray],
-                      device=None, n_entities: Optional[int] = None
+                      device=None, n_entities: Optional[int] = None, ctx=None
                       ) -> Dict[str, torch.Tensor]:
     """Load a dict of numpy arrays — the JAX package's ``init_params`` output
     as ``{k: np.asarray(v)}`` — into ``model`` under the same names, on
     ``device`` (the model's device by default). ``n_entities`` is the real
-    entity count when the table is padded. Returns the params mapping."""
+    entity count when the table is padded. Under a mesh ``ctx`` the model
+    keeps only this rank's shard of each (``ctx.shard``), as
+    ``init_params(ctx=)`` does. Returns the params mapping."""
     device = model.device if device is None else torch.device(device)
     tensors = {k: _carried(v, device) for k, v in np_params.items()}
     rows = tensors["entity"].shape[0]
-    return model._set_params(tensors, rows if n_entities is None else n_entities)
+    shapes = {k: tuple(v.shape) for k, v in tensors.items()}
+    if ctx is not None:
+        tensors = {k: ctx.shard(k, v) for k, v in tensors.items()}
+    return model._set_params(tensors, rows if n_entities is None else n_entities, shapes)
 
 
 _REGISTRY: Dict[str, Callable[..., QueryEncoder]] = {}

@@ -69,7 +69,9 @@ registry-wide ``reset()`` re-baselines the engine's derived deltas
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -82,6 +84,7 @@ import torch
 from repro_torch.core.executor import PooledExecutor
 from repro_torch.core.patterns import QueryInstance
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import ExecutionContext
 from repro_torch.obs.registry import get_registry
 from repro_torch.obs.trace import TRACER
 from repro_torch.serving.loadgen import latency_summary
@@ -125,19 +128,56 @@ class CachedScorer:
     ``traces`` counts the distinct (batch size, dtype, table rows)
     signatures the scorer has been called with — the eager counterpart of
     the reference's jit trace count, so a replayed pow2-bucketed workload
-    keeps it flat. ``n_entities`` is passed through to ``score_all``."""
+    keeps it flat. ``n_entities`` is passed through to ``score_all``.
 
-    def __init__(self, model):
+    Under a mesh ``ctx`` the params hold this rank's block of entity rows
+    (``ctx.row_axes``): the scorer scores the whole batch against its rows
+    and one all-gather over the row axes makes the [B, E] scores, the same
+    on every rank (the reference pins its jit's logits replicated). The
+    table is never whole on a rank. Collective under a mesh."""
+
+    def __init__(self, model, ctx=None):
         self._model = model
+        self._ctx = ctx if ctx is not None and ctx.is_sharded else None
+        # The parameter views this mesh serves with, shared by the engine
+        # and ``serve_batch`` as the scorer is.
+        self.mesh = MeshServing(model, ctx) if self._ctx is not None else None
         self._seen = set()
         self._lock = threading.Lock()
+
+    def _first_row(self, params) -> int:
+        """The global id of this rank's first entity row."""
+        return self._ctx.mesh.index(self.mesh.axes) * params["entity"].shape[0]
 
     @torch.no_grad()
     def __call__(self, params, q, n_entities: Optional[int] = None):
         sig = (q.shape[0], q.dtype, params["entity"].shape[0])
         with self._lock:
             self._seen.add(sig)
-        return self._model.score_all(params, q, n_entities=n_entities)
+        if self._ctx is None:
+            return self._model.score_all(params, q, n_entities=n_entities)
+        local = self._model.score_all(params, q, n_entities=n_entities,
+                                      row_offset=self._first_row(params))
+        return self._ctx.gather_blocks(local, self.mesh.axes, dim=1)
+
+    @torch.no_grad()
+    def chunked(self, params, q, sem_rows_fn) -> np.ndarray:
+        """``model.score_all_chunked`` (out of core): under a mesh each rank
+        streams the chunks of its own rows from the store and one all-gather
+        makes the [B, n_real] scores."""
+        if self._ctx is None:
+            return self._model.score_all_chunked(params, q, sem_rows_fn)
+        lo = self._first_row(params)
+        rows = params["entity"].shape[0]
+        n_real = self._model.n_entities
+        hi = max(lo, min(lo + rows, n_real))
+        local = self._model.score_rows_chunked(params, q, sem_rows_fn, lo, hi,
+                                               row_offset=lo)
+        if hi - lo < rows:   # this block's padding rows: never in the top-k
+            local = torch.cat([local, local.new_full((q.shape[0], rows - (hi - lo)),
+                                                     -1e30)], dim=1)
+        return self._ctx.gather_blocks(local, self.mesh.axes,
+                                       dim=1)[:, :n_real].cpu().numpy()
 
     @property
     def traces(self) -> int:
@@ -147,15 +187,161 @@ class CachedScorer:
 _SCORER_LOCK = threading.Lock()
 
 
-def scorer_for(model) -> CachedScorer:
-    """The scorer cached on ``model``: the engine and ``serve_batch`` resolve
-    the same object, so their scores come from one code path and share one
-    signature count."""
+def scorer_for(model, ctx=None) -> CachedScorer:
+    """The scorer cached on ``model`` (per ``ctx.describe()`` under a mesh):
+    the engine and ``serve_batch`` resolve the same object, so their scores
+    come from one code path and share one signature count."""
+    key = ctx.describe() if ctx is not None and ctx.is_sharded else None
     with _SCORER_LOCK:
-        s = getattr(model, "_cached_scorer", None)
+        cache = model.__dict__.setdefault("_cached_scorers", {})
+        s = cache.get(key)
         if s is None:
-            s = model._cached_scorer = CachedScorer(model)
+            s = cache[key] = CachedScorer(model, ctx)
     return s
+
+
+class MeshServing:
+    """The parameters one rank serves with under a mesh ``ctx``.
+
+    * ``view(params)`` — every parameter whole, gathered once per params
+      set (``ctx.gather``), except the entity table (and a resident
+      ``sem_table``), which stay this rank's block of rows; the hot set
+      (``sem_cache``/``sem_slot``) is replicated and shared. Collective the
+      first time a params set is seen.
+    * ``encode_params(view, queries)`` — the view with the entity rows of
+      the batch's anchors (``ctx.fetch_rows``: each from its owner, bitwise)
+      and their sorted ids under ``entity_ids``, which the model's
+      ``fused_entity_vec`` looks ids up in. Collective, once per batch.
+
+    So the encode sees exactly the single-device rows, and the table as a
+    whole is never on a rank."""
+
+    _RETAIN = 4
+
+    def __init__(self, model, ctx):
+        self.model = model
+        self.ctx = ctx
+        self.axes = ctx.row_axes("entity", model.full_shapes["entity"])
+        self._views: Dict[int, Tuple[object, Dict]] = {}
+
+    def view(self, params) -> Dict[str, torch.Tensor]:
+        hit = self._views.get(id(params))
+        if hit is not None and hit[0] is params:
+            return hit[1]
+        shapes = self.model.full_shapes
+        out = {}
+        for k in sorted(params):
+            if k == "entity":
+                out[k] = params[k]
+            elif k == "sem_table":
+                out[k] = self._block_rows(k, params[k], shapes[k], params["entity"])
+            else:
+                out[k] = self.ctx.gather(k, params[k], shapes[k])
+        self._views[id(params)] = (params, out)
+        while len(self._views) > self._RETAIN:
+            del self._views[next(iter(self._views))]
+        return out
+
+    def _block_rows(self, name, local, shape, entity) -> torch.Tensor:
+        """``name``'s rows of this rank's entity block: its own shard where
+        its rule splits rows as the entity table's does, else those rows cut
+        from the gathered table."""
+        if self.ctx.param_spec(name, tuple(shape)) == self.ctx.param_spec(
+                "entity", tuple(self.model.full_shapes["entity"])):
+            return local
+        n = entity.shape[0]
+        lo = self.ctx.mesh.index(self.axes) * n
+        return self.ctx.gather(name, local, shape)[lo:lo + n].clone()
+
+    def encode_params(self, view, queries: Sequence[QueryInstance]) -> Dict:
+        ids = np.unique(np.concatenate([np.asarray(q.anchors, dtype=np.int64)
+                                        for q in queries]))
+        out = dict(view)
+        out["entity"] = self.ctx.fetch_rows(view["entity"], self.axes, ids)
+        if "sem_table" in view:
+            out["sem_table"] = self.ctx.fetch_rows(view["sem_table"], self.axes, ids)
+        out["entity_ids"] = torch.as_tensor(ids, device=view["entity"].device)
+        return out
+
+
+class MeshLane:
+    """The one ordered lane of a mesh's serving collectives.
+
+    Rank 0 alone admits requests and forms micro-batches (its batchers' time
+    decides them); for each one it broadcasts the batch's composition — its
+    requests' queries and ``top_k`` — and every rank then serves that batch,
+    collectives and all. Ranks other than 0 run no batcher: ``follow()``
+    receives compositions and serves them in the order sent, until rank 0's
+    last engine closes. Every engine of one mesh shares the lane, so the
+    replicas' batchers take turns under ``lock`` and one process group
+    carries every collective in one order on every rank. An engine's lane
+    id is its place in the order the rank built the lane's engines, the
+    same on every rank."""
+
+    _LANES: Dict[int, "MeshLane"] = {}
+    _GUARD = threading.Lock()
+
+    @classmethod
+    def of(cls, ctx) -> "MeshLane":
+        with cls._GUARD:
+            lane = cls._LANES.get(id(ctx.mesh))
+            if lane is None or lane.ctx.mesh is not ctx.mesh:
+                lane = cls._LANES[id(ctx.mesh)] = cls(ctx)
+            return lane
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.lock = threading.RLock()
+        self._engines: Dict[int, "ServingEngine"] = {}
+        self._next_id = 0
+
+    def register(self, engine) -> int:
+        with self.lock:
+            lane_id = self._next_id
+            self._next_id += 1
+            self._engines[lane_id] = engine
+            return lane_id
+
+    def _broadcast(self, payload: Optional[bytes]) -> Optional[bytes]:
+        mesh, dev = self.ctx.mesh, self.ctx.device
+        axes = mesh.axis_names
+        n = torch.tensor([0 if payload is None else len(payload)], dtype=torch.int64,
+                         device=dev)
+        mesh.broadcast(n, 0, axes)
+        size = int(n.item())
+        if size == 0:
+            return None
+        buf = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(dev)
+               if payload is not None else torch.empty(size, dtype=torch.uint8, device=dev))
+        mesh.broadcast(buf, 0, axes)
+        return buf.cpu().numpy().tobytes()
+
+    def announce(self, lane_id: int, flush: str, batch: Sequence) -> None:
+        """Rank 0, holding ``lock``: send one batch's composition."""
+        reqs = [(r.query.pattern, np.asarray(r.query.anchors),
+                 np.asarray(r.query.relations), r.top_k) for r in batch]
+        self._broadcast(pickle.dumps((lane_id, flush, reqs)))
+
+    def release(self, lane_id: int) -> None:
+        """An engine closed. On rank 0, after the last open one, tell the
+        other ranks to stop following."""
+        with self.lock:
+            if self._engines.pop(lane_id, None) is None:
+                return
+            if self.ctx.rank == 0 and not self._engines:
+                self._broadcast(None)
+
+    def follow(self) -> int:
+        """Ranks other than 0: serve every batch rank 0 sends, in order, until
+        it stops. Returns the number of batches served."""
+        n = 0
+        while True:
+            msg = self._broadcast(None)
+            if msg is None:
+                return n
+            lane_id, flush, reqs = pickle.loads(msg)
+            self._engines[lane_id]._follow(flush, reqs)
+            n += 1
 
 
 def pad_to_bucket(queries: Sequence[QueryInstance]):
@@ -191,6 +377,11 @@ class ServingConfig:
     # current at ADMISSION and served on exactly those params even if
     # ``update_params`` lands while it queues (the replica tier's contract).
     pin_params_on_admit: bool = False
+
+
+# Errors a request's own query raises (a malformed pattern is a KeyError):
+# every rank of a mesh meets them on the same batch.
+_QUERY_ERRORS = (KeyError, ValueError)
 
 
 @dataclasses.dataclass
@@ -236,13 +427,24 @@ class ServingEngine:
     against a live graph, ``cfg.pin_params_on_admit`` the hot-swap contract
     (module docstring). ``name`` labels the batcher thread; ``obs_labels``
     label every registry metric the engine publishes (replicas pass
-    ``replica="0"`` etc.)."""
+    ``replica="0"`` etc.).
+
+    Under a mesh ``ctx`` (``distributed/context.py``) ``params`` are this
+    rank's shards (``init_params(ctx=)``) and the engine runs on
+    ``ctx.device``. Every rank serves the same micro-batches and holds the
+    same answers; rank 0 admits requests, forms the batches and replies,
+    and the other ranks ``follow()`` it through the mesh's ``MeshLane``.
+    The entity table stays split by rows: the encode fetches its anchors'
+    rows (``MeshServing``) and the scorer gathers the [B, E] scores. Live
+    graphs (``kg=``) and hot swaps (``update_params``) wait for slice 9c:
+    a write or a swap landing at different points on different ranks would
+    pair different collectives."""
 
     def __init__(self, model, params, executor=None,
                  cfg: Optional[ServingConfig] = None, device=None,
                  sem_cache=None, sem_rows_fn=None, started: bool = True,
                  mat_cache=None, kg=None, obs_labels: Optional[Dict[str, str]] = None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, ctx=None):
         self.model = model
         self.params = params
         self.name = name or "serving"
@@ -251,9 +453,16 @@ class ServingEngine:
             raise ValueError("max_batch and queue_depth must be >= 1")
         if self.cfg.latency_window < 1:
             raise ValueError("latency_window must be >= 1")
-        self.device = resolve_device(device)
+        self.ctx = ctx if ctx is not None else ExecutionContext.single_device()
+        sharded = self.ctx.is_sharded
+        if sharded and kg is not None:
+            raise NotImplementedError(
+                "staleness-bounded serving (kg=) under a mesh comes with slice 9c: "
+                "a graph write lands at different points on different ranks")
+        self.device = resolve_device(self.ctx.device if device is None and sharded
+                                     else device)
         self.executor = executor or PooledExecutor(model, b_max=256,
-                                                   device=self.device)
+                                                   device=self.device, ctx=self.ctx)
         if self.executor.device != self.device:
             raise ValueError(f"executor runs on {self.executor.device}, the "
                              f"engine on {self.device}")
@@ -298,7 +507,7 @@ class ServingEngine:
         self._params_retention = 4
         self._params_by_version: Dict[int, Tuple[object, int]] = (
             {0: (params, self._n_entities)} if self.cfg.pin_params_on_admit else {})
-        self._scorer = scorer_for(model)
+        self._scorer = scorer_for(model, self.ctx)
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
         self._q: "queue.Queue" = queue.Queue(maxsize=self.cfg.queue_depth)
@@ -334,7 +543,12 @@ class ServingEngine:
         get_registry().on_reset(self._rebaseline)
         self.batch_log: List[BatchRecord] = []
         self._thread: Optional[threading.Thread] = None
-        if started:
+        self._mesh = self._scorer.mesh
+        self._lane = MeshLane.of(self.ctx) if sharded else None
+        self._lane_id = self._lane.register(self) if sharded else -1
+        # Ranks other than 0 run no batcher: they follow rank 0's batches.
+        self.leader = self.ctx.rank == 0
+        if started and self.leader:
             self.start()
 
     def _rebaseline(self) -> None:
@@ -378,6 +592,9 @@ class ServingEngine:
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> None:
+        if not self.leader:
+            raise RuntimeError(f"rank {self.ctx.rank} of {self.ctx.describe()} runs no "
+                               "batcher: it follow()s rank 0")
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
@@ -404,6 +621,47 @@ class ServingEngine:
         # Anything still queued (drain=False or timeout) fails loudly rather
         # than leaving callers blocked on forever-pending futures.
         self._fail_queued()
+        if self._lane is not None:
+            self._lane.release(self._lane_id)
+
+    def follow(self) -> int:
+        """A rank other than 0 under a mesh: serve rank 0's micro-batches, in
+        its order, until its engines close (``MeshLane.follow``). Returns the
+        number of batches served."""
+        if self._lane is None or self.leader:
+            raise RuntimeError("follow() is for ranks other than 0 of a mesh")
+        with self._lock:
+            self._closed = True   # a follower admits nothing itself
+        return self._lane.follow()
+
+    def _follow(self, flush: str, reqs) -> None:
+        """Serve one batch rank 0 announced, as rank 0 serves it.
+
+        A query's own error (``_QUERY_ERRORS``, e.g. a malformed pattern) is
+        the one rank 0 meets on the same inputs: it retries the requests
+        alone and announces each retry, so this rank goes on, counting a
+        failure where rank 0 does (a batch of one). Any other error may be
+        this rank's alone (memory, a store read), after which its
+        collectives would no longer pair with rank 0's: it is counted,
+        written to stderr and raised, ending ``follow()``."""
+        now = time.perf_counter()
+        batch = [_Request(QueryInstance(p, a, r), k, Future(), now)
+                 for p, a, r, k in reqs]
+        try:
+            self._serve(batch, flush)
+        except _QUERY_ERRORS as e:
+            if len(batch) == 1:
+                with self._lock:
+                    self._failures += 1
+            print(f"[rank {self.ctx.rank}] {self.name}: a batch of {len(batch)} failed "
+                  f"({type(e).__name__}: {e}), as on rank 0", file=sys.stderr)
+        except Exception as e:
+            with self._lock:
+                self._failures += len(batch)
+            print(f"[rank {self.ctx.rank}] {self.name}: a batch of {len(batch)} failed "
+                  f"on this rank ({type(e).__name__}: {e}); it stops following",
+                  file=sys.stderr)
+            raise
 
     def _fail_queued(self) -> None:
         try:
@@ -440,6 +698,7 @@ class ServingEngine:
         ``StaleVersionError`` when the live graph has moved more than
         ``cfg.max_staleness_versions`` ahead (checked here and again at
         execute time, since writes can land while the request queues)."""
+        self._check_leader()
         k = self.cfg.top_k if top_k is None else top_k
         if k < 1:
             raise ValueError(f"top_k must be >= 1, got {k}")
@@ -494,6 +753,7 @@ class ServingEngine:
         group share one admission timestamp and params version; the bounded
         queue counts a group as one entry. Graph-version pinning stays on
         the single-request path."""
+        self._check_leader()
         if not queries:
             return []
         k = self.cfg.top_k if top_k is None else top_k
@@ -524,6 +784,11 @@ class ServingEngine:
         if self._stop.is_set():
             self._fail_queued()
         return [r.future for r in group]
+
+    def _check_leader(self) -> None:
+        if not self.leader:
+            raise RuntimeError(f"rank {self.ctx.rank} of {self.ctx.describe()} admits "
+                               "no requests: submit on rank 0")
 
     def queue_depth(self) -> int:
         """Entries waiting in the admission queue (the router's spill
@@ -637,7 +902,14 @@ class ServingEngine:
         try:
             with TRACER.span("batch", n=len(batch), flush=flush,
                              trace_ids=[r.trace_id for r in batch]):
-                results = self._serve(batch, flush)
+                if self._lane is None:
+                    results = self._serve(batch, flush)
+                else:
+                    # One batch at a time on the mesh: its composition, then
+                    # its collectives, in the order every rank follows.
+                    with self._lane.lock:
+                        self._lane.announce(self._lane_id, flush, batch)
+                        results = self._serve(batch, flush)
         except Exception as e:
             if isinstance(e, StaleVersionError):
                 # The pin was evicted mid-batch by a concurrent write: a
@@ -693,6 +965,10 @@ class ServingEngine:
         the CURRENT graph version's snapshot; older pins keep theirs. With
         ``pin_params_on_admit`` requests already queued keep their admitted
         params."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "hot swaps under a mesh come with slice 9c: a swap lands at "
+                "different points on different ranks")
         with self._lock:
             self.params = params
             self._n_entities = int(getattr(self.model, "n_entities",
@@ -787,14 +1063,20 @@ class ServingEngine:
                 stage = self.sem_cache.plan(anchors)
             if stage is not None:
                 self.sem_cache.apply_to(params, stage)
+        enc = params
+        if self._mesh is not None:
+            # The whole parameters bar the entity rows (once a params set),
+            # then this batch's anchor rows: collectives, in lane order.
+            params = self._mesh.view(params)
+            enc = self._mesh.encode_params(params, padded)
         with TRACER.span("encode", n=len(padded), graph_version=gv):
-            states = self._states_for(params, uniq, padded, n_real, mat_ver, gv,
+            states = self._states_for(enc, uniq, padded, n_real, mat_ver, gv,
                                       use_cache=use_mat)
         # The scores' copy to the host waits for the card: ``score`` ends only
         # once every launch before it has run.
         with TRACER.span("score", n=len(padded)):
             if self.sem_cache is not None:
-                scores = self.model.score_all_chunked(params, states, self.sem_rows_fn)
+                scores = self._scorer.chunked(params, states, self.sem_rows_fn)
             else:
                 scores = self._scorer(params, states, n_ent).cpu().numpy()
         # Select per DISTINCT (row, k) group, not one k_max selection sliced

@@ -21,7 +21,14 @@ Replicas are dense-params only: the out-of-core ``sem_cache`` hot set is a
 single shared device buffer that admitted-params replay cannot coexist
 with (the engine rejects the combination), and live-graph attachment
 (``kg=``) uses the same version axis — both stay on the single-engine
-path. A mesh ``ctx`` (serving under a mesh) comes with slice 9b.
+path.
+
+Under a mesh ``ctx`` every rank builds the same replicas in the same order;
+each replica's executor and engine run on the context (``params`` are the
+rank's shards). Rank 0's replicas admit and batch; on the other ranks
+``ReplicaPool.follow()`` serves rank 0's batches. All replicas of a mesh
+share its one ``MeshLane``, so their batches take turns on one set of
+process groups, in one order on every rank.
 """
 from __future__ import annotations
 
@@ -36,28 +43,35 @@ from repro_torch.device import resolve_device
 from repro_torch.serving.engine import ServingConfig, ServingEngine
 
 
+def _device(device, ctx):
+    """``device``, else the mesh rank's device, else ``cuda``."""
+    if device is None and ctx is not None and ctx.is_sharded:
+        return ctx.device
+    return resolve_device(device)
+
+
 class Replica:
     """One serving replica: engine + private executor/cache stack."""
 
     def __init__(self, rid: int, model, params,
                  cfg: Optional[ServingConfig] = None,
                  mat_budget_rows: int = 0, b_max: int = 256, device=None,
-                 started: bool = True):
+                 started: bool = True, ctx=None):
         self.rid = int(rid)
         cfg = cfg or ServingConfig()
         # The swap contract is per-replica: requests complete on the params
         # they were admitted under even while the pool swaps underneath.
         cfg = dataclasses.replace(cfg, pin_params_on_admit=True)
-        device = resolve_device(device)
+        device = _device(device, ctx)
         self.mat_cache = (MaterializedSubqueryCache(
             mat_budget_rows, name=f"replica{self.rid}")
             if mat_budget_rows > 0 else None)
-        self.executor = PooledExecutor(model, b_max=b_max, device=device)
+        self.executor = PooledExecutor(model, b_max=b_max, device=device, ctx=ctx)
         self.engine = ServingEngine(
             model, params, executor=self.executor, cfg=cfg, device=device,
             mat_cache=self.mat_cache, started=started,
             obs_labels={"replica": str(self.rid)},
-            name=f"replica {self.rid}")
+            name=f"replica {self.rid}", ctx=ctx)
 
     # Thin pass-throughs: the router talks to replicas, not engines.
     def submit(self, query, top_k=None, timeout=None):
@@ -100,7 +114,7 @@ class ReplicaPool:
     def __init__(self, model, params, n_replicas: int = 1,
                  cfg: Optional[ServingConfig] = None,
                  mat_budget_rows: int = 0, b_max: int = 256, device=None,
-                 started: bool = True):
+                 started: bool = True, ctx=None):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.model = model
@@ -108,7 +122,8 @@ class ReplicaPool:
         self._cfg = cfg or ServingConfig()
         self._mat_budget_rows = mat_budget_rows
         self._b_max = b_max
-        self._device = resolve_device(device)
+        self._device = _device(device, ctx)
+        self._ctx = ctx
         self._lock = threading.Lock()
         self._next_rid = 0
         self._replicas: Dict[int, Replica] = {}
@@ -120,7 +135,7 @@ class ReplicaPool:
         return Replica(rid, self.model, self.params, cfg=self._cfg,
                        mat_budget_rows=self._mat_budget_rows,
                        b_max=self._b_max, device=self._device,
-                       started=started)
+                       started=started, ctx=self._ctx)
 
     def add_replica(self, started: bool = True) -> int:
         with self._lock:
@@ -156,6 +171,15 @@ class ReplicaPool:
             reps = list(self._replicas.values())
         for rep in reps:
             rep.update_params(params)
+
+    def follow(self) -> int:
+        """A rank other than 0 under a mesh: serve rank 0's batches for every
+        replica until rank 0's pool closes. The replicas share one lane, so
+        any one engine follows for all (``ServingEngine.follow``)."""
+        reps = list(self.replicas().values())
+        if not reps:
+            raise RuntimeError("follow() on an empty pool")
+        return reps[0].engine.follow()
 
     def retraces(self) -> Dict[int, int]:
         return {rid: rep.retraces() for rid, rep in self.replicas().items()}
