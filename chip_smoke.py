@@ -262,7 +262,32 @@ non-zero (printing no result) on any failed check:
    moments: it trains only where that is at most 60 GB), then prefills
    1,024 tokens and decodes 16, finite, with tokens/s and
    ``torch.cuda.max_memory_allocated``. The whole run's seconds follow.
-13. The last line: ``{"ok": true, "device": {...}}``.
+13. The LM zoo over a mesh and its dry run (after 12). (a) One NCCL rank
+   (``data=1``, 2d and fsdp; one rank's shards are its whole tensors):
+   qwen2-0.5b's train step, prefill and decode and mixtral-8x22b's (4
+   layers) prefill and decode at phase 12 (b)'s sizes bitwise the
+   single-device steps. Two gloo ranks on the card (``data=1,model=2`` 2d,
+   ``seq_shard`` off and on, one row; ``data=2`` fsdp, two rows), each of the
+   ten reduced architectures (mixtral and jamba in ``moe_mode`` tp and ep)
+   with compute in fp32: each rank's forward, prefill and decode logits
+   within rtol 1e-4, atol 1e-4 of single-device steps on its rows, its loss
+   within 1e-4 of the rows' mean, the whole step-1 Adam m (gathered) within
+   phase 12's 1e-3 of its norm of the rows' mean; every ``ProcessMesh``
+   counter equal to a ``VirtualMesh``'s of the same shape and rank over the
+   same program on meta tensors. (b) The dry run on a 1×1 virtual mesh of
+   qwen2-0.5b, mamba2-1.3b and whisper-large-v3's train step and
+   mixtral-8x22b's (4 layers) prefill, batch 1 × 1,024: its FLOPs equal to
+   ``FlopCounterMode``'s count of the same step on the card, its peak within
+   1% of the step's own ``torch.cuda.max_memory_allocated`` (less what was
+   allocated before its parameters), the measured step time beside three
+   bounds reckoned from the H100's published peaks (the dry run's, whose
+   memory term is eager traffic; compute alone; minimal bytes), with the
+   card's name and power limit. (c) ``launch.dryrun`` on this host over
+   ``PHASE13_SUBSET``, always (every architecture and shape, single-pod
+   and multi-pod; the full sweep takes longer than 180 s), and the NGDB cell
+   dense and sparse: one line a cell (peak a device, dominant term, bound)
+   and the seconds.
+14. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2062,6 +2087,9 @@ def main() -> None:
 
     # ------------------------------------------------------- 12. the LM zoo
     phase12(torch, dev, card)
+
+    # --------------------------------------- 13. the LM zoo over a mesh, dry run
+    phase13(torch, dev, card)
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s")
 
     # ------------------------------------------------- 6. the kernels line
@@ -3951,6 +3979,403 @@ def phase12(torch, dev, card) -> None:
         del params, caches, logits, outs, batch
         torch.cuda.empty_cache()
     print(f"LM zoo: phase 12 in {time.perf_counter() - t12:.1f} s")
+
+
+# ------------------------------------------------- 13. the LM zoo over a mesh
+PHASE13_NCCL = (("qwen2-0.5b", None), ("mixtral-8x22b", 4))   # phase 12's sizes
+PHASE13_MESHES = (("data=1,model=2", "2d", 1), ("data=2", "fsdp", 2))  # gloo pairs
+# (b): the single-device dry run against the card at phase 12 (b)'s sizes.
+PHASE13_DRY = (("qwen2-0.5b", None, "train"), ("mamba2-1.3b", None, "train"),
+               ("whisper-large-v3", None, "train"), ("mixtral-8x22b", 4, "prefill"))
+# Dry-run peak against the step's own max_memory_allocated: sound runs read
+# 0.00-0.54%, a planted 12% undercount of the tracker 1.35-5.72% (PERF.md).
+PHASE13_PEAK_TOL = 0.01
+# (c) always runs this subset: every architecture and every shape at least
+# once, cheap cells first (the full sweep takes over 180 s; PERF.md).
+PHASE13_SUBSET = (("qwen2-0.5b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"),
+                  ("mamba2-1.3b", "long_500k"), ("qwen2-72b", "decode_32k"),
+                  ("qwen3-4b", "decode_32k"), ("internlm2-20b", "decode_32k"),
+                  ("whisper-large-v3", "decode_32k"), ("llava-next-34b", "decode_32k"),
+                  ("grok-1-314b", "decode_32k"), ("mixtral-8x22b", "decode_32k"))
+
+
+def _phase13_program(torch, cfg, ctx, dp, full, batch, b):
+    """Forward logits, prefill and decode logits, then one train step on
+    this rank's shards of ``full``: the outputs, the shards and Adam m."""
+    from repro_torch.lm.model import forward, logits_fn
+    from repro_torch.lm.parallel import MeshPlan
+    from repro_torch.lm.steps import (_forward_kwargs, lm_adam_init, make_decode_step,
+                                      make_prefill_step, make_train_step)
+
+    mesh = ctx.mesh
+    shards = ctx.shard_tree(full)
+    plan = MeshPlan(cfg, mesh, dp, b)
+    local = {k: plan.local_rows(v) for k, v in batch.items()}
+    with torch.no_grad():
+        logits = logits_fn(shards, cfg, forward(shards, cfg, par=plan,
+                                                **_forward_kwargs(cfg, local))[0], par=plan)
+    caches, prefill = make_prefill_step(cfg, mesh, dp, cache_margin=8)(shards, batch)
+    tok = torch.zeros((b, 1), dtype=torch.long, device=batch["labels"].device)
+    decode, _ = make_decode_step(cfg, mesh, dp)(shards, caches, tok, 32)
+    opt = lm_adam_init(shards)
+    _, opt, loss = make_train_step(cfg, mesh, dp)(shards, opt, batch)
+    return {"logits": logits, "prefill": prefill, "decode": decode, "loss": loss,
+            "m": opt["m"]}
+
+
+def _phase13_gloo(torch, dev, rank: int, out: dict) -> None:
+    """(a) on two gloo ranks sharing the card: each reduced architecture in
+    fp32 compute, each rank against single-device steps on its rows, and
+    its counters against a virtual mesh's over the same program on meta."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.distributed import ExecutionContext, VirtualMesh, make_execution_context
+    from repro_torch.distributed.sharding import dp_axes
+    from repro_torch.lm import model as lm_model
+    from repro_torch.lm.model import forward, init_params, logits_fn
+    from repro_torch.lm.steps import (_forward_kwargs, flatten, lm_adam_init, make_decode_step,
+                                      make_prefill_step, make_train_step)
+
+    lm_model.COMPUTE_DTYPE = torch.float32
+    for spec, profile, b in PHASE13_MESHES:
+        live = make_execution_context(spec, profile=profile, device=dev, backend="gloo")
+        dp = dp_axes(live.mesh, profile)
+        rows = [0] if b == 1 else [live.mesh.index(dp)]
+        for name in sorted(ARCHS):
+            modes = ("tp", "ep") if name in ("mixtral-8x22b", "jamba-v0.1-52b") else ("tp",)
+            for mode in modes:
+                for seq in ((False, True) if profile == "2d" else (False,)):
+                    cfg = dataclasses.replace(reduced_config(ARCHS[name]), moe_mode=mode,
+                                              seq_shard=seq)
+                    ctx = ExecutionContext.from_mesh(live.mesh, profile=profile, moe_mode=mode)
+                    full = init_params(cfg, seed=0, device=dev)
+                    batch = {k: (v.float() if v.is_floating_point() else v)[:b].to(dev)
+                             for k, v in _phase12_batch(torch, cfg, 2, 32,
+                                                        torch.device("cpu")).items()}
+                    live.mesh.counts.clear()
+                    live.mesh.bytes.clear()
+                    got = _phase13_program(torch, cfg, ctx, dp, full, batch, b)
+                    counts = live.mesh.stats()
+                    vm = VirtualMesh(dict(live.mesh.shape), rank)
+                    _phase13_program(torch, cfg,
+                                     ExecutionContext.from_mesh(vm, profile=profile,
+                                                                moe_mode=mode), dp,
+                                     init_params(cfg, device="meta"),
+                                     {k: v.to("meta") for k, v in batch.items()}, b)
+                    # Single-device steps: this rank's row, and every row's Adam m
+                    # (step 1's m is linear in the gradient: the batch's is the mean).
+                    want, ms, losses = {}, [], []
+                    for r in range(b):
+                        row = {k: v[r:r + 1] for k, v in batch.items()}
+                        p = init_params(cfg, seed=0, device=dev)
+                        if r in rows:
+                            with torch.no_grad():
+                                want["logits"] = logits_fn(p, cfg, forward(
+                                    p, cfg, **_forward_kwargs(cfg, row))[0])
+                            caches, want["prefill"] = make_prefill_step(cfg, cache_margin=8)(
+                                p, row)
+                            want["decode"], _ = make_decode_step(cfg)(
+                                p, caches, torch.zeros((1, 1), dtype=torch.long, device=dev), 32)
+                        opt = lm_adam_init(p)
+                        _, opt, loss = make_train_step(cfg)(p, opt, row)
+                        ms.append(flatten(opt["m"]))
+                        losses.append(float(loss))
+                    shapes = {k: tuple(v.shape) for k, v in flatten(full).items()}
+                    m_gap = 0.0
+                    for k, v in flatten(got["m"]).items():
+                        whole = ctx.gather(k.rsplit("/", 1)[-1], v, shapes[k])
+                        ref = sum(m[k] for m in ms) / b
+                        m_gap = max(m_gap, float(torch.linalg.vector_norm(whole - ref)
+                                                 / max(float(torch.linalg.vector_norm(ref)),
+                                                       1e-30)))
+                    out[spec, profile, name, mode, seq] = {
+                        "logits": max(float(((got[k] - want[k]).abs()
+                                             - 1e-4 * want[k].abs()).max())
+                                      for k in ("logits", "prefill", "decode")),
+                        "loss": abs(float(got["loss"]) - sum(losses) / b),
+                        "m": m_gap, "counts": counts, "virtual": vm.stats()}
+    lm_model.COMPUTE_DTYPE = torch.bfloat16
+
+
+def _phase13_nccl(torch, dev, out: dict) -> None:
+    """(a) on one NCCL rank: qwen2-0.5b and mixtral-8x22b (depth 4) at phase
+    12 (b)'s sizes, train (qwen2-0.5b), prefill and decode under ``data=1``
+    2d and fsdp, against single-device steps on the same parameters:
+    bitwise. One rank's shards are its whole tensors."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import make_execution_context
+    from repro_torch.distributed.sharding import dp_axes
+    from repro_torch.lm.model import abstract_params, init_params, param_bytes
+    from repro_torch.lm.steps import (flatten, lm_adam_init, make_decode_step,
+                                      make_prefill_step, make_train_step)
+
+    contexts = {p: make_execution_context("data=1", profile=p, device=dev, backend="nccl")
+                for p in ("2d", "fsdp")}
+    for name, depth in PHASE13_NCCL:
+        cfg = ARCHS[name] if depth is None else dataclasses.replace(ARCHS[name], n_layers=depth)
+        train = 4 * param_bytes(abstract_params(cfg)) <= PHASE12_TRAIN_BYTES
+        params = init_params(cfg, seed=0, device=dev)
+        batch = _phase12_batch(torch, cfg, 1, PHASE12_SEQ, dev)
+
+        def run(mesh=None, dp=()):
+            caches, pre = make_prefill_step(cfg, mesh, dp, cache_margin=PHASE12_DECODE)(
+                params, batch)
+            tok = pre[:, -1:].float().argmax(-1)
+            dec, _ = make_decode_step(cfg, mesh, dp)(params, caches, tok, PHASE12_SEQ)
+            del caches
+            res = {"prefill": pre, "decode": dec}
+            if train:
+                p = {k: v.clone() for k, v in flatten(params).items()}
+                from repro_torch.lm.steps import _unflatten
+
+                tree = _unflatten(p)
+                _, _, res["loss"] = make_train_step(cfg, mesh, dp)(tree, lm_adam_init(tree), batch)
+                res["params"] = flatten(tree)
+            torch.cuda.synchronize()
+            return res
+
+        want = run()
+        for profile, ctx in contexts.items():
+            got = run(ctx.mesh, dp_axes(ctx.mesh, profile))
+            same = {k: (all(torch.equal(got[k][n], want[k][n]) for n in want[k])
+                        if isinstance(want[k], dict) else torch.equal(got[k], want[k]))
+                    for k in want}
+            out[name, profile] = {"bitwise": same, "counts": ctx.mesh.stats()}
+            del got
+        del params, want
+        torch.cuda.empty_cache()
+
+
+def _phase13_rank(rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of phase 13 (a) (spawned); pickles what it saw."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{work}/pg13_{backend}{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    out = {}
+    dev = torch.device("cuda:0")
+    if backend == "nccl":
+        _phase13_nccl(torch, dev, out)
+    else:
+        _phase13_gloo(torch, dev, rank, out)
+    with open(os.path.join(work, f"p13_{backend}{world}.r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _phase13_spawn(world: int, backend: str, work: str) -> list:
+    import pickle
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    pc = mp.start_processes(_phase13_rank, args=(world, backend, work), nprocs=world,
+                            join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not pc.join(timeout=1):
+            if time.monotonic() > deadline:
+                fail(f"phase 13: the {world}-rank {backend} spawn ran past {RANK_TIMEOUT_S} s")
+    except ProcessException as e:
+        fail(f"phase 13: a {backend} rank failed: {e}")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"p13_{backend}{world}.r{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _phase13_against_card(torch, dev, card) -> None:
+    """(b) The single-device dry run of a step against the step on the card:
+    FLOPs equal to ``FlopCounterMode``'s count there, the reckoned peak
+    within PHASE13_PEAK_TOL of the step's own peak (``max_memory_allocated``
+    less what was allocated before its parameters), and the measured step
+    time beside three reckoned bounds: the dry run's (eager traffic, an
+    upper bound on the bytes a step must move, so its share reads high), the
+    compute term alone, and a minimal-bytes bound (each argument read once,
+    each output written once, or the compute term where larger)."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import VirtualMesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.lm.model import init_params
+    from repro_torch.lm.shapes import ShapeCell
+    from repro_torch.lm.steps import lm_adam_init, make_prefill_step, make_train_step
+
+    for name, depth, kind in PHASE13_DRY:
+        cfg = ARCHS[name] if depth is None else dataclasses.replace(ARCHS[name], n_layers=depth)
+        cell = ShapeCell(f"{kind}_1x{PHASE12_SEQ}", kind, PHASE12_SEQ, 1)
+        rec = run_cell(name, cell, cfg=cfg, analyze=False,
+                       mesh=VirtualMesh({"data": 1, "model": 1}))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()   # what earlier phases left
+        params = init_params(cfg, seed=0, device=dev)
+        batch = _phase12_batch(torch, cfg, 1, PHASE12_SEQ, dev)
+        if kind == "train":
+            opt = lm_adam_init(params)
+            step = make_train_step(cfg)
+
+            def once():
+                return step(params, opt, batch)
+        else:
+            batch.pop("labels")
+            step = make_prefill_step(cfg)
+
+            def once():
+                return step(params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            r = once()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del r
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r = once()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del r
+        step_s = statistics.median(times)
+        dry_peak = rec["memory"]["peak_bytes"]
+        flops = fc.get_total_flops()
+        rf = rec["roofline"]
+        mem = rec["memory"]
+        least_s = max(rf["compute_s"], (mem["argument_bytes"] + mem["output_bytes"]) / HBM_BW)
+        gap = abs(dry_peak - peak) / peak
+        print(f"phase 13 (b) {name} ({cfg.n_layers} layers) {kind} 1 x {PHASE12_SEQ}: dry-run "
+              f"FLOPs {rec['cost_exact']['flops']:.6g}, FlopCounterMode on the card "
+              f"{flops:.6g}; peak reckoned {dry_peak / 1e9:.3f} GB, "
+              f"the step's max_memory_allocated {peak / 1e9:.3f} GB ({100 * gap:.2f}% apart, "
+              f"gate {100 * PHASE13_PEAK_TOL:.0f}%); step {step_s * 1e3:.1f} ms measured; "
+              f"reckoned from {rf['constants']}: eager-traffic bound "
+              f"{rf['bound_s'] * 1e3:.2f} ms ({rf['dominant']}), "
+              f"{100 * rf['bound_s'] / step_s:.2f}% of the step; compute "
+              f"{rf['compute_s'] * 1e3:.2f} ms, {100 * rf['compute_s'] / step_s:.2f}%; "
+              f"minimal-bytes bound {least_s * 1e3:.2f} ms, {100 * least_s / step_s:.2f}% "
+              f"| {card}")
+        if rec["cost_exact"]["flops"] != flops:
+            fail(f"phase 13 (b) {name}: dry-run FLOPs {rec['cost_exact']['flops']} != the "
+                 f"card's {flops}")
+        if gap > PHASE13_PEAK_TOL:
+            fail(f"phase 13 (b) {name}: reckoned peak {dry_peak} bytes {100 * gap:.1f}% from "
+                 f"the step's max_memory_allocated {peak}")
+        del params, batch, step
+        if kind == "train":
+            del opt
+        torch.cuda.empty_cache()
+
+
+def _phase13_sweep() -> None:
+    """(c) The dry-run sweep on this host (single-pod and multi-pod, and
+    the NGDB cell dense and sparse) over PHASE13_SUBSET, each cell in a
+    process of its own."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import _run
+    from repro_torch.lm.shapes import SHAPES
+
+    cells = [(a, s) for a, s in PHASE13_SUBSET]
+    assert {a for a, _ in cells} == set(ARCHS) and {s for _, s in cells} == set(SHAPES)
+    # The whole programs only: the k-extrapolation cross-check is the CPU
+    # tests' (tests/test_torch_dryrun.py).
+    runs = [(a, s, mp, False, False) for mp in (False, True) for a, s in cells]
+    runs += [("ngdb", None, False, False, sparse) for sparse in (False, True)]
+    t0 = time.perf_counter()
+    jobs = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            jobs, mp_context=multiprocessing.get_context("spawn"),
+            max_tasks_per_child=1) as pool:
+        recs = list(pool.map(_run, *zip(*runs)))
+    for rec, (a, s, mp, _, sparse) in zip(recs, runs):
+        if "error" in rec:
+            fail(f"phase 13 (c) {a} {s} {'multi-pod' if mp else 'single-pod'}: "
+                 f"{rec['error'][-2000:]}")
+        rf = rec["roofline"]
+        label = (f"{rec['arch']} {rec['shape']}" + (" sparse" if sparse else "")
+                 + f" {rec['mesh']}")
+        print(f"phase 13 (c) {label}: peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB a device, "
+              f"{rf['dominant']} bound {rf['bound_s'] * 1e3:.3f} ms (reckoned from "
+              f"{rf['constants']}; its memory term from eager traffic), traced in "
+              f"{rec['trace_s']:.1f} s")
+    print(f"phase 13 (c): {len(runs)} cells (every architecture and shape, both meshes, "
+          f"the NGDB cell dense and sparse) in {time.perf_counter() - t0:.1f} s on {jobs} "
+          f"host processes; the full sweep is over 180 s (PERF.md)")
+
+
+def phase13(torch, dev, card) -> None:
+    """The LM zoo over a mesh, and its dry run (module docstring, 13)."""
+    import shutil
+    import tempfile
+
+    t13 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="phase13_")
+    try:
+        # (a) One NCCL rank: bitwise the single-device steps.
+        (nccl,) = _phase13_spawn(1, "nccl", work)
+        for (name, profile), r in nccl.items():
+            if not all(r["bitwise"].values()):
+                fail(f"phase 13 (a) {name} data=1 {profile}: not bitwise the single-device "
+                     f"steps: {r['bitwise']}")
+            print(f"phase 13 (a) one NCCL rank, data=1 {profile}, {name}: "
+                  f"{', '.join(sorted(r['bitwise']))} bitwise the single-device steps "
+                  f"(collectives {r['counts']['counts']})")
+        print(f"phase 13 (a) one NCCL rank in {time.perf_counter() - t13:.1f} s")
+        # (a) Two gloo ranks on the card, fp32 compute.
+        gloo = _phase13_spawn(2, "gloo", work)
+        worst = {"logits": -1.0, "loss": 0.0, "m": 0.0}
+        for rank, res in enumerate(gloo):
+            for case, r in res.items():
+                if r["counts"] != r["virtual"]:
+                    fail(f"phase 13 (a) gloo rank {rank} {case}: ProcessMesh counts "
+                         f"{r['counts']} != the virtual mesh's {r['virtual']}")
+                if r["logits"] > 1e-4 or r["loss"] > 1e-4 or r["m"] > PHASE12_MOMENT_TOL:
+                    fail(f"phase 13 (a) gloo rank {rank} {case}: logits excess {r['logits']:.3g} "
+                         f"(rtol 1e-4, atol 1e-4), loss {r['loss']:.3g} (1e-4), Adam m "
+                         f"{r['m']:.3g} of its norm ({PHASE12_MOMENT_TOL})")
+                for k in worst:
+                    worst[k] = max(worst[k], r[k])
+        print(f"phase 13 (a) two gloo ranks on the card ({', '.join(s for s, _, _ in PHASE13_MESHES)}; "
+              f"ten reduced architectures, seq_shard off and on, mixtral/jamba tp and ep; fp32): "
+              f"{len(gloo[0])} cases a rank, logits/prefill/decode at most "
+              f"{worst['logits']:.3g} past 1e-4 of the single-device steps' magnitude (gate "
+              f"atol 1e-4), losses within "
+              f"{worst['loss']:.3g}, step-1 Adam m within {worst['m']:.3g} of its norm; every "
+              f"ProcessMesh counter equal to a VirtualMesh's over the same program "
+              f"| (a) in {time.perf_counter() - t13:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # (b) The dry run against the card.
+    tb = time.perf_counter()
+    _phase13_against_card(torch, dev, card)
+    print(f"phase 13 (b) in {time.perf_counter() - tb:.1f} s")
+    # (c) The sweep.
+    _phase13_sweep()
+    print(f"LM zoo over a mesh: phase 13 in {time.perf_counter() - t13:.1f} s")
 
 
 if __name__ == "__main__":

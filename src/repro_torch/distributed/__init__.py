@@ -1,6 +1,7 @@
 from repro_torch.distributed.context import (
     ExecutionContext,
     ProcessMesh,
+    VirtualMesh,
     init_process_group_from_env,
     make_execution_context,
     parse_mesh_spec,
@@ -17,6 +18,7 @@ from repro_torch.distributed.sharding import (
 __all__ = [
     "ExecutionContext",
     "ProcessMesh",
+    "VirtualMesh",
     "init_process_group_from_env",
     "make_execution_context",
     "parse_mesh_spec",

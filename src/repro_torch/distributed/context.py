@@ -50,7 +50,47 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-class ProcessMesh:
+class _Topology:
+    """Coordinates and rank sets of a mesh laid out row-major over its axes
+    (``(pod, data, model)`` order), shared by ``ProcessMesh`` and
+    ``VirtualMesh``. Subclasses set ``shape``, ``axis_names``, ``size``,
+    ``rank`` and ``_coords`` (rank -> {axis: coordinate})."""
+
+    def _partition(self, axes: Sequence[str]) -> List[Tuple[int, ...]]:
+        """The rank sets that vary over ``axes`` with the other coordinates
+        fixed, each in ascending rank order."""
+        keep = [i for i, a in enumerate(self.axis_names) if a not in axes]
+        sets = collections.defaultdict(list)
+        for r in range(self.size):
+            c = self._coords[r]
+            sets[tuple(c[self.axis_names[i]] for i in keep)].append(r)
+        return [tuple(v) for _, v in sorted(sets.items())]
+
+    def members(self, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The ranks that share this rank's coordinates off ``axes``."""
+        key = tuple(axes)
+        if key not in self._members:
+            self._members[key] = next(m for m in self._partition(key) if self.rank in m)
+        return self._members[key]
+
+    def index(self, axes: Sequence[str], rank: Optional[int] = None) -> int:
+        """``rank``'s block index over ``axes``, major-to-minor in their
+        order (this rank's by default)."""
+        c = self._coords[self.rank if rank is None else rank]
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def ways(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.shape[a] for a in axes])) if axes else 1
+
+    def stats(self) -> Dict:
+        return {"counts": dict(self.counts), "bytes": dict(self.bytes),
+                "staged": self.staged}
+
+
+class ProcessMesh(_Topology):
     """A ``DeviceMesh`` of ``shape`` (axis -> size, in ``(pod, data, model)``
     order) over the initialised default process group, with the rule tables'
     view of it (``.shape``, ``.axis_names``) and the collectives the port
@@ -103,35 +143,6 @@ class ProcessMesh:
                         self._groups[members] = dist.new_group(list(members),
                                                                timeout=timeout)
 
-    def _partition(self, axes: Sequence[str]) -> List[Tuple[int, ...]]:
-        """The rank sets that vary over ``axes`` with the other coordinates
-        fixed, each in ascending rank order."""
-        keep = [i for i, a in enumerate(self.axis_names) if a not in axes]
-        sets = collections.defaultdict(list)
-        for r in range(self.size):
-            c = self._coords[r]
-            sets[tuple(c[self.axis_names[i]] for i in keep)].append(r)
-        return [tuple(v) for _, v in sorted(sets.items())]
-
-    def members(self, axes: Sequence[str]) -> Tuple[int, ...]:
-        """The ranks that share this rank's coordinates off ``axes``."""
-        key = tuple(axes)
-        if key not in self._members:
-            self._members[key] = next(m for m in self._partition(key) if self.rank in m)
-        return self._members[key]
-
-    def index(self, axes: Sequence[str], rank: Optional[int] = None) -> int:
-        """``rank``'s block index over ``axes``, major-to-minor in their
-        order (this rank's by default)."""
-        c = self._coords[self.rank if rank is None else rank]
-        i = 0
-        for a in axes:
-            i = i * self.shape[a] + c[a]
-        return i
-
-    def ways(self, axes: Sequence[str]) -> int:
-        return int(np.prod([self.shape[a] for a in axes])) if axes else 1
-
     # ---------------------------------------------------------- collectives
     def all_gather(self, t: torch.Tensor, axes: Sequence[str]) -> List[torch.Tensor]:
         """Every member's ``t`` over ``axes``, in ascending rank order."""
@@ -145,6 +156,10 @@ class ProcessMesh:
         dist.all_gather(out, t.contiguous(), group=group)
         return out
 
+    def all_gather_tensor(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """``all_gather``'s pieces stacked: [members, *t.shape]."""
+        return torch.stack(self.all_gather(t, axes))
+
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """``t`` summed in place over ``axes``."""
         members = self.members(axes)
@@ -154,6 +169,25 @@ class ProcessMesh:
         if group is not None:
             dist.all_reduce(t, group=group)
         return t
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+        """``t`` summed over ``axes``, of which this rank keeps its block
+        (``index(axes)``) along ``dim``: 1/ways of it."""
+        members = self.members(axes)
+        group = self._groups[members]
+        self.counts["reduce_scatter"] += 1
+        self.bytes["reduce_scatter"] += t.numel() * t.element_size()
+        if group is None:
+            return t
+        n = t.shape[dim] // len(members)
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((n,) + tuple(src.shape[1:]))
+        # Blocks go to ranks in ascending rank order, as ``all_gather``'s
+        # pieces come; reorder so rank r receives its block index(axes, r).
+        order = [self.index(axes, r) for r in members]
+        src = torch.cat([src[i * n:(i + 1) * n] for i in order])
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
 
     def broadcast(self, t: torch.Tensor, src: int, axes: Sequence[str]) -> torch.Tensor:
         """``t`` from global rank ``src`` to every member over ``axes``."""
@@ -198,9 +232,97 @@ class ProcessMesh:
         if self.size > 1:
             dist.barrier()
 
-    def stats(self) -> Dict:
-        return {"counts": dict(self.counts), "bytes": dict(self.bytes),
-                "staged": self.staged}
+HOST_RANKS = 8  # cards a host: hosts are contiguous blocks of ranks
+
+
+class VirtualMesh(_Topology):
+    """``ProcessMesh``'s interface for one ``rank`` of a mesh of ``shape``
+    with no process group: the dry run's stand-in for a mesh larger than the
+    machine (``launch/dryrun.py``). Its collectives move no data: each
+    returns a tensor of the result's shape and dtype on the input's device
+    (``all_gather`` the input and empty peers, ``all_reduce`` and
+    ``broadcast`` the input, ``reduce_scatter`` the rank's block), and counts
+    calls and bytes exactly as ``ProcessMesh`` does. ``log`` records every
+    op: its name, axes, group size, result bytes, and whether the group
+    spans hosts (contiguous blocks of ``HOST_RANKS`` ranks in row-major
+    order), which ``launch.roofline.collective_stats`` prices."""
+
+    backend = "virtual"
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0,
+                 device: torch.device = torch.device("meta")):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.size = int(np.prod(list(shape.values())))
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.device = torch.device(device)
+        grid = np.arange(self.size).reshape(tuple(shape.values()))
+        self._coords = {r: dict(zip(self.axis_names, (int(i) for i in np.argwhere(grid == r)[0])))
+                        for r in range(self.size)}
+        self.coords = self._coords[rank]
+        self.counts: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
+        self.staged = 0
+        self.log: List[Dict] = []
+        self._members: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+
+    def _record(self, op: str, axes: Sequence[str], result_bytes: int) -> int:
+        members = self.members(axes)
+        self.log.append({"op": op, "axes": tuple(axes), "group": len(members),
+                         "result_bytes": int(result_bytes),
+                         "spans_hosts": len({r // HOST_RANKS for r in members}) > 1})
+        return len(members)
+
+    def all_gather(self, t: torch.Tensor, axes: Sequence[str]) -> List[torch.Tensor]:
+        g = self._record("all_gather", axes, t.numel() * t.element_size() * len(self.members(axes)))
+        self.counts["all_gather"] += 1
+        self.bytes["all_gather"] += t.numel() * t.element_size() * g
+        return [t] + [torch.empty_like(t) for _ in range(g - 1)]
+
+    def all_gather_tensor(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        g = len(self.members(axes))
+        self._record("all_gather", axes, t.numel() * t.element_size() * g)
+        self.counts["all_gather"] += 1
+        self.bytes["all_gather"] += t.numel() * t.element_size() * g
+        return t.new_empty((g,) + tuple(t.shape))
+
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        self._record("all_reduce", axes, t.numel() * t.element_size())
+        self.counts["all_reduce"] += 1
+        self.bytes["all_reduce"] += t.numel() * t.element_size()
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+        g = len(self.members(axes))
+        self._record("reduce_scatter", axes, t.numel() * t.element_size() // g)
+        self.counts["reduce_scatter"] += 1
+        self.bytes["reduce_scatter"] += t.numel() * t.element_size()
+        if g == 1:
+            return t
+        n = t.shape[dim] // g
+        return t.narrow(dim, self.index(axes) * n, n).contiguous()
+
+    def broadcast(self, t: torch.Tensor, src: int, axes: Sequence[str]) -> torch.Tensor:
+        self._record("broadcast", axes, t.numel() * t.element_size())
+        self.counts["broadcast"] += 1
+        self.bytes["broadcast"] += t.numel() * t.element_size()
+        return t
+
+    def exchange(self, send: Optional[torch.Tensor], dst: Optional[int],
+                 recv: Optional[torch.Tensor], src: Optional[int]) -> None:
+        for op, t in (("send", send), ("recv", recv)):
+            if t is not None:
+                self.log.append({"op": op, "axes": (), "group": 2,
+                                 "result_bytes": t.numel() * t.element_size(),
+                                 "spans_hosts": (self.rank // HOST_RANKS)
+                                 != ((dst if op == "send" else src) // HOST_RANKS)})
+                self.counts[op] += 1
+                self.bytes[op] += t.numel() * t.element_size()
+
+    def barrier(self) -> None:
+        self.counts["barrier"] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +410,13 @@ class ExecutionContext:
             n = full.shape[d] // self.mesh.ways(axes)
             out = out.narrow(d, self.mesh.index(axes) * n, n)
         return full if out is full else out.contiguous().clone()
+
+    def shard_tree(self, tree):
+        """``shard`` of every leaf of a nested dict, each named by its key
+        (an LM parameter tree's stacked leaves take their rule's trailing
+        dims)."""
+        return {k: self.shard_tree(v) if isinstance(v, dict) else self.shard(k, v)
+                for k, v in tree.items()}
 
     def gather(self, name: str, local: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
         """The full tensor of ``shape`` from every rank's shard ``local``

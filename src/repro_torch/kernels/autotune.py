@@ -620,11 +620,15 @@ def pool_tile_policy(model, tuner: Optional[KernelTuner] = None,
     from tuned entries of that device whose feature dims match the model
     (intersect/union pools on ``state_dim``; embed pools on the fused
     ``cfg.dim``) and whose config is not the kernel's own choice; with none
-    the result is ``None`` and the compiler keeps bare pow2 padding."""
+    (or on meta) the result is ``None`` and the compiler keeps bare pow2
+    padding."""
     from repro_torch.core.ops import OpType
 
+    dev = torch.device(model.device if device is None else device)
+    if dev.type == "meta":  # the dry run: no kernel runs there, none was tuned
+        return None
     tuner = get_tuner() if tuner is None else tuner
-    kind = device_kind(model.device if device is None else device)
+    kind = device_kind(dev)
     tiles: Dict[Tuple[int, int, int], int] = {}
     sd = int(model.state_dim)
     dim = int(model.cfg.dim)

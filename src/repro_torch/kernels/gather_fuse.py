@@ -33,7 +33,8 @@ bits under either.
 
 ``gather_fuse`` dispatches on where its inputs lie: CPU tensors take the
 plain version ``gather_fuse_ref`` (and autograd through it); CUDA tensors
-launch the kernel or raise. On CUDA it is a ``torch.autograd.Function``
+launch the kernel or raise; meta tensors (the dry run) launch nothing and are
+reckoned (``kernels/reckon.py``), the backward too. On CUDA it is a ``torch.autograd.Function``
 whose backward is the hand-written kernel of ``csrc/gather_fuse_backward.cu``
 (``gather_fuse_backward``, fp32 only): the JAX package differentiates its
 jnp ``fuse_semantic`` and has no backward kernel to port. Gradients go to
@@ -55,7 +56,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import autotune, build
+from repro_torch.kernels import autotune, build, reckon
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Rows a block of the two kernels: the pair kernel, the split kernel; 0 is
@@ -168,7 +169,7 @@ def gather_fuse(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None, *,
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf]
     if sem_ids is not None:
         tensors.append(sem_ids)
-    if _on_cpu("gather_fuse", tensors):
+    if not reckon.on_meta(tensors) and _on_cpu("gather_fuse", tensors):
         return gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids)
     _check_kernel_inputs("gather_fuse", tensors, sem_ids)
     weights = (wp, bp, wf, bf)
@@ -207,6 +208,8 @@ class _GatherFuse(torch.autograd.Function):
 def _launch(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids, zp=None, rows=None) -> torch.Tensor:
     """The forward kernel; given ``zp`` ([n, dp] fp32), it also stores each
     row's z·Wp + bp there. ``rows`` as ``gather_fuse`` takes it."""
+    if ids.device.type == "meta":
+        return reckon.gather_fuse(ids, h_str, h_sem, wp, sem_ids, zp is not None)
     n, d, dl, dp = ids.shape[0], h_str.shape[1], h_sem.shape[1], wp.shape[-1]
     out = torch.empty((n, d), dtype=h_str.dtype, device=ids.device)
     if n == 0:
@@ -242,7 +245,7 @@ def gather_fuse_and_zp(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids=None, *,
                                 sem_ids)
     _check_rows("gather_fuse_and_zp", rows)
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf] + ([] if sem_ids is None else [sem_ids])
-    if _on_cpu("gather_fuse_and_zp", tensors):
+    if not reckon.on_meta(tensors) and _on_cpu("gather_fuse_and_zp", tensors):
         dt = _compute_dtype(h_str)
         z = h_sem[ids if sem_ids is None else sem_ids].to(dt)
         return (gather_fuse_ref(ids, h_str, h_sem, wp, bp, wf, bf, sem_ids),
@@ -320,6 +323,8 @@ def gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids=None, out
         raise ValueError(f"gather_fuse_backward: need zp [{n}, {dp}], got {tuple(zp.shape)}")
     tensors = [ids, h_str, h_sem, wp, bp, wf, bf, g]
     tensors += [t for t in (sem_ids, out, zp) if t is not None]
+    if reckon.on_meta(tensors):
+        return reckon.gather_fuse_backward(ids, h_str, h_sem, wp, bp, wf, bf, UNSORTED_ROWS)
     if _on_cpu("gather_fuse_backward", tensors):
         return gather_fuse_backward_ref(ids, h_str, h_sem, wp, bp, wf, bf, g, sem_ids)
     floats = [t for t in tensors if t is not ids and t is not sem_ids]

@@ -31,7 +31,9 @@ another; given none, a launch takes the process tuner's for its shape
 bucket. A row's bits do not depend on it.
 
 ``intersect`` dispatches on where its inputs lie: CPU tensors take the plain
-version ``intersect_ref``; CUDA tensors launch the kernel or raise. On CUDA
+version ``intersect_ref``; CUDA tensors launch the kernel or raise; meta
+tensors (the dry run) launch nothing and are reckoned (``kernels/reckon.py``),
+the backward too. On CUDA
 it is a ``torch.autograd.Function`` whose backward is the hand-written kernel
 of ``csrc/intersect_backward.cu`` (``intersect_backward``, fp32 only): the
 JAX package differentiates its jnp path and has no backward kernel to port.
@@ -49,7 +51,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import autotune, build
+from repro_torch.kernels import autotune, build, reckon
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 RG = 64             # input rows of a default row group (csrc/intersect.cu)
@@ -152,6 +154,8 @@ def intersect(x, w1, b1, w2, b2, *, rows: int | None = None) -> torch.Tensor:
     backward launches ``intersect_backward``."""
     n, k, _, _ = _check_shapes(x, w1, b1, w2, b2)
     _check_rows(rows, n, k)
+    if reckon.on_meta((x, w1, b1, w2, b2)):
+        return _Intersect.apply(x, w1, b1, w2, b2, rows)
     if _on_cpu((x, w1, b1, w2, b2)):
         return intersect_ref(x, w1, b1, w2, b2)
     if x.dtype not in DTYPES or any(p.dtype != torch.float32 for p in (w1, b1, w2, b2)):
@@ -178,6 +182,8 @@ class _Intersect(torch.autograd.Function):
 
 
 def _launch(x, w1, b1, w2, b2, rows) -> torch.Tensor:
+    if x.device.type == "meta":
+        return reckon.intersect(x, w1)
     n, k, d, hd = x.shape[0], x.shape[1], x.shape[2], w1.shape[1]
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     if n == 0:
@@ -278,6 +284,8 @@ def intersect_backward(x, w1, b1, w2, b2, g):
     if tuple(g.shape) != (n, d):
         raise ValueError(f"intersect_backward: need g [{n}, {d}], got {tuple(g.shape)}")
     tensors = (x, w1, b1, w2, b2, g)
+    if reckon.on_meta(tensors):
+        return reckon.intersect_backward(x, w1, b1, w2, b2)
     if _on_cpu(tensors):
         return intersect_backward_ref(x, w1, b1, w2, b2, g)
     if any(t.dtype != torch.float32 for t in tensors):

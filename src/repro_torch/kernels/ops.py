@@ -1,6 +1,8 @@
 """Public entry to the port's kernels: the wrappers the models call, and the
 plain PyTorch versions beside them. Each wrapper takes its plain version for
-CPU tensors and launches its hand-written CUDA kernel for CUDA tensors."""
+CPU tensors, launches its hand-written CUDA kernel for CUDA tensors, and on
+meta tensors (the dry run) launches nothing and reckons the kernel
+(``kernels/reckon.py``)."""
 from repro_torch.kernels.gather_fuse import (gather_fuse, gather_fuse_backward,
                                              gather_fuse_backward_allowance,
                                              gather_fuse_backward_ref, gather_fuse_params,

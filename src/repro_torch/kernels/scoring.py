@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import autotune, build
+from repro_torch.kernels import autotune, build, reckon
 
 MODES = {"dot": 0, "l1": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,7 +64,8 @@ def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
     tilings (``TILES``), or 0 the kernel's own choice from N; None takes the
     process tuner's config for the shape (``autotune.tuned_config``). The
     scores are bitwise the same either way. The plain version on CPU
-    tensors takes no tiling, but ``tile`` is checked all the same."""
+    tensors takes no tiling, but ``tile`` is checked all the same; meta
+    tensors launch nothing (``kernels/reckon.py``)."""
     if mode not in MODES:
         raise ValueError(f"unknown scoring mode {mode!r}")
     if tile is not None and tile not in (0, *TILES):
@@ -72,6 +73,8 @@ def scoring(q: torch.Tensor, e: torch.Tensor, gamma: float = 0.0,
     if q.dim() != 2 or e.dim() != 2 or q.shape[1] != e.shape[1]:
         raise ValueError(f"scoring: need q [B, d] and e [N, d], got "
                          f"{tuple(q.shape)} and {tuple(e.shape)}")
+    if reckon.on_meta((q, e)):
+        return reckon.scoring(q, e, mode)
     if q.device.type == "cpu" and e.device.type == "cpu":
         return scoring_ref(q, e, gamma, mode)
     if q.device.type != "cuda" or e.device != q.device:

@@ -2,5 +2,6 @@
 (config, building blocks, attention, Mamba2/SSD, MoE, the decoder stack and
 its train/prefill/decode steps), computed in bf16 at the reference's cast
 points with fp32 masters. Its matrix products are ``torch.matmul``/``einsum``:
-``lm/`` reaches no Pallas kernel. The mesh branches and the dry run
-(``lm/shapes.py``) come with slice 10b."""
+``lm/`` reaches no Pallas kernel. Over a mesh each step runs one rank's
+program (``lm/parallel.py``); ``lm/shapes.py`` holds the dry run's shape
+cells (``launch/dryrun.py``)."""

@@ -50,7 +50,8 @@ class LMConfig:
     # unrolls the reference's scans for its cost analysis (the port's block
     # loop is eager, so its only effect here is ``attention``'s
     # "dense_chunked" mode); ``seq_shard`` shards the residual stream's
-    # sequence dim over the model axis, a mesh-only layout (slice 10b).
+    # sequence dim over the model axis between repetitions, under a mesh's
+    # 2d profile (``lm/parallel.py``).
     exact_cost_mode: bool = False
     seq_shard: bool = False
 

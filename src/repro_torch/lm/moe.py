@@ -12,8 +12,17 @@ lower expert index first on a tie and the packing's argsort is stable, so
 the port takes its top-k from a stable descending sort and packs by a stable
 argsort (``torch.topk`` promises no order among ties).
 
-The mesh branches (``shard_map`` over the model axis, tp and ep layouts)
-come with slice 10b: ``moe_ffn`` given a mesh raises.
+Over a mesh (the reference's ``shard_map``), rank-local: a rank routes and
+packs its own tokens, which are its rows of the batch (``batch_spec`` splits
+the batch over the dp axes that divide it, and tokens are whole on every
+rank of an axis that does not: the reference's dropping of the dp axes that
+do not divide the token count, for every cell of the zoo), and holds
+either every expert's F/m slice (``moe_mode="tp"``) or its E/m experts
+whole (``"ep"``, E % m == 0); its output is a partial sum, reduced by one
+all-reduce over ``model`` after ``combine_from_experts`` (``moe_ffn``; the
+LM's layers take ``moe_partial`` and reduce it themselves). The port's
+``moe_ffn`` takes the step's ``MeshPlan`` in place of the reference's
+``mesh`` and ``dp_axes``: its tokens are already the rank's.
 """
 from __future__ import annotations
 
@@ -48,10 +57,12 @@ def pack_by_expert(x, expert_idx, gates, n_experts: int, capacity: int):
     keep = pos < capacity
     ec = n_experts * capacity
     dest = torch.where(keep, se * capacity + pos, torch.full_like(se, ec))  # trash slot
+    # Scattered through dest itself (a fixed shape, as the meta device needs):
+    # the dropped entries all land in the trash slot ec, never read.
     gather_idx = torch.zeros((ec + 1,), dtype=torch.long, device=dev)
-    gather_idx[dest[keep]] = st[keep]
+    gather_idx[dest] = st
     filled = torch.zeros((ec + 1,), dtype=torch.bool, device=dev)
-    filled[dest[keep]] = True
+    filled[dest] = keep
     packed = torch.where(filled[:ec, None], x[gather_idx[:ec]], x.new_zeros(()))
     dest_by_flat = torch.empty((T * k,), dtype=torch.long, device=dev)
     dest_by_flat[order] = dest
@@ -70,9 +81,11 @@ def combine_from_experts(y, meta, T: int):
 
 
 def moe_local(x, router, w_gate, w_up, w_down, *, n_experts, top_k_: int,
-              capacity_factor) -> torch.Tensor:
-    """The reference's per-shard body (``_moe_local``) on one device: every
-    expert whole. x [T, D]."""
+              capacity_factor, ep_shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The reference's per-shard body (``_moe_local``). x [T, D]. The
+    weights are every expert's (whole, or its F/m slice: a partial output),
+    or, given ``ep_shard`` = (shard, shards), that shard's E/shards experts
+    whole: the other experts' tokens combine to zero here."""
     T, D = x.shape
     logits = x.float() @ router.float()                               # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -80,18 +93,46 @@ def moe_local(x, router, w_gate, w_up, w_down, *, n_experts, top_k_: int,
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
     capacity = max(int(math.ceil(T * top_k_ / n_experts * capacity_factor)), 1)
     packed, meta = pack_by_expert(x, eidx, gates, n_experts, capacity)  # [E, C, D]
+    shard, shards = ep_shard
+    if shards > 1:
+        e_loc = n_experts // shards
+        packed = packed[shard * e_loc:(shard + 1) * e_loc]
     h = silu(torch.einsum("ecd,edf->ecf", packed, w_gate)) * torch.einsum(
         "ecd,edf->ecf", packed, w_up)
     y = torch.einsum("ecf,efd->ecd", h, w_down)
+    if shards > 1:
+        pad = (0, 0, 0, 0, shard * e_loc, (shards - 1 - shard) * e_loc)
+        y = torch.nn.functional.pad(y, pad)
     return combine_from_experts(y.to(x.dtype), meta, T)
 
 
-def moe_ffn(x, router, w_gate, w_up, w_down, cfg, mesh=None,
-            dp_axes: Tuple[str, ...] = ()) -> torch.Tensor:
-    """x [B, S, D] (or [T, D]). Weights: router [D, E]; w_* [E, D, F]/[E, F, D]."""
-    if mesh is not None:
-        raise NotImplementedError("moe_ffn over a mesh (shard_map, tp/ep) comes with "
-                                  "slice 10b")
+def moe_partial(x, router, w_gate, w_up, w_down, cfg, par) -> torch.Tensor:
+    """One rank's partial output over the model axis of ``par`` (a
+    ``MeshPlan``; module docstring): x [B, S, D] its tokens, router whole,
+    w_* its tp or ep slice. ``x`` and ``router`` enter as replicated values
+    whose gradients are partial sums."""
+    from repro_torch.lm.parallel import MODEL
+
+    shard = (0, 1)
+    if cfg.moe_mode == "ep":
+        assert cfg.n_experts % par.m == 0, (cfg.n_experts, par.m)
+        shard = (par.mesh.index(MODEL), par.m)
+    shape = x.shape
+    x = par.copy_in(x)
+    router = par.copy_in(router)
+    out = moe_local(x.reshape(-1, shape[-1]), router, w_gate, w_up, w_down,
+                    n_experts=cfg.n_experts, top_k_=cfg.top_k,
+                    capacity_factor=cfg.capacity_factor, ep_shard=shard)
+    return out.reshape(shape)
+
+
+def moe_ffn(x, router, w_gate, w_up, w_down, cfg, par=None) -> torch.Tensor:
+    """x [B, S, D] (or [T, D]). Weights: router [D, E]; w_* [E, D, F]/[E, F, D]
+    whole, or under ``par`` (a 2d ``MeshPlan``, the reference's ``mesh``)
+    this rank's tokens and tp/ep slices (module docstring), the output
+    summed over model."""
+    if par is not None:
+        return par.row_sum(moe_partial(x, router, w_gate, w_up, w_down, cfg, par))
     shape = x.shape
     out = moe_local(x.reshape(-1, shape[-1]), router, w_gate, w_up, w_down,
                     n_experts=cfg.n_experts, top_k_=cfg.top_k,

@@ -5,8 +5,20 @@ Adam is the port's own (``training/optim.py``), which takes a flat
 ``{name: tensor}``: the nested, stacked parameter tree goes through it
 flattened by path (``"blocks/pos0/wq"``) with nothing frozen (``LM_ADAM``),
 and updates the tree's own tensors in place. ``lm_adam_init`` makes the
-matching state. The mesh branches come with slice 10b: a step maker given a
-``mesh`` raises.
+matching state.
+
+Given a ``mesh`` (a ``ProcessMesh``, or the dry run's ``VirtualMesh``) and its
+profile's ``dp_axes`` (``sharding.dp_axes(mesh, profile)``; ``model`` among
+them means ``fsdp``), a step runs one rank's program (``lm/parallel.py``):
+its inputs are the global batch, of which it takes its rows
+(``sharding.batch_spec``); parameters, Adam moments and decode caches are its
+shards (``sharding.param_specs``, ``sharding.cache_spec`` under ``2d``, the
+rank's rows under ``fsdp``); its outputs are the global loss and its rows'
+logits and caches. The train step's loss is its rows' share of the global
+mean; each gradient reaches its shard summed over the batch axes (in the
+backward of a gathered weight, else by one all-reduce of every other
+gradient here) and Adam updates the shards in place; nothing gathered
+outlives the step.
 """
 from __future__ import annotations
 
@@ -20,11 +32,6 @@ from repro_torch.lm.model import (COMPUTE_DTYPE, block_pattern, chunked_ce_loss,
 from repro_torch.training.optim import AdamConfig, adam_init, adam_update
 
 LM_ADAM = AdamConfig(lr=1e-4, frozen=())
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what} over a mesh comes with slice 10b")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -54,24 +61,47 @@ def _forward_kwargs(cfg: LMConfig, batch: Dict) -> Dict:
     return kw
 
 
+def _plan(cfg: LMConfig, mesh, dp_axes, batch: Dict):
+    """(the step's ``MeshPlan``, this rank's rows of ``batch``), or (None,
+    ``batch``) without a mesh."""
+    if mesh is None:
+        return None, batch
+    from repro_torch.lm.parallel import MeshPlan
+
+    lead = batch.get("tokens", batch.get("embeddings"))
+    plan = MeshPlan(cfg, mesh, dp_axes, lead.shape[0])
+    return plan, {k: plan.local_rows(v) for k, v in batch.items()}
+
+
 def make_train_step(cfg: LMConfig, mesh=None, dp_axes=(), adam: AdamConfig = LM_ADAM):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``:
     the loss and its gradients by autograd, then Adam in place on the
     tree's tensors (the same objects are returned)."""
-    _no_mesh(mesh, "make_train_step")
 
     def train_step(params, opt_state, batch):
+        plan, batch = _plan(cfg, mesh, dp_axes, batch)
         flat = flatten(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
         tree = _unflatten(leaves)
         with torch.enable_grad():
-            hidden, _ = forward(tree, cfg, **_forward_kwargs(cfg, batch))
-            loss = chunked_ce_loss(tree, cfg, hidden, batch["labels"])
+            hidden, _ = forward(tree, cfg, par=plan, **_forward_kwargs(cfg, batch))
+            loss = chunked_ce_loss(tree, cfg, hidden, batch["labels"], par=plan)
             grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
                  for (k, v), g in zip(flat.items(), grads)}
+        loss = loss.detach()
+        if plan is not None and plan.batch_axes:
+            # The gradients no gathered weight's backward summed, in one
+            # all-reduce over the batch axes; the loss over them.
+            names = [k for k in sorted(grads) if k not in plan.gathered]
+            if names:
+                flat_g = plan.mesh.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]),
+                                              plan.batch_axes)
+                for k, g in zip(names, torch.split(flat_g, [grads[k].numel() for k in names])):
+                    grads[k] = g.view(grads[k].shape)
+            loss = plan.reduce_batch(loss)
         adam_update(grads, opt_state, flat, adam)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return train_step
 
@@ -91,15 +121,15 @@ def make_prefill_step(cfg: LMConfig, mesh=None, dp_axes=(), cache_margin: int = 
     """``prefill_step(params, batch) -> (caches, last logits)``. ``cache_margin``
     extra KV slots are reserved so later decode steps have room (a decode
     write at cache_len == capacity would clamp)."""
-    _no_mesh(mesh, "make_prefill_step")
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        plan, batch = _plan(cfg, mesh, dp_axes, batch)
         tokens = batch.get("tokens", batch.get("embeddings"))
         pad_to = tokens.shape[1] + cache_margin if cache_margin else None
-        hidden, caches = forward(params, cfg, caches="init", pad_cache_to=pad_to,
+        hidden, caches = forward(params, cfg, caches="init", pad_cache_to=pad_to, par=plan,
                                  **_forward_kwargs(cfg, batch))
-        return caches, logits_fn(params, cfg, hidden[:, -1:])
+        return caches, logits_fn(params, cfg, hidden[:, -1:], par=plan)
 
     return prefill_step
 
@@ -107,13 +137,13 @@ def make_prefill_step(cfg: LMConfig, mesh=None, dp_axes=(), cache_margin: int = 
 def make_decode_step(cfg: LMConfig, mesh=None, dp_axes=()):
     """``decode_step(params, caches, tokens [B,1], cache_len) -> (logits,
     new_caches)``."""
-    _no_mesh(mesh, "make_decode_step")
 
     @torch.no_grad()
     def decode_step(params, caches, tokens, cache_len):
-        hidden, new_caches = forward(params, cfg, tokens=tokens, caches=caches,
-                                     cache_len=cache_len)
-        return logits_fn(params, cfg, hidden), new_caches
+        plan, batch = _plan(cfg, mesh, dp_axes, {"tokens": tokens})
+        hidden, new_caches = forward(params, cfg, tokens=batch["tokens"], caches=caches,
+                                     cache_len=cache_len, par=plan)
+        return logits_fn(params, cfg, hidden, par=plan), new_caches
 
     return decode_step
 

@@ -254,7 +254,9 @@ class NGDBTrainer:
         # Out of core, the params carry the cache's bounded hot set and its
         # id -> slot map instead of H_sem; every step stages its rows first.
         self.sem_cache = semantic_cache
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # Meta tensors (the dry run) draw nothing: no generator lives there.
+        gen = (None if self.device.type == "meta"
+               else torch.Generator(device=self.device).manual_seed(cfg.seed))
         self.params = model.init_params(gen, kg.n_entities, kg.n_relations,
                                         semantic_table=semantic_table,
                                         semantic_cache=semantic_cache, ctx=self.ctx)
@@ -404,11 +406,12 @@ class NGDBTrainer:
         rows = self.ctx.gather_rows(per_q[torch.from_numpy(inv).to(per_q.device)], n)
         return loss, rows[torch.from_numpy(global_order).to(per_q.device)]
 
-    def _step(self, prepared, steps, ans, pos, neg, n: int, global_order):
+    def prepared_step(self, prepared, steps, ans, pos, neg, n: int, global_order):
         """One pooled step of this rank's plan (of the whole batch of ``n``
         single-device): gather, local loss and gradients (times local/global
         rows), update; returns the global loss and per-query losses as
-        device tensors."""
+        device tensors. ``train_step``, the pipelined dispatch and the dry run
+        (``launch/dryrun.py``, on meta tensors) call it."""
         full = self.full_params()
         loss, per_q, grads = self._loss_and_grads(prepared, steps, ans, pos, neg, full,
                                                   len(prepared.order) / n)
@@ -444,7 +447,7 @@ class NGDBTrainer:
             with TRACER.span("dispatch"):
                 dev = self.device
                 steps, ans = prepared.device_args(dev)
-                loss, per_q = self._step(
+                loss, per_q = self.prepared_step(
                     prepared, steps, ans, torch.from_numpy(lpos[prepared.order]).to(dev),
                     torch.from_numpy(lneg[prepared.order]).to(dev), n, global_order)
             phases["dispatch_s"] = time.perf_counter() - td
@@ -603,8 +606,8 @@ class NGDBTrainer:
             self._phase_s["sem_apply"].inc(item.phases["sem_apply_s"])
         td, cd = time.perf_counter(), time.thread_time()
         with TRACER.span("dispatch"):
-            loss, per_q = self._step(item.prepared, item.steps, item.ans, item.pos, item.neg,
-                                     item.n_queries, item.global_order)
+            loss, per_q = self.prepared_step(item.prepared, item.steps, item.ans, item.pos,
+                                             item.neg, item.n_queries, item.global_order)
         if self.mat_cache is not None:
             # Adam updated the params in place: the scheduler thread's probes
             # pinned to the old version stop matching.

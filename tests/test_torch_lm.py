@@ -31,8 +31,8 @@ JAX package's ``repro.lm`` on the same numpy inputs and carried weights.
     of theirs only the loss is held in bf16, within 5e-2 (measured:
     <= 0.0133);
 * the reference's invariants on the port: prefill plus decode equals
-  forward (its bf16 tolerance, rtol 5e-2, atol 5e-1), parameter counts,
-  the full configs, and a mesh argument raising ``NotImplementedError``."""
+  forward (its bf16 tolerance, rtol 5e-2, atol 5e-1), parameter counts
+  and the full configs (the mesh branches: ``tests/test_torch_lm_mesh.py``)."""
 import dataclasses
 
 import jax
@@ -561,30 +561,6 @@ def test_full_configs_match_assignment():
     assert T_ARCHS["mamba2-1.3b"].ssm_state == 128 and T_ARCHS["mamba2-1.3b"].n_heads == 0
     assert T_ARCHS["whisper-large-v3"].encoder_seq == 1500
     assert T_ARCHS["mixtral-8x22b"].sliding_window > 0
-
-
-def test_a_mesh_argument_raises():
-    from repro_torch.configs import ARCHS as T_ARCHS, reduced_config as t_reduced
-    from repro_torch.lm import model as tm
-    from repro_torch.lm import moe as tmoe
-    from repro_torch.lm import steps as ts
-
-    cfg = t_reduced(T_ARCHS["mixtral-8x22b"])
-    params = tm.init_params(cfg, device="cpu")
-    mesh = object()
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    lp = {k: v[0] for k, v in params["blocks"]["pos0"].items()}
-    moe_args = (torch.zeros((4, cfg.d_model)), lp["router"], lp["moe_gate"], lp["moe_up"],
-                lp["moe_down"], cfg)
-    for call in (lambda: tm.forward(params, cfg, tokens=toks, mesh=mesh),
-                 lambda: tm.encode_frames(params, cfg, torch.zeros((1, 2, cfg.d_model)),
-                                          mesh=mesh),
-                 lambda: ts.make_train_step(cfg, mesh=mesh),
-                 lambda: ts.make_prefill_step(cfg, mesh=mesh),
-                 lambda: ts.make_decode_step(cfg, mesh=mesh),
-                 lambda: tmoe.moe_ffn(*moe_args, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="slice 10b"):
-            call()
 
 
 def test_train_step_moves_params_and_remat_is_the_same_step():
