@@ -120,7 +120,7 @@ non-zero (printing no result) on any failed check:
    after it (``scoring`` launches equal its eval batches). Its launches are
    added to the training entries of the kernels line.
 6. A ``{"kernels": [...]}`` line with each kernel's numbers at the shape the
-   main path gave it most often, launches of phases 7 to 9 included, each
+   main path gave it most often, launches of phases 7 to 11 and 14 included, each
    kernel at its own launch geometry (the process tuner is empty again);
    ``scoring`` has one entry for each path
    that launches it (GQE, ComplEx, GQE+H_sem resident and out of core, and
@@ -287,7 +287,50 @@ non-zero (printing no result) on any failed check:
    and multi-pod; the full sweep takes longer than 180 s), and the NGDB cell
    dense and sparse: one line a cell (peak a device, dominant term, bound)
    and the seconds.
-14. The last line: ``{"ok": true, "device": {...}}``.
+14. Live writes, background fine-tunes and hot swaps under a mesh (after
+   13, before the kernels line of 6), at ``ModelConfig()`` width on phase
+   4's graph (rebuilt for every run; entity rows padded to the mesh), the
+   ranks spawned from this script (``_phase14_rank``; any rank's failure or
+   a 300 s limit fails the run). (a) One NCCL rank (``data=1``, fsdp), GQE
+   behind ``ServingEngine(kg=, mat_cache=MaterializedSubqueryCache(2048),
+   max_staleness_versions=4)`` and ``LiveNGDB(finetune_steps=4,
+   n_negatives=8)``: a deterministic script (whole 16-request batches,
+   pinned ones among them, 16 shed stale; four flushed bursts of 64 fresh
+   triples, the second adding 16 entities) bitwise the same script
+   single-device in the same process (answers, the params after the growth
+   and each fine-tune, graph versions, counters); then a closed loop of 32
+   over 448 requests (a quarter pinned up to 6 versions behind) while a
+   writer thread lands 8 bursts (burst 4 adding 16 entities): every
+   request served or shed with ``StaleVersionError``, fresh queries pinned
+   after the growth replay bitwise through ``serve_batch(ctx=)`` on the
+   retained params and entity count, the params after ``flush()`` bitwise a
+   sync ``incremental_finetune(ctx=)`` of burst 8; ``scoring`` launched.
+   (b) Two gloo ranks on the card, ``data=2`` fsdp and ``data=1,model=2``
+   2d, GQE and BetaE, the same script: both ranks' answers and gathered
+   params bitwise equal (a digest); against single-device on the same
+   padding, answers within rtol 1e-4, atol 1e-4·d (plus the 3-place
+   rounding), top-k ids equal where the gap allows, each fine-tune's update
+   within 5% of its norm (``PHASE14_UPDATE_TOL``; the element-wise excess
+   over ``test_torch_live.py``'s tolerance printed), the grown rows bitwise;
+   each rank holding half of the grown table; ``scoring`` (GQE) and
+   ``intersect`` (BetaE) launched. (c) GQE with resident H_sem (d_l 1024,
+   random rows in a store of its own) on the NCCL rank: one growth burst
+   with ``sem_rows`` appends the store once, rows read before it read back
+   bitwise, the new rows as written; ``gather_fuse`` and its backward
+   launched as often as the plans call for. (d) ``ReplicaPool(2)`` behind a
+   ``Router`` on the NCCL rank and on two gloo ranks (``data=2``):
+   ``update_params`` between two halves of a stream (the first half still
+   queued; a follower stages its params before it follows): on every rank
+   the first half's batches ran on the old params and the second's on the
+   new, each bitwise ``serve_batch`` on its params, the ranks bitwise
+   equal. (e) ``torchrun --nproc-per-node 1 -m repro_torch.launch.serve
+   --mesh data=1 --live-writes 2 --max-staleness 2 --materialize 2048``
+   (GQE). Printed, not gated, with the card's name and power limit: QPS and
+   p99 through writes beside the single-device run of the same call,
+   fine-tune ms a burst, lane hold ms a write, fine-tune and swap,
+   collectives and bytes a write (the growth's re-block among them), the
+   phase's seconds. The ranks' launches are added to the kernels line.
+15. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2090,6 +2133,9 @@ def main() -> None:
 
     # --------------------------------------- 13. the LM zoo over a mesh, dry run
     phase13(torch, dev, card)
+
+    # ------------------- 14. live writes and hot swaps under a mesh
+    phase14(main_path, card)
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s")
 
     # ------------------------------------------------- 6. the kernels line
@@ -4376,6 +4422,706 @@ def phase13(torch, dev, card) -> None:
     # (c) The sweep.
     _phase13_sweep()
     print(f"LM zoo over a mesh: phase 13 in {time.perf_counter() - t13:.1f} s")
+
+
+
+# --------------------------- 14. live writes and hot swaps under a mesh
+PHASE14_STALENESS = 4      # max_staleness_versions, as phase 7
+PHASE14_BURST = 64         # fresh triples a burst
+PHASE14_NEW = 16           # entities the growth burst adds
+PHASE14_LOOP = 448         # closed-loop requests through the writer's 8 bursts
+PHASE14_FT = dict(finetune_steps=4, n_negatives=8, seed=0)
+# Two ranks against single-device, each fine-tune's update norm-wise: Adam
+# moves an element by about lr whatever its gradient's size, so an element
+# whose gradient is rounding noise (the batch split over ranks sums it in
+# another order) may step the other way, and no element-wise bound on
+# the fine-tuned values holds (BetaE on the card: 0.37 lr at one entity
+# element, 1.99 times test_torch_live.py's tolerance). A fine-tune skipped,
+# doubled or on the wrong rows is 1.0 or more.
+PHASE14_UPDATE_TOL = 0.05
+
+
+def _phase14_bursts(kg, n: int, grow: int, seed: int) -> list:
+    """``n`` bursts of ``PHASE14_BURST`` triples fresh against ``kg`` and one
+    another; burst ``grow`` uses the ``PHASE14_NEW`` ids above the graph's
+    entities as heads and as tails."""
+    rng = np.random.default_rng(seed)
+    e, r = kg.n_entities, kg.n_relations
+    m = 4 * n * PHASE14_BURST
+    cand = np.stack([rng.integers(0, e, m), rng.integers(0, r, m), rng.integers(0, e, m)],
+                    axis=1)
+    cand = np.unique(cand[~kg.contains(cand)], axis=0)
+    cand = cand[rng.permutation(len(cand))][:n * PHASE14_BURST]
+    out = [cand[i * PHASE14_BURST:(i + 1) * PHASE14_BURST].copy() for i in range(n)]
+    new = np.arange(e, e + PHASE14_NEW)
+    out[grow][:2 * PHASE14_NEW, 0] = np.repeat(new, 2)
+    out[grow][2 * PHASE14_NEW:3 * PHASE14_NEW, 2] = new
+    return out
+
+
+def _phase14_whole(ctx, model, params) -> dict:
+    """``params`` gathered whole, as host arrays (collective under a mesh;
+    the entity rows read off the block: retained sets predate growth)."""
+    if ctx is None:
+        return {k: v.cpu().numpy() for k, v in sorted(params.items())}
+    axes = ctx.row_axes("entity", model.full_shapes["entity"])
+    shapes = {**model.full_shapes,
+              "entity": (params["entity"].shape[0] * ctx.mesh.ways(axes),
+                         params["entity"].shape[1])}
+    return {k: ctx.gather(k, v, shapes[k]).cpu().numpy() for k, v in sorted(params.items())}
+
+
+def _phase14_hash(obj) -> str:
+    """A hash of ``obj``'s values: arrays by their bytes, the rest by repr."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, np.ndarray):
+            h.update(f"{o.dtype}{o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                h.update(repr(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            h.update(b"[")
+            for x in o:
+                walk(x)
+            h.update(b"]")
+        else:
+            h.update(repr(o).encode())
+
+    walk(obj)
+    return h.hexdigest()
+
+
+def _phase14_script(torch, family, ctx, kg, qs, bursts, dev, pad) -> dict:
+    """The deterministic write script on one engine (rank 0 submits and
+    writes, the others follow): whole 16-request batches, pinned ones among
+    them, and between them bursts A, B (growth), C and D, each flushed. The
+    result keeps every answer, every published params set gathered whole,
+    the graph versions, counters, the entity block, and each write's
+    collectives and lane hold."""
+    from repro_torch.core import MaterializedSubqueryCache, PooledExecutor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.serving import LiveNGDB, ServingConfig, ServingEngine, StaleVersionError
+
+    model = make_model(family, ModelConfig(entity_pad=pad), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(141), kg.n_entities,
+                               kg.n_relations, ctx=ctx)
+    mat = MaterializedSubqueryCache(2048)
+    mat.watch_kg(kg)
+    cfg = ServingConfig(max_batch=16, max_wait_ms=2000.0, top_k=TOP_K, record_batches=True,
+                        max_staleness_versions=PHASE14_STALENESS)
+    eng = ServingEngine(model, params, executor=PooledExecutor(model, b_max=256, device=dev,
+                                                               ctx=ctx),
+                        cfg=cfg, device=dev, kg=kg, mat_cache=mat, ctx=ctx)
+    published, writes = [], []
+    swap = eng._swap
+
+    def recorded(p):
+        published.append(p)
+        swap(p)
+
+    eng._swap = recorded
+    live = LiveNGDB(model, kg, eng, **PHASE14_FT)
+    mesh = ctx.mesh if ctx is not None else None
+    apply_write = live._apply_write
+
+    def counted_write(*a):
+        # The write itself, on every rank (under the lane on rank 0).
+        c0, b0 = dict(mesh.counts), sum(mesh.bytes.values())
+        receipt = apply_write(*a)
+        writes.append({"collectives": sum(mesh.counts.values()) - sum(c0.values()),
+                       "bytes": sum(mesh.bytes.values()) - b0})
+        return receipt
+
+    if mesh is not None:
+        live._apply_write = counted_write
+    launches0 = (kops.scoring.launches, kops.intersect.launches)
+    out = {"answers": [], "versions": []}
+    t0 = time.perf_counter()
+    if eng.leader:
+        v0 = kg.graph_version
+
+        def serve(unpinned, pinned=()):
+            fs = eng.submit_many(unpinned)
+            for q, v in pinned:
+                try:
+                    fs.append(eng.submit(q, pin_version=v))
+                except StaleVersionError:
+                    out["answers"].append("stale")
+            for f in fs:
+                try:
+                    r = f.result(timeout=RANK_TIMEOUT_S)
+                    out["answers"].append({k: r[k] for k in ("top_entities", "scores")})
+                except StaleVersionError:
+                    out["answers"].append("stale")
+
+        def write(b, n_new=0):
+            live.write(bursts[b], n_new_entities=n_new)
+            live.flush()
+            out["versions"].append(kg.graph_version)
+
+        serve(qs[:32])
+        write(0)
+        serve(qs[32:48], [(q, v0) for q in qs[48:64]])
+        write(1, PHASE14_NEW)
+        vb = kg.graph_version
+        serve(qs[64:80], [(q, v0) for q in qs[80:96]] + [(q, vb - 1) for q in qs[96:112]])
+        write(2)
+        write(3)
+        serve(qs[112:128], [(q, v0) for q in qs[128:144]]
+              + [(q, kg.graph_version - 1) for q in qs[144:160]])
+        live.close()
+        eng.close()
+    else:
+        eng.follow()
+        eng.close()
+        live.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {"scoring": kops.scoring.launches - launches0[0],
+                       "intersect": kops.intersect.launches - launches0[1]}
+    st = eng.stats()
+    out["stats"] = {k: st[k] for k in ("graph_version", "retained_versions", "stale_sheds",
+                                       "version_lag_served", "failures", "batches")}
+    out["stats"]["mat"] = {k: st["mat_cache"][k] for k in ("hits", "misses", "live")}
+    out["finetune_ms"] = [1e3 * t for t in live.finetune_s]
+    out["reblock_bytes"] = live.reblock_bytes
+    out["writes"] = writes
+    out["hold_ms"] = ({k: [1e3 * t for t in v] for k, v in eng._lane.hold_s.items()}
+                      if eng._lane is not None else {})
+    out["block"] = tuple(eng.params["entity"].shape)
+    out["full"] = tuple(model.full_shapes["entity"])
+    out["params"] = [_phase14_whole(ctx, model, p) for p in [params] + published]
+    # This rank's block is exactly its rows of the grown table.
+    n = out["block"][0]
+    lo = ctx.mesh.index(ctx.row_axes("entity", model.full_shapes["entity"])) * n if ctx else 0
+    out["own_block"] = bool(np.array_equal(eng.params["entity"].cpu().numpy(),
+                                           out["params"][-1]["entity"][lo:lo + n]))
+    out["digest"] = _phase14_hash(
+        ([[q.key() for q in rec.queries]
+          + [{k: r[k] for k in ("top_entities", "scores")} for r in rec.results]
+          for rec in eng.batch_log], out["params"]))
+    return out
+
+
+def _phase14_compare(got, want, rtol: float) -> dict:
+    """A mesh script's result against single-device's: answers within rtol
+    1e-4, atol 1e-4·d (plus the 3-place rounding), top-k ids by the gap rule,
+    the same sheds; each published params set within ``rtol``, atol
+    rtol·1e-2·(the Adam steps behind it); the largest excess over the
+    tolerance of each (<= 1 holds)."""
+    atol = 1e-4 * want["params"][0]["entity"].shape[1] + 1e-3
+    ans, topk, sheds = 0.0, True, True
+    for g, w in zip(got["answers"], want["answers"]):
+        if g == "stale" or w == "stale":
+            sheds &= g == w
+            continue
+        gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
+        ans = max(ans, float(np.max(np.abs(gs - ws) / (atol + 1e-4 * np.abs(ws)))))
+        for j in range(len(ws) - 1):
+            if (ws[j] - ws[j + 1] > atol + 1e-4 * abs(ws[j])
+                    and set(g["top_entities"][:j + 1]) != set(w["top_entities"][:j + 1])):
+                topk = False
+    # Sets: 0 the initial params, 2 the growth's, the others fine-tunes'.
+    par, upd, steps, grown = 0.0, 0.0, 0, True
+    gp, wp = got["params"], want["params"]
+    for i in range(1, min(len(gp), len(wp))):
+        p, q = gp[i], wp[i]
+        if i == 2:
+            n = gp[1]["entity"].shape[0]
+            grown = bool(np.array_equal(p["entity"][n:], q["entity"][n:]))
+            continue
+        steps += PHASE14_FT["finetune_steps"]
+        for k in q:
+            if not q[k].size or k in ("sem_table",):
+                continue
+            tol = rtol * 1e-2 * steps + rtol * np.abs(q[k])
+            par = max(par, float(np.max(np.abs(p[k] - q[k]) / tol)))
+            # This fine-tune's update, rows the set before held.
+            rows = min(gp[i - 1][k].shape[0], q[k].shape[0])
+            dp, dq = p[k][:rows] - gp[i - 1][k][:rows], q[k][:rows] - wp[i - 1][k][:rows]
+            if np.linalg.norm(dq) > 0:
+                upd = max(upd, float(np.linalg.norm(dp - dq) / np.linalg.norm(dq)))
+    return {"answers": ans, "topk": topk, "sheds": sheds and len(got["answers"])
+            == len(want["answers"]), "params": par, "update": upd, "grown": grown,
+            "n_params": (len(gp), len(wp))}
+
+
+def _phase14_loop(torch, ctx, kg, qs, bursts, dev) -> dict:
+    """(a)'s closed loop of 32 on rank 0 (every fourth request pinned up to
+    6 versions behind) while a writer thread lands 8 bursts, the fourth
+    growing 16 entities. Every request served or shed typed; pinned replays
+    bitwise ``serve_batch`` on the retained params and entity count; the
+    params after ``flush()`` bitwise a sync ``incremental_finetune`` (under
+    ``ctx``) of burst 8 from its recorded inputs."""
+    from repro_torch.core import MaterializedSubqueryCache, PooledExecutor
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.serving import (LiveNGDB, ServingConfig, ServingEngine, StaleVersionError,
+                                     check_against_offline, latency_summary)
+    from repro_torch.training import incremental_finetune
+
+    model = make_model("gqe", ModelConfig(), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(142), kg.n_entities,
+                               kg.n_relations, ctx=ctx)
+    mat = MaterializedSubqueryCache(2048)
+    mat.watch_kg(kg)
+    eng = ServingEngine(model, params, executor=PooledExecutor(model, b_max=256, device=dev,
+                                                               ctx=ctx),
+                        cfg=ServingConfig(max_batch=16, top_k=TOP_K,
+                                          max_staleness_versions=PHASE14_STALENESS),
+                        device=dev, kg=kg, mat_cache=mat, ctx=ctx)
+    live = LiveNGDB(model, kg, eng, **PHASE14_FT)
+    rng = np.random.default_rng(143)
+    rec = {}
+    warm, work = qs[:64], qs[64:64 + PHASE14_LOOP]
+    for f in eng.submit_many(warm):
+        f.result(timeout=RANK_TIMEOUT_S)
+
+    def writer():
+        for b, triples in enumerate(bursts):
+            time.sleep(0.02)
+            if b == 7:
+                live.flush()
+                rec["p_in"] = eng.params
+            rec[b] = live.write(triples, n_new_entities=PHASE14_NEW if b == 3 else 0)
+
+    wt = threading.Thread(target=writer, name="chip-smoke-writer")
+    window, served, shed = collections.deque(), [], 0
+    t0 = time.perf_counter()
+    wt.start()
+
+    def settle(f):
+        nonlocal shed
+        try:
+            served.append(f.result(timeout=RANK_TIMEOUT_S))
+        except StaleVersionError:
+            shed += 1
+
+    for i, q in enumerate(work):
+        while len(window) >= 32:
+            settle(window.popleft())
+        pin = None
+        if i % 4 == 3:
+            pin = max(0, eng.graph_version - int(rng.integers(0, 7)))
+        try:
+            window.append(eng.submit(q, pin_version=pin))
+        except StaleVersionError:
+            shed += 1
+    while window:
+        settle(window.popleft())
+    wall = time.perf_counter() - t0
+    wt.join()
+    live.flush()
+    lat = latency_summary([r["latency_ms"] for r in served])
+    st = eng.stats()
+    out = {"served": len(served), "shed": shed, "n": len(work), "failures": st["failures"],
+           "qps": len(served) / wall, "p99": lat["p99"], "finetune_ms":
+           [1e3 * t for t in live.finetune_s], "graph_version": st["graph_version"],
+           "finite": all(len(r["top_entities"]) == TOP_K and np.isfinite(r["scores"]).all()
+                         for r in served)}
+    # Pinned replay: fresh keys pinned to the version after the growth burst.
+    v = rec[3].graph_version
+    p_v, n_v = eng.params_at(v)
+    eng.batch_log, eng.cfg.record_batches = [], True
+    pinned = [q for q in qs[64 + PHASE14_LOOP:] if q.key() not in {w.key() for w in work}][:32]
+    for f in [eng.submit(q, pin_version=v) for q in pinned]:
+        f.result(timeout=RANK_TIMEOUT_S)
+    eng.cfg.record_batches = False
+    ex = PooledExecutor(model, b_max=256, device=dev, ctx=ctx)
+    out["replayed"] = check_against_offline(
+        eng.batch_log, lambda b: serve_batch(model, p_v, ex, b, top_k=TOP_K, device=dev,
+                                             n_entities=n_v, ctx=ctx)[0])
+    out["pinned"] = len(pinned)
+    sync, _ = incremental_finetune(model, rec["p_in"], rec[7].fresh_triples,
+                                   steps=PHASE14_FT["finetune_steps"], lr=live.finetune_lr,
+                                   n_negatives=PHASE14_FT["n_negatives"],
+                                   seed=live.seed + rec[7].graph_version, ctx=ctx)
+    out["sync_equal"] = all(torch.equal(eng.params[k], sync[k]) for k in sync)
+    live.close()
+    eng.close()
+    return out
+
+
+def _phase14_semantic(torch, ctx, kg, qs, burst, dev, work) -> dict:
+    """(c): GQE with resident H_sem (d_l 1024, random rows in a store of its
+    own) on the NCCL rank, one growth burst with ``sem_rows``."""
+    from repro_torch.core import OpType, PooledExecutor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.semantic import SemanticStore, SemanticStoreWriter
+    from repro_torch.serving import LiveNGDB, ServingConfig, ServingEngine
+
+    rng = np.random.default_rng(144)
+    n = kg.n_entities
+    table = rng.standard_normal((n, SEM_DIM), dtype=np.float32) / np.float32(32.0)
+    sdir = os.path.join(work, "p14_store")
+    w = SemanticStoreWriter(sdir, dim=SEM_DIM, shard_rows=CHUNK)
+    w.append(table)
+    w.finalize()
+    store = SemanticStore(sdir)
+    old = store.read_rows(np.arange(n))
+    appends = []
+    append = store.append_rows
+    store.append_rows = lambda rows: appends.append(len(rows)) or append(rows)
+    model = make_model("gqe", ModelConfig(semantic_dim=SEM_DIM), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(145), n, kg.n_relations,
+                               semantic_table=table, ctx=ctx)
+    del table
+    ex = PooledExecutor(model, b_max=256, device=dev, ctx=ctx)
+    eng = ServingEngine(model, params, executor=ex,
+                        cfg=ServingConfig(max_batch=16, max_wait_ms=2000.0, top_k=TOP_K,
+                                          record_batches=True,
+                                          max_staleness_versions=PHASE14_STALENESS),
+                        device=dev, kg=kg, ctx=ctx)
+    live = LiveNGDB(model, kg, eng, store=store, **PHASE14_FT)
+    kops.gather_fuse.launches = kops.gather_fuse_backward.launches = 0
+    sem_new = rng.standard_normal((PHASE14_NEW, SEM_DIM), dtype=np.float32) / np.float32(32.0)
+    for f in eng.submit_many(qs[:32]):
+        f.result(timeout=RANK_TIMEOUT_S)
+    r = live.write(burst, n_new_entities=PHASE14_NEW, sem_rows=sem_new)
+    live.flush()
+    for f in eng.submit_many(qs[32:64]):
+        f.result(timeout=RANK_TIMEOUT_S)
+    live.close()
+    eng.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    embed = lambda queries, b_max: sum(  # noqa: E731
+        1 for op, _c, _p in PooledExecutor(model, b_max=b_max, device=dev).prepare(
+            queries).meta if op == int(OpType.EMBED))
+    from repro_torch.core import QueryInstance
+
+    ft_queries = [QueryInstance("1p", np.array([h]), np.array([rr]))
+                  for h, rr, _ in r.fresh_triples]
+    ft = PHASE14_FT["finetune_steps"] * (embed(ft_queries, 64) + 1)
+    want = sum(embed(rec.queries, 256) + 1 for rec in eng.batch_log) + ft
+    return {"appends": appends, "rows": store.n_rows, "n": n,
+            "old_equal": bool(np.array_equal(store.read_rows(np.arange(n)), old)),
+            "new_equal": bool(np.array_equal(store.read_rows(np.arange(n, n + PHASE14_NEW)),
+                                             sem_new)),
+            "launches": (kops.gather_fuse.launches, kops.gather_fuse_backward.launches),
+            "want": (want, ft), "finetunes": live.finetunes_done}
+
+
+def _phase14_tier(torch, ctx, kg, qs, dev) -> dict:
+    """(d): ``ReplicaPool(2)`` behind a ``Router``: half a stream,
+    ``update_params`` at once (the first half still queued), the other half.
+    Each batch: the params version it ran on, which half its queries came
+    from, and whether it is bitwise ``serve_batch`` on those params."""
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.serving import ReplicaPool, Router, ServingConfig
+
+    model = make_model("gqe", ModelConfig(entity_pad=ctx.n_devices), device=dev)
+    params_a = model.init_params(torch.Generator(device=dev).manual_seed(146), kg.n_entities,
+                                 kg.n_relations, ctx=ctx)
+    params_b = {**params_a, "entity": params_a["entity"] * 1.5}
+    pool = ReplicaPool(model, params_a, n_replicas=2, b_max=256, device=dev, ctx=ctx,
+                       cfg=ServingConfig(max_batch=16, top_k=TOP_K, record_batches=True))
+    first, second = qs[:64], qs[64:128]
+    if ctx.rank == 0:
+        router = Router(pool)
+        fa = router.submit_many(first)
+        router.update_params(params_b)
+        fb = router.submit_many(second)
+        for f in fa + fb:
+            f.result(timeout=RANK_TIMEOUT_S)
+        router.close()
+    else:
+        pool.update_params(params_b)   # staged: applied when swap 1 arrives
+        pool.follow()
+        pool.close()
+    keys_a, keys_b = {q.key() for q in first}, {q.key() for q in second}
+    batches = []
+    for rid, rep in sorted(pool.replicas().items()):
+        for rec in rep.engine.batch_log:
+            keys = {q.key() for q in rec.queries[:rec.n_real]}
+            half = ("first" if keys <= keys_a - keys_b else
+                    "second" if keys <= keys_b - keys_a else "both")
+            res, _ = serve_batch(model, params_a if rec.params_version == 0 else params_b,
+                                 rep.executor, rec.queries, top_k=TOP_K, device=dev, ctx=ctx)
+            same = [{k: x[k] for k in ("top_entities", "scores")} for x in rec.results] == [
+                {k: x[k] for k in ("top_entities", "scores")} for x in res[:rec.n_real]]
+            batches.append((rid, rec.params_version, half, same))
+    hold = [1e3 * t for t in pool.replicas()[0].engine._lane.hold_s["swap"]]
+    return {"batches": batches, "swap_hold_ms": hold,
+            "digest": _phase14_hash([[q.key() for q in rec.queries]
+                                     + [{k: x[k] for k in ("top_entities", "scores")}
+                                        for x in rec.results]
+                                     for rep in pool.replicas().values()
+                                     for rec in rep.engine.batch_log])}
+
+
+def _phase14_rank(rank: int, world: int, backend: str, work: str) -> None:
+    """One rank of phase 14 (spawned): one NCCL rank ((a), (c), (d)) or two
+    gloo ranks sharing the card ((b), (d)). Pickles what it saw (gates
+    evaluated here where they need the params) to
+    ``work/p14_<backend><world>.r<rank>.pkl``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        dev = torch.device(pickle.load(f)["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{work}/pg14_{backend}{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    from repro_torch.data import KnowledgeGraph, generate_synthetic_kg
+    from repro_torch.distributed import make_execution_context
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import make_workload
+
+    t0 = time.perf_counter()
+    kg0 = generate_synthetic_kg(*FB15K, seed=0, name="FB15k-shaped")
+
+    def fresh():
+        return KnowledgeGraph(kg0.n_entities, kg0.n_relations, kg0.triples.copy(),
+                              name=kg0.name)
+
+    qs = make_workload(kg0, 64 + PHASE14_LOOP + 256, seed=7)
+    script_bursts = _phase14_bursts(kg0, 4, 1, seed=147)
+    out = {"script": {}}
+    if world == 1:
+        ctx = make_execution_context("data=1", profile="fsdp", device=dev, backend=backend)
+        got = _phase14_script(torch, "gqe", ctx, fresh(), qs, script_bursts, dev, 1)
+        want = _phase14_script(torch, "gqe", None, fresh(), qs, script_bursts, dev, 1)
+        out["a_bitwise"] = {  # the initial params, the growth's and 4 fine-tunes' 
+            "answers": got["answers"] == want["answers"],
+            "versions": got["versions"] == want["versions"],
+            "stats": got["stats"] == want["stats"],
+            "params": len(got["params"]) == len(want["params"]) and all(
+                p.keys() == q.keys() and all(np.array_equal(p[k], q[k]) for k in p)
+                for p, q in zip(got["params"], want["params"]))}
+        for r in (got, want):
+            r["params"] = None
+        out["script"]["mesh"], out["script"]["single"] = got, want
+        loop_bursts = _phase14_bursts(kg0, 8, 3, seed=148)
+        kops.scoring.launches = 0
+        out["loop"] = _phase14_loop(torch, ctx, fresh(), qs, loop_bursts, dev)
+        out["loop"]["scoring"] = kops.scoring.launches
+        out["loop_single"] = _phase14_loop(torch, None, fresh(), qs, loop_bursts, dev)
+        out["semantic"] = _phase14_semantic(torch, ctx, fresh(), qs, script_bursts[1], dev,
+                                            work)
+        out["tier"] = _phase14_tier(torch, ctx, kg0, qs, dev)
+    else:
+        for spec, profile in (("data=2", "fsdp"), ("data=1,model=2", "2d")):
+            ctx = make_execution_context(spec, profile=profile, device=dev, backend=backend)
+            for family in ("gqe", "betae"):
+                out["script"][spec, profile, family] = _phase14_script(
+                    torch, family, ctx, fresh(), qs, script_bursts, dev, world)
+        ctx = make_execution_context("data=2", profile="fsdp", device=dev, backend=backend)
+        out["tier"] = _phase14_tier(torch, ctx, kg0, qs, dev)
+        out["counts"] = ctx.mesh.stats()
+        if rank == 0:
+            # Single-device on the same padding, held here (the params stay
+            # in this process).
+            for family, rtol in (("gqe", 1e-4), ("betae", 1e-3)):
+                want = _phase14_script(torch, family, None, fresh(), qs, script_bursts, dev,
+                                       world)
+                for key, got in out["script"].items():
+                    if key[2] == family:
+                        got["vs_single"] = _phase14_compare(got, want, rtol)
+        for got in out["script"].values():
+            got["params"] = None
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"p14_{backend}{world}.r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _phase14_spawn(world: int, backend: str, work: str) -> list:
+    import pickle
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    pc = mp.start_processes(_phase14_rank, args=(world, backend, work), nprocs=world,
+                            join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not pc.join(timeout=1):
+            if time.monotonic() > deadline:
+                fail(f"phase 14: the {world}-rank {backend} spawn ran past {RANK_TIMEOUT_S} s")
+    except ProcessException as e:
+        fail(f"phase 14: a {backend} rank failed: {e}")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"p14_{backend}{world}.r{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _phase14_tier_gate(label: str, ts: list) -> None:
+    for r, t in enumerate(ts):
+        pvs = {pv for _, pv, _, _ in t["batches"]}
+        wrong = [(rid, pv, half) for rid, pv, half, _ in t["batches"]
+                 if half == ("second" if pv == 0 else "first")]
+        if pvs != {0, 1} or wrong or not all(same for *_, same in t["batches"]):
+            fail(f"phase 14 (d) {label}: rank {r}'s batches broke the swap contract "
+                 f"(params versions {pvs}, misplaced {wrong}) or differ from serve_batch")
+    if len({t["digest"] for t in ts}) != 1:
+        fail(f"phase 14 (d) {label}: the ranks' batches differ")
+
+
+def phase14(main_path, card) -> None:
+    """Live writes, background fine-tunes and hot swaps under a mesh (module
+    docstring, 14). The ranks' launches are added to ``main_path``."""
+    import pickle
+
+    t14 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_live_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+        pickle.dump({"device": "cuda:0"}, f)
+    added = collections.Counter()
+    stat = lambda xs: (f"median {statistics.median(xs):.2f}, max {max(xs):.2f}"  # noqa: E731
+                       if xs else "none")
+
+    # (a), (c), (d): one NCCL rank.
+    (nccl,) = _phase14_spawn(1, "nccl", work)
+    a, s = nccl["script"]["mesh"], nccl["script"]["single"]
+    if not all(nccl["a_bitwise"].values()):
+        fail(f"phase 14 (a): the one-rank script is not bitwise single-device's: "
+             f"{nccl['a_bitwise']}")
+    if (a["stats"]["stale_sheds"] != 16 or a["stats"]["failures"] or a["block"] != a["full"]
+            or not a["own_block"]):
+        fail(f"phase 14 (a): stats {a['stats']}, block {a['block']} of {a['full']}")
+    added["scoring[l1]"] += a["launches"]["scoring"]
+    print(f"phase 14 (a) one NCCL rank, data=1 fsdp, GQE: the write script (4 bursts of "
+          f"{PHASE14_BURST}, burst 2 growing {PHASE14_NEW} entities, 160 requests, 16 shed "
+          f"stale) bitwise single-device's: answers, {len(s['finetune_ms'])} fine-tunes' "
+          f"params and the growth's, graph versions {a['versions']}, counters {a['stats']} | "
+          f"script {a['seconds']:.1f} s (single-device {s['seconds']:.1f} s) | fine-tune ms "
+          f"{[round(x, 1) for x in a['finetune_ms']]} | lane hold ms: write "
+          f"{stat(a['hold_ms']['write'])}, fine-tune {stat(a['hold_ms']['finetune'])} | a "
+          f"write's collectives {[w['collectives'] for w in a['writes']]}, bytes "
+          f"{[w['bytes'] for w in a['writes']]} (re-block {a['reblock_bytes']}) | {card}")
+    lp, ls = nccl["loop"], nccl["loop_single"]
+    for label, o in (("mesh", lp), ("single-device", ls)):
+        if o["served"] + o["shed"] != o["n"] or o["failures"] or not o["finite"]:
+            fail(f"phase 14 (a) closed loop, {label}: {o['served']} served + {o['shed']} "
+                 f"shed of {o['n']}, {o['failures']} failures, finite {o['finite']}")
+        if o["replayed"] != o["pinned"] or not o["sync_equal"]:
+            fail(f"phase 14 (a) closed loop, {label}: {o['replayed']} of {o['pinned']} pinned "
+                 f"rows replayed bitwise; params after flush bitwise a sync rerun: "
+                 f"{o['sync_equal']}")
+    if lp["scoring"] == 0:
+        fail("phase 14 (a): the scoring kernel was never launched")
+    added["scoring[l1]"] += lp["scoring"]
+    print(f"phase 14 (a) closed loop of 32, {lp['n']} requests through 8 bursts (burst 4 "
+          f"growing {PHASE14_NEW}), one NCCL rank: {lp['served']} served, {lp['shed']} shed "
+          f"stale, {lp['qps']:.1f} q/s, p99 {lp['p99']:.2f} ms (single-device in the same "
+          f"process {ls['qps']:.1f} q/s, p99 {ls['p99']:.2f} ms) | fine-tune ms a burst "
+          f"{stat(lp['finetune_ms'])} (single-device {stat(ls['finetune_ms'])}) | "
+          f"{lp['pinned']} pinned rows replayed bitwise through serve_batch on the retained "
+          f"params | params after flush bitwise a sync mesh incremental_finetune | scoring "
+          f"launches {lp['scoring']} | {card}")
+    c = nccl["semantic"]
+    if (c["appends"] != [PHASE14_NEW] or c["rows"] != c["n"] + PHASE14_NEW
+            or not (c["old_equal"] and c["new_equal"]) or c["finetunes"] != 1):
+        fail(f"phase 14 (c): appends {c['appends']}, store rows {c['rows']}, old rows "
+             f"bitwise {c['old_equal']}, new {c['new_equal']}, fine-tunes {c['finetunes']}")
+    if c["launches"] != c["want"]:
+        fail(f"phase 14 (c): gather_fuse, gather_fuse_backward launched {c['launches']}, "
+             f"the plans call for {c['want']}")
+    added["gather_fuse[resident]"] += c["launches"][0]
+    added["gather_fuse_backward"] += c["launches"][1]
+    print(f"phase 14 (c) GQE+H_sem resident (d_l {SEM_DIM}), one NCCL rank: the growth burst "
+          f"appended its {PHASE14_NEW} rows once (store {c['n']} -> {c['rows']} rows, old "
+          f"rows bitwise, new rows read back bitwise) | gather_fuse {c['launches'][0]}, "
+          f"gather_fuse_backward {c['launches'][1]} launches = the plans' ops")
+    _phase14_tier_gate("one NCCL rank", [nccl["tier"]])
+    print(f"phase 14 (d) ReplicaPool(2) behind a Router, one NCCL rank: "
+          f"{len(nccl['tier']['batches'])} batches, those of the first half on the old params "
+          f"and of the second on the new, each bitwise serve_batch | lane hold ms a swap "
+          f"{[round(x, 2) for x in nccl['tier']['swap_hold_ms']]}")
+    print(f"phase 14 one NCCL rank in {nccl['seconds']:.1f} s")
+
+    # (b), (d): two gloo ranks on the card.
+    gloo = _phase14_spawn(2, "gloo", work)
+    for key, r0 in gloo[0]["script"].items():
+        spec, profile, family = key
+        where = f"[gloo, 2 ranks, {spec}, {profile}, {family}]"
+        r1 = gloo[1]["script"][key]
+        # Rank 0 sheds stale pins before announcing: no other rank sees them.
+        if r0["digest"] != r1["digest"] or r1["stats"] != {**r0["stats"], "stale_sheds": 0}:
+            fail(f"phase 14 (b) {where}: the ranks' answers or params differ")
+        ways = 2
+        for r, o in enumerate((r0, r1)):
+            if o["full"][0] != o["block"][0] * ways or not o["own_block"]:
+                fail(f"phase 14 (b) {where}: rank {r} holds {o['block']} of {o['full']}")
+        v = r0["vs_single"]
+        if not (v["answers"] <= 1.0 and v["update"] <= PHASE14_UPDATE_TOL and v["topk"]
+                and v["sheds"] and v["grown"] and v["n_params"][0] == v["n_params"][1] == 6):
+            fail(f"phase 14 (b) {where}: against single-device {v}")
+        k = "scoring" if family == "gqe" else "intersect"
+        if r0["launches"][k] == 0:
+            fail(f"phase 14 (b) {where}: {k} was never launched")
+        for o in (r0, r1):
+            added["scoring[l1]" if family == "gqe" else "intersect"] += o["launches"][k]
+        print(f"phase 14 (b) {where}: answers and params bitwise equal on both ranks; "
+              f"against single-device: answers at {v['answers']:.3g} of the tolerance, top-k "
+              f"by the gap rule, each fine-tune's update at {v['update']:.3g} of its norm "
+              f"(gate {PHASE14_UPDATE_TOL}; element-wise at {v['params']:.3g} of "
+              f"test_torch_live.py's tolerance), grown rows bitwise; entity block "
+              f"{r0['block']} of {r0['full']} | fine-tune ms {stat(r0['finetune_ms'])} | lane "
+              f"hold ms: write {stat(r0['hold_ms']['write'])}, fine-tune "
+              f"{stat(r0['hold_ms']['finetune'])} | a write's collectives "
+              f"{[w['collectives'] for w in r0['writes']]}, bytes "
+              f"{[w['bytes'] for w in r0['writes']]} (re-block {r0['reblock_bytes']}) | "
+              f"{k} launches {[o['launches'][k] for o in (r0, r1)]} | {card}")
+    _phase14_tier_gate("two gloo ranks", [g["tier"] for g in gloo])
+    print(f"phase 14 (d) ReplicaPool(2) behind a Router, two gloo ranks (data=2 fsdp): "
+          f"{len(gloo[0]['tier']['batches'])} batches a rank, the swap contract held on both, "
+          f"each bitwise serve_batch, the ranks bitwise equal | lane hold ms a swap "
+          f"{[round(x, 2) for x in gloo[0]['tier']['swap_hold_ms']]} | collectives of rank 0 "
+          f"{gloo[0]['counts']['counts']}, staged {gloo[0]['counts']['staged']} | two gloo ranks "
+          f"in {gloo[0]['seconds']:.1f} s")
+
+    # (e) The serving CLI with live writes under torchrun.
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", "-m", "repro_torch.launch.serve", "--mesh", "data=1", "--profile", "fsdp",
+            "--model", "gqe", "--requests", "64", "--top-k", str(TOP_K), "--live-writes", "2",
+            "--max-staleness", "2", "--materialize", "2048"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+                          cwd=work, env={**os.environ, "PYTHONPATH": str(SRC)})
+    lines = proc.stdout.splitlines()
+    if (proc.returncode != 0 or not any(l.startswith("live writes: 2 bursts") and
+                                        "2 background fine-tunes" in l for l in lines)
+            or not any(l.startswith("first: ") for l in lines)):
+        fail(f"phase 14 (e): torchrun rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    print(f"phase 14 (e): {' '.join(argv[1:])} ({time.perf_counter() - t0:.1f} s)")
+    for line in lines:
+        if line.startswith(("execution context", "[closed]", "live ", "mesh lane",
+                            "materialized rows")):
+            print(f"  | {line[:300]}")
+    for key, n in added.items():
+        k_n, counter = main_path[key]
+        main_path[key] = (k_n + n, counter)
+    print(f"live writes under a mesh: launches {dict(added)} of the ranks added to the kernels "
+          f"line | phase 14 in {time.perf_counter() - t14:.1f} s")
 
 
 if __name__ == "__main__":

@@ -54,10 +54,17 @@ mesh of one process a device, launched with ``torchrun --nproc-per-node N``
 Every rank holds its shard of each table (entity rows padded to a multiple
 of the mesh size); rank 0 admits the requests, forms the micro-batches and
 prints, the other ranks serve the same batches (``ServingEngine.follow``).
-``--live-writes``/``--max-staleness`` are refused under a mesh (slice 9c);
+``--live-writes``/``--max-staleness``/``--materialize`` compose with it:
+every rank builds the same ``LiveNGDB`` and materialized cache over its own
+copy of the graph, rank 0 runs the writer thread, and each write and
+fine-tune lands at one point of the mesh's lane on every rank (the
+fine-tune holds it: serving pauses while it runs);
 ``--trace``/``--metrics`` write one file a rank (``m.rank1.jsonl``); a
 follower's trace spans the warmup too, which it cannot tell from the timed
 pass.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh data=2 \
+        --model gqe --live-writes 2 --max-staleness 2 --materialize 2048
 
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two
@@ -383,10 +390,6 @@ def main(argv=None) -> None:
         ap.error("--live-writes/--max-staleness do not compose with "
                  "--semantic-store (the device hot set is incompatible with "
                  "version-pinned replay)")
-    if live and args.mesh is not None:
-        ap.error("--live-writes/--max-staleness under --mesh come with slice 9c: "
-                 "a graph write and its fine-tune would land at different points "
-                 "on different ranks, and their collectives would not pair")
     ctx, owns_group = ExecutionContext.single_device(), False
     if args.mesh is not None:
         if not dist.is_initialized():
@@ -482,8 +485,15 @@ def _run(args, ctx) -> None:
                            device=device, sem_cache=cache,
                            sem_rows_fn=store.read_rows if store else None,
                            mat_cache=mat_cache, kg=kg if live else None, ctx=ctx)
+    live_db = None
+    if args.live_writes > 0:
+        from repro_torch.serving import LiveNGDB
+
+        live_db = LiveNGDB(model, kg, engine, finetune_steps=2)
     if not rank0:
         _follow_rank(engine, args, ctx)
+        if live_db is not None:
+            live_db.close()
         return
     workload = make_workload(kg, args.requests, seed=7)
     # Warmup pass builds every signature the replay will form; the timed
@@ -498,13 +508,10 @@ def _run(args, ctx) -> None:
     if args.trace:
         TRACER.enable()
         TRACER.set_lane("loadgen main")
-    writer, live_db = None, None
-    if args.live_writes > 0:
+    writer = None
+    if live_db is not None:
         import threading
 
-        from repro_torch.serving import LiveNGDB
-
-        live_db = LiveNGDB(model, kg, engine, finetune_steps=2)
         wrng = np.random.default_rng(23)
 
         def _write_bursts():
@@ -555,6 +562,11 @@ def _run(args, ctx) -> None:
         print(f"live writes: {len(live_db.receipts)} bursts, "
               f"{n_fresh} fresh triples, "
               f"{live_db.finetunes_done} background fine-tunes")
+        if ctx.is_sharded:
+            hold = {k: f"{1e3 * float(np.median(v)):.2f}"
+                    for k, v in engine._lane.hold_s.items() if v}
+            print(f"mesh lane: median hold ms {hold} (fine-tune ms a burst "
+                  f"{[round(1e3 * t, 1) for t in live_db.finetune_s]})")
         live_db.close()
     print(f"first: {json.dumps(report.results[0])[:140]}...")
     if cache is not None:

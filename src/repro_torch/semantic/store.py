@@ -169,6 +169,14 @@ class SemanticStore:
 
     def __init__(self, directory: str):
         self.directory = directory
+        self._lock = threading.Lock()
+        self.reload()
+
+    def reload(self) -> None:
+        """Read ``meta.json`` again: rows another process appended since this
+        reader opened (``append_rows`` under a mesh runs on rank 0 alone)
+        become readable. Validated as at opening."""
+        directory = self.directory
         meta_path = os.path.join(directory, _META)
         if not os.path.isfile(meta_path):
             raise SemanticStoreError(
@@ -199,8 +207,8 @@ class SemanticStore:
             row_count += s["rows"]
         if row_count != self.n_rows:
             raise SemanticStoreError("meta row count does not match shards")
-        self._mmaps: Dict[int, tuple] = {}
-        self._lock = threading.Lock()
+        with self._lock:
+            self._mmaps: Dict[int, tuple] = {}
 
     def _shard(self, i: int):
         """Lazily mmap shard ``i`` -> (data_view, scale_view_or_None)."""

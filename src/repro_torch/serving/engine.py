@@ -29,6 +29,11 @@ is to coalesce them into the same pooled micro-batches the executor runs:
 * **Hot swap** (``pin_params_on_admit``) — every request is served on the
   params current at its admission, even if ``update_params`` lands while it
   queues; batches are grouped by params version.
+* **Under a mesh** — rank 0 admits, batches and takes writes; every batch,
+  write, fine-tune, swap and close goes through the mesh's ``MeshLane`` as
+  one typed message, and every rank does it at that point of the lane's
+  order, so the state that decides a collective (retained params, views,
+  caches, graph versions) changes in one order on every rank.
 * **Signature-bucketed padding** — micro-batches pad to the next power-of-
   two size by repeating the last query (padded rows are computed and
   discarded). Bounding the batch-size set bounds the signature set: the
@@ -68,6 +73,7 @@ registry-wide ``reset()`` re-baselines the engine's derived deltas
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pickle
 import queue
@@ -207,7 +213,11 @@ class MeshServing:
       set (``ctx.gather``), except the entity table (and a resident
       ``sem_table``), which stay this rank's block of rows; the hot set
       (``sem_cache``/``sem_slot``) is replicated and shared. Collective the
-      first time a params set is seen.
+      first time a params set is seen. The tables' whole shapes are read
+      off the params (their block times the row axes' ways), so the views
+      of a version retained from before an entity growth stay right after
+      it; the row axes themselves never change (a growth that would change
+      them is refused).
     * ``encode_params(view, queries)`` — the view with the entity rows of
       the batch's anchors (``ctx.fetch_rows``: each from its owner, bitwise)
       and their sorted ids under ``entity_ids``, which the model's
@@ -234,7 +244,7 @@ class MeshServing:
             if k == "entity":
                 out[k] = params[k]
             elif k == "sem_table":
-                out[k] = self._block_rows(k, params[k], shapes[k], params["entity"])
+                out[k] = self._block_rows(k, params[k], params["entity"])
             else:
                 out[k] = self.ctx.gather(k, params[k], shapes[k])
         self._views[id(params)] = (params, out)
@@ -242,16 +252,23 @@ class MeshServing:
             del self._views[next(iter(self._views))]
         return out
 
-    def _block_rows(self, name, local, shape, entity) -> torch.Tensor:
+    def _block_rows(self, name, local, entity) -> torch.Tensor:
         """``name``'s rows of this rank's entity block: its own shard where
         its rule splits rows as the entity table's does, else those rows cut
-        from the gathered table."""
-        if self.ctx.param_spec(name, tuple(shape)) == self.ctx.param_spec(
-                "entity", tuple(self.model.full_shapes["entity"])):
-            return local
+        from the gathered table (padded to the entity rows, as it is)."""
         n = entity.shape[0]
+        rows = n * self.ctx.mesh.ways(self.axes)
+        shape = (rows, self.model.full_shapes[name][1])
+        if self.ctx.param_spec(name, shape) == self.ctx.param_spec(
+                "entity", (rows, entity.shape[1])):
+            return local
         lo = self.ctx.mesh.index(self.axes) * n
         return self.ctx.gather(name, local, shape)[lo:lo + n].clone()
+
+    def reset(self) -> None:
+        """Drop every view (after an entity growth: the next batch gathers
+        afresh). Every rank calls it at the same point of the lane."""
+        self._views.clear()
 
     def encode_params(self, view, queries: Sequence[QueryInstance]) -> Dict:
         ids = np.unique(np.concatenate([np.asarray(q.anchors, dtype=np.int64)
@@ -265,18 +282,34 @@ class MeshServing:
 
 
 class MeshLane:
-    """The one ordered lane of a mesh's serving collectives.
+    """The one ordered lane of a mesh's serving collectives, and of all that
+    changes what they do.
 
-    Rank 0 alone admits requests and forms micro-batches (its batchers' time
-    decides them); for each one it broadcasts the batch's composition — its
-    requests' queries and ``top_k`` — and every rank then serves that batch,
-    collectives and all. Ranks other than 0 run no batcher: ``follow()``
-    receives compositions and serves them in the order sent, until rank 0's
-    last engine closes. Every engine of one mesh shares the lane, so the
-    replicas' batchers take turns under ``lock`` and one process group
-    carries every collective in one order on every rank. An engine's lane
-    id is its place in the order the rank built the lane's engines, the
-    same on every rank."""
+    Rank 0 alone admits requests, forms micro-batches (its batchers' time
+    decides them) and takes graph writes. For each thing every rank must do
+    it broadcasts one typed message, and every rank does it at that point
+    of the order, collectives and all:
+
+    * ``batch`` — a micro-batch's composition: its requests' queries and
+      ``top_k``, its graph-version pin and its admitted params version (the
+      retained snapshot it is served from);
+    * ``write`` — a ``LiveNGDB`` write: its triples, ``n_new_entities`` and
+      ``sem_rows``;
+    * ``finetune`` — the background fine-tune of the write committed at a
+      graph version, with its seed: every rank runs it (collective) and
+      publishes its result as a swap;
+    * ``swap`` — an ``update_params`` call, by its sequence number on that
+      engine;
+    * ``close`` — an engine closed; once all have, the others stop following.
+
+    Ranks other than 0 run no batcher: ``follow()`` receives the messages
+    and does them in the order sent. Every engine of one mesh shares the
+    lane, so rank 0's batchers, writer and maintenance thread take turns
+    under ``lock`` (always taken before an engine's own lock) and one
+    process group carries every collective in one order on every rank. An
+    engine's lane id is its place in the order the rank built the lane's
+    engines, the same on every rank. ``hold_s`` keeps how long rank 0 held
+    the lane for each write, fine-tune and swap."""
 
     _LANES: Dict[int, "MeshLane"] = {}
     _GUARD = threading.Lock()
@@ -294,6 +327,7 @@ class MeshLane:
         self.lock = threading.RLock()
         self._engines: Dict[int, "ServingEngine"] = {}
         self._next_id = 0
+        self.hold_s: Dict[str, List[float]] = {"write": [], "finetune": [], "swap": []}
 
     def register(self, engine) -> int:
         with self.lock:
@@ -302,46 +336,62 @@ class MeshLane:
             self._engines[lane_id] = engine
             return lane_id
 
-    def _broadcast(self, payload: Optional[bytes]) -> Optional[bytes]:
+    def _broadcast(self, payload: Optional[bytes]) -> bytes:
         mesh, dev = self.ctx.mesh, self.ctx.device
         axes = mesh.axis_names
         n = torch.tensor([0 if payload is None else len(payload)], dtype=torch.int64,
                          device=dev)
         mesh.broadcast(n, 0, axes)
         size = int(n.item())
-        if size == 0:
-            return None
         buf = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(dev)
                if payload is not None else torch.empty(size, dtype=torch.uint8, device=dev))
         mesh.broadcast(buf, 0, axes)
         return buf.cpu().numpy().tobytes()
 
-    def announce(self, lane_id: int, flush: str, batch: Sequence) -> None:
+    @contextlib.contextmanager
+    def held(self, kind: str):
+        """Rank 0: hold the lane for one write, fine-tune or swap (timed)."""
+        with self.lock:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.hold_s[kind].append(time.perf_counter() - t0)
+
+    def announce(self, kind: str, lane_id: int, payload) -> None:
+        """Rank 0, holding ``lock``: send one message."""
+        if lane_id not in self._engines:
+            raise RuntimeError(f"engine {lane_id} of the lane is closed: no rank would "
+                               f"follow its {kind}")
+        self._broadcast(pickle.dumps((kind, lane_id, payload)))
+
+    def announce_batch(self, lane_id: int, flush: str, batch: Sequence) -> None:
         """Rank 0, holding ``lock``: send one batch's composition."""
         reqs = [(r.query.pattern, np.asarray(r.query.anchors),
                  np.asarray(r.query.relations), r.top_k) for r in batch]
-        self._broadcast(pickle.dumps((lane_id, flush, reqs)))
+        self.announce("batch", lane_id, (flush, reqs, batch[0].pin_version,
+                                         batch[0].params_version))
 
     def release(self, lane_id: int) -> None:
-        """An engine closed. On rank 0, after the last open one, tell the
-        other ranks to stop following."""
+        """An engine closed; on rank 0, tell the other ranks."""
         with self.lock:
             if self._engines.pop(lane_id, None) is None:
                 return
-            if self.ctx.rank == 0 and not self._engines:
-                self._broadcast(None)
+            if self.ctx.rank == 0:
+                self._broadcast(pickle.dumps(("close", lane_id, None)))
 
     def follow(self) -> int:
-        """Ranks other than 0: serve every batch rank 0 sends, in order, until
-        it stops. Returns the number of batches served."""
+        """Ranks other than 0: do every message rank 0 sends, in order, until
+        all its engines have closed. Returns the number of batches served."""
         n = 0
-        while True:
-            msg = self._broadcast(None)
-            if msg is None:
-                return n
-            lane_id, flush, reqs = pickle.loads(msg)
-            self._engines[lane_id]._follow(flush, reqs)
-            n += 1
+        while self._engines:
+            kind, lane_id, payload = pickle.loads(self._broadcast(None))
+            if kind == "close":
+                self._engines.pop(lane_id, None)
+                continue
+            self._engines[lane_id]._on_lane(kind, payload)
+            n += kind == "batch"
+        return n
 
 
 def pad_to_bucket(queries: Sequence[QueryInstance]):
@@ -435,10 +485,15 @@ class ServingEngine:
     same answers; rank 0 admits requests, forms the batches and replies,
     and the other ranks ``follow()`` it through the mesh's ``MeshLane``.
     The entity table stays split by rows: the encode fetches its anchors'
-    rows (``MeshServing``) and the scorer gathers the [B, E] scores. Live
-    graphs (``kg=``) and hot swaps (``update_params``) wait for slice 9c:
-    a write or a swap landing at different points on different ranks would
-    pair different collectives."""
+    rows (``MeshServing``) and the scorer gathers the [B, E] scores. With a
+    live graph (``kg=``, each rank its own copy, written only through a
+    ``LiveNGDB``) every write and fine-tune, and every ``update_params``
+    (collective: each rank passes its shards), lands at one point of the
+    lane's order on every rank."""
+
+    # Under a mesh: how long a follower waits for its own ``update_params``
+    # of a swap rank 0 announced before it raises.
+    SWAP_WAIT_S = 60.0
 
     def __init__(self, model, params, executor=None,
                  cfg: Optional[ServingConfig] = None, device=None,
@@ -455,10 +510,6 @@ class ServingEngine:
             raise ValueError("latency_window must be >= 1")
         self.ctx = ctx if ctx is not None else ExecutionContext.single_device()
         sharded = self.ctx.is_sharded
-        if sharded and kg is not None:
-            raise NotImplementedError(
-                "staleness-bounded serving (kg=) under a mesh comes with slice 9c: "
-                "a graph write lands at different points on different ranks")
         self.device = resolve_device(self.ctx.device if device is None and sharded
                                      else device)
         self.executor = executor or PooledExecutor(model, b_max=256,
@@ -507,6 +558,13 @@ class ServingEngine:
         self._params_retention = 4
         self._params_by_version: Dict[int, Tuple[object, int]] = (
             {0: (params, self._n_entities)} if self.cfg.pin_params_on_admit else {})
+        # Under a mesh: this engine's ``update_params`` calls so far, and a
+        # follower's params staged for the swaps rank 0 has yet to announce.
+        self._swap_seq = 0
+        self._staged: Dict[int, object] = {}
+        self._staged_cv = threading.Condition()
+        # The LiveNGDB writing through this engine (its lane messages).
+        self._live = None
         self._scorer = scorer_for(model, self.ctx)
         self._scorer_traces0 = self._scorer.traces
         self._sharing0 = dict(self.executor.sharing_stats())
@@ -625,17 +683,64 @@ class ServingEngine:
             self._lane.release(self._lane_id)
 
     def follow(self) -> int:
-        """A rank other than 0 under a mesh: serve rank 0's micro-batches, in
-        its order, until its engines close (``MeshLane.follow``). Returns the
-        number of batches served."""
+        """A rank other than 0 under a mesh: do rank 0's batches, writes,
+        fine-tunes and swaps, in its order, until its engines close
+        (``MeshLane.follow``). Returns the number of batches served."""
         if self._lane is None or self.leader:
             raise RuntimeError("follow() is for ranks other than 0 of a mesh")
         with self._lock:
             self._closed = True   # a follower admits nothing itself
         return self._lane.follow()
 
-    def _follow(self, flush: str, reqs) -> None:
-        """Serve one batch rank 0 announced, as rank 0 serves it.
+    def _on_lane(self, kind: str, payload) -> None:
+        """A rank other than 0: do one message rank 0 sent (``MeshLane``).
+        A write, fine-tune or swap that fails here failed on this rank alone
+        (rank 0 checks a write before announcing it), after which its state
+        and collectives would no longer pair with rank 0's: the error is
+        counted, written to stderr and raised, ending ``follow()``."""
+        if kind == "batch":
+            self._follow(*payload)
+            return
+        try:
+            if kind == "swap":
+                self._follow_swap(payload)
+            elif self._live is None:
+                raise RuntimeError(f"rank 0 sent a {kind}, and no LiveNGDB writes through "
+                                   "this rank's engine")
+            elif kind == "write":
+                self._live._apply_write(*payload)
+            elif kind == "finetune":
+                self._live._follow_finetune(*payload)
+            else:
+                raise ValueError(f"unknown lane message {kind!r}")
+        except Exception as e:
+            with self._lock:
+                self._failures += 1
+            print(f"[rank {self.ctx.rank}] {self.name}: a {kind} failed on this rank "
+                  f"({type(e).__name__}: {e}); it stops following", file=sys.stderr)
+            raise
+
+    def _follow_swap(self, seq: int) -> None:
+        """Apply this rank's params of swap ``seq`` (staged by its own
+        ``update_params``), waiting up to ``SWAP_WAIT_S`` for them."""
+        deadline = time.monotonic() + self.SWAP_WAIT_S
+        with self._staged_cv:
+            while seq not in self._staged:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"swap {seq}: this rank's update_params for it did not come "
+                        f"within {self.SWAP_WAIT_S} s")
+                self._staged_cv.wait(left)
+            params = self._staged.pop(seq)
+        self._swap(params)
+
+    def _follow(self, flush: str, reqs, pin_version: Optional[int] = None,
+                params_version: int = 0) -> None:
+        """Serve one batch rank 0 announced, as rank 0 serves it: on the
+        snapshot of its graph-version pin and admitted params version, which
+        this rank retains as rank 0 does (the same writes and swaps reached
+        both in the same order).
 
         A query's own error (``_QUERY_ERRORS``, e.g. a malformed pattern) is
         the one rank 0 meets on the same inputs: it retries the requests
@@ -645,8 +750,8 @@ class ServingEngine:
         collectives would no longer pair with rank 0's: it is counted,
         written to stderr and raised, ending ``follow()``."""
         now = time.perf_counter()
-        batch = [_Request(QueryInstance(p, a, r), k, Future(), now)
-                 for p, a, r, k in reqs]
+        batch = [_Request(QueryInstance(p, a, r), k, Future(), now, pin_version,
+                          params_version) for p, a, r, k in reqs]
         try:
             self._serve(batch, flush)
         except _QUERY_ERRORS as e:
@@ -906,10 +1011,15 @@ class ServingEngine:
                     results = self._serve(batch, flush)
                 else:
                     # One batch at a time on the mesh: its composition, then
-                    # its collectives, in the order every rank follows.
+                    # its collectives, in the order every rank follows. Writes
+                    # land only under the lane's lock, so the staleness check
+                    # is made again under it, before the announcement.
                     with self._lane.lock:
-                        self._lane.announce(self._lane_id, flush, batch)
-                        results = self._serve(batch, flush)
+                        batch = self._shed_stale(batch)
+                        results = []
+                        if batch:
+                            self._lane.announce_batch(self._lane_id, flush, batch)
+                            results = self._serve(batch, flush)
         except Exception as e:
             if isinstance(e, StaleVersionError):
                 # The pin was evicted mid-batch by a concurrent write: a
@@ -964,11 +1074,31 @@ class ServingEngine:
         a live graph the new params (and the model's entity count) become
         the CURRENT graph version's snapshot; older pins keep theirs. With
         ``pin_params_on_admit`` requests already queued keep their admitted
-        params."""
-        if self._mesh is not None:
-            raise NotImplementedError(
-                "hot swaps under a mesh come with slice 9c: a swap lands at "
-                "different points on different ranks")
+        params.
+
+        Under a mesh it is collective: every rank calls it with its own
+        shards, in the same order (each rank's ``n``-th call is swap ``n``).
+        Rank 0's call takes the lane, announces the swap and applies it, so
+        it lands between the same two batches on every rank; another rank's
+        call stages its params, which its ``follow()`` applies when swap
+        ``n`` arrives, or raises, naming ``n``, if they have not come within
+        ``SWAP_WAIT_S``."""
+        if self._lane is None:
+            self._swap(params)
+        elif self.leader:
+            with self._lane.held("swap"):
+                self._swap_seq += 1
+                self._lane.announce("swap", self._lane_id, self._swap_seq)
+                self._swap(params)
+        else:
+            with self._staged_cv:
+                self._swap_seq += 1
+                self._staged[self._swap_seq] = params
+                self._staged_cv.notify_all()
+
+    def _swap(self, params) -> None:
+        """``update_params`` on this rank alone: at a point of the lane's
+        order under a mesh (a swap, a write's growth, a fine-tune)."""
         with self._lock:
             self.params = params
             self._n_entities = int(getattr(self.model, "n_entities",

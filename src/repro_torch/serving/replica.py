@@ -165,7 +165,10 @@ class ReplicaPool:
         """Hot model swap, pool-wide and without draining: each engine swaps
         under its own lock, bumps its params version and mat-cache stamp, and
         keeps serving in-flight requests on their ADMITTED params snapshot.
-        New replicas added after the swap start on the new params."""
+        New replicas added after the swap start on the new params. Under a
+        mesh it is collective: every rank calls it with its own shards, in
+        the same order (a rank other than 0 may call it before it follows);
+        each replica engine's swap lands at one point of the lane."""
         with self._lock:
             self.params = params
             reps = list(self._replicas.values())

@@ -430,7 +430,8 @@ class Router:
 
     # ------------------------------------------------------------- lifecycle
     def update_params(self, params) -> None:
-        """Hot model swap across the pool (bit-safe, no drain)."""
+        """Hot model swap across the pool (bit-safe, no drain; collective
+        under a mesh, ``ReplicaPool.update_params``)."""
         self.pool.update_params(params)
 
     def close(self, drain: bool = True, timeout: float = 60.0) -> None:

@@ -72,7 +72,9 @@ graph. The pipelined scheduler thread probes it (``PreparedWorkItem.
 mat_hits``).
 
 ``incremental_finetune`` is the live graph's embedding maintenance: a few
-Adam steps of 1p loss on the written triples, on a copy of the params.
+Adam steps of 1p loss on the written triples, on a copy of the params; under
+a mesh sharded as a training step is, through the same helpers
+(``gather_params``, ``loss_and_grads``, ``sharded_update``).
 
 Under a mesh ``ctx`` (``distributed/context.py``) the trainer is ZeRO-3 by
 hand: each rank keeps only its shard of each parameter and of both Adam
@@ -148,9 +150,66 @@ class TrainConfig:
 _PORT_ONLY_PHASES = ("scheduler_cpu_s", "dispatch_cpu_s", "t_retired")
 
 
+def gather_params(ctx, model, params) -> Dict[str, torch.Tensor]:
+    """Every parameter whole, by sorted name: under a mesh gathered from this
+    rank's shards at ``model.full_shapes`` (collective); single-device the
+    tensors themselves."""
+    shapes = model.full_shapes
+    return {k: ctx.gather(k, params[k], shapes[k]) for k in sorted(params)}
+
+
+def loss_and_grads(model, encode, params, steps, ans, pos: torch.Tensor,
+                   neg: torch.Tensor, scale: float = 1.0):
+    """(loss, per-query loss, {name: gradient}) of one prepared batch
+    (``encode`` its closure, ``pos``/``neg`` in its plan's order on the
+    device) at ``params``, the loss (and so every gradient) times ``scale``
+    where it is not 1. Frozen names get (1,) zero tokens, and a parameter
+    the batch does not reach a zero gradient, as the reference's
+    ``value_and_grad`` gives."""
+    frozen_names = set(model.frozen_param_names())
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()
+              if k not in frozen_names}
+    p = {**leaves, **{k: v for k, v in params.items() if k in frozen_names}}
+    with torch.enable_grad():
+        q = encode(p, steps, ans)
+        loss, per_q = negative_sampling_loss(model, p, q, pos, neg)
+        if scale != 1.0:
+            loss = loss * scale
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    out = {k: torch.zeros_like(v) if g is None else g
+           for (k, v), g in zip(leaves.items(), grads)}
+    dev = next(iter(params.values())).device
+    out.update({k: torch.zeros((1,), dtype=torch.float32, device=dev)
+                for k in params if k in frozen_names})
+    return loss.detach(), per_q.detach(), out
+
+
+def sharded_update(ctx, grads: Dict[str, torch.Tensor], n: int, opt_state, params,
+                   cfg: AdamConfig) -> None:
+    """Adam, in place, on one step's whole gradients: summed over the axes a
+    batch of ``n`` is split over (one flat all-reduce of the trainable
+    names; none single-device), clipped by their global norm, and cut to
+    this rank's shards (the whole tensors single-device) of ``params`` and
+    ``opt_state``."""
+    if ctx.batch_axes(n):
+        names = [k for k in sorted(grads) if k not in cfg.frozen]
+        flat = ctx.reduce_batch(torch.cat([grads[k].reshape(-1) for k in names]), n)
+        sizes = [grads[k].numel() for k in names]
+        grads = {**grads, **{k: g.view(grads[k].shape) for k, g in
+                             zip(names, torch.split(flat, sizes))}}
+    if cfg.clip_norm > 0:
+        # adam_update's own clip, on the whole gradients rather than the
+        # shards.
+        g_norm = global_norm(grads)
+        clip = torch.clamp(cfg.clip_norm / (g_norm + 1e-9), max=1.0)
+        grads = {k: g * clip for k, g in grads.items()}
+        cfg = dataclasses.replace(cfg, clip_norm=0.0)
+    adam_update({k: ctx.shard(k, g) for k, g in grads.items()}, opt_state, params, cfg)
+
+
 def incremental_finetune(model, params, triples, *, steps: int = 4,
                          lr: float = 1e-3, n_negatives: int = 8,
-                         seed: int = 0, b_max: int = 64, executor=None):
+                         seed: int = 0, b_max: int = 64, executor=None, ctx=None):
     """Incremental embedding maintenance for a live KG write: a few Adam
     steps of 1p link-prediction loss on exactly the written triples.
     Returns ``(new_params, losses)``.
@@ -162,7 +221,16 @@ def incremental_finetune(model, params, triples, *, steps: int = 4,
     they are typically the serving engine's LIVE weights, read concurrently
     by the batcher thread — because the in-place Adam runs on clones: the
     returned dict holds new tensors for every trainable name and shares the
-    frozen ones. Launches go on the calling thread's current stream."""
+    frozen ones. Launches go on the calling thread's current stream.
+
+    Under a mesh ``ctx`` ``params`` are this rank's shards and the call is
+    collective, a step sharded as ``NGDBTrainer(ctx=)`` shards one: every
+    rank draws the same negatives, gathers the parameters, takes the loss on
+    its rows of the burst (``rank_slice``) times local/global rows, and runs
+    ``sharded_update`` on its shards of fresh moments; the losses returned
+    are summed over the batch axes. At one rank it is bitwise the
+    single-device fine-tune."""
+    ctx = ctx or ExecutionContext.single_device()
     triples = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
     if len(triples) == 0:
         return params, []
@@ -178,33 +246,28 @@ def incremental_finetune(model, params, triples, *, steps: int = 4,
     while clash.any():
         neg[clash] = rng.integers(0, n_ent, size=int(clash.sum()))
         clash = neg == pos[:, None]
-    prepared = executor.prepare(queries)
+    n = len(queries)
+    _, lq, lpos, lneg, _ = rank_slice(ctx, queries, pos, neg)
+    prepared = executor.prepare(lq)
     steps_in, ans = prepared.device_args(dev)
     encode = executor.encode_fn(prepared)
-    pos_t = torch.from_numpy(pos[prepared.order]).to(dev)
-    neg_t = torch.from_numpy(neg[prepared.order]).to(dev)
+    pos_t = torch.from_numpy(lpos[prepared.order]).to(dev)
+    neg_t = torch.from_numpy(lneg[prepared.order]).to(dev)
     adam_cfg = AdamConfig(lr=lr)
     frozen_names = set(model.frozen_param_names())
     new = {k: (v if k in frozen_names else v.detach().clone())
            for k, v in params.items()}
-    frozen = {k: v for k, v in new.items() if k in frozen_names}
-    opt_state = adam_init(new, adam_cfg)
+    opt_state = adam_init(new, adam_cfg, ctx=ctx)
     losses: List[float] = []
     for _ in range(steps):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in new.items()
-                  if k not in frozen_names}
-        p = {**leaves, **frozen}
-        with torch.enable_grad():
-            q = encode(p, steps_in, ans)
-            loss, _ = negative_sampling_loss(model, p, q, pos_t, neg_t)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True)
-        g = {k: torch.zeros_like(v) if gr is None else gr
-             for (k, v), gr in zip(leaves.items(), grads)}
-        g.update({k: torch.zeros((1,), dtype=torch.float32, device=dev)
-                  for k in frozen})
-        adam_update(g, opt_state, new, adam_cfg)
-        losses.append(float(loss.detach()))
+        full = gather_params(ctx, model, new)
+        loss, _, grads = loss_and_grads(model, encode, full, steps_in, ans, pos_t, neg_t,
+                                        len(prepared.order) / n)
+        del full
+        sharded_update(ctx, grads, n, opt_state, new, adam_cfg)
+        if ctx.is_sharded:
+            loss = ctx.reduce_batch(loss.clone(), n)
+        losses.append(float(loss))
     return new, losses
 
 
@@ -304,14 +367,6 @@ class NGDBTrainer:
         self.opt_state = adam_init(self.params, self.cfg.adam, ctx=self.ctx)
 
     # ------------------------------------------------------------------ fns
-    def _split_frozen(self, params):
-        """(trainable, frozen) views of the params dict. Frozen buffers are
-        closed over by the loss, so no gradient is made for them."""
-        frozen_names = set(self.model.frozen_param_names())
-        trainable = {k: v for k, v in params.items() if k not in frozen_names}
-        frozen = {k: v for k, v in params.items() if k in frozen_names}
-        return trainable, frozen
-
     def loss_and_grads(self, prepared, pos: np.ndarray, neg: np.ndarray, params=None):
         """(loss, per-query loss, {name: gradient}) of one prepared batch, its
         ``pos``/``neg`` already in the plan's order, at ``params`` (the
@@ -327,28 +382,16 @@ class NGDBTrainer:
                         params=None, scale: float = 1.0):
         """``loss_and_grads`` on inputs already on the device; the loss (and
         so every gradient) times ``scale`` where it is not 1."""
-        dev = self.device
-        trainable, frozen = self._split_frozen(self.params if params is None else params)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
-        p = {**leaves, **frozen}
-        with torch.enable_grad():
-            q = self.executor.encode_fn(prepared)(p, steps, ans)
-            loss, per_q = negative_sampling_loss(self.model, p, q, pos, neg)
-            if scale != 1.0:
-                loss = loss * scale
-            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        out = {k: torch.zeros_like(v) if g is None else g
-               for (k, v), g in zip(leaves.items(), grads)}
-        out.update({k: torch.zeros((1,), dtype=torch.float32, device=dev) for k in frozen})
-        return loss.detach(), per_q.detach(), out
+        return loss_and_grads(self.model, self.executor.encode_fn(prepared),
+                              self.params if params is None else params, steps, ans,
+                              pos, neg, scale)
 
     # ------------------------------------------------------------------ mesh
     def full_params(self) -> Dict[str, torch.Tensor]:
         """The whole parameter set: under a mesh gathered from every rank's
         shards (collective: call it on every rank, in the same place);
         single-device the params' own tensors. ``evaluate`` runs on it."""
-        shapes = self.model.full_shapes
-        return {k: self.ctx.gather(k, self.params[k], shapes[k]) for k in sorted(self.params)}
+        return gather_params(self.ctx, self.model, self.params)
 
     def _full_tree(self, params, opt_state) -> Dict:
         """A checkpoint's tree ({"params", "opt"}) of whole tensors: under a
@@ -370,26 +413,8 @@ class NGDBTrainer:
                                  force=force, ctx=self.ctx)
 
     def _update(self, grads: Dict[str, torch.Tensor], n: int) -> None:
-        """Adam, in place, on one step's gradients: summed over the axes a
-        batch of ``n`` is split over (one flat all-reduce of the trainable
-        names; none single-device), clipped by their global norm, and cut to
-        this rank's shards (the whole tensors single-device)."""
-        cfg = self.cfg.adam
-        if self.ctx.batch_axes(n):
-            names = [k for k in sorted(grads) if k not in cfg.frozen]
-            flat = self.ctx.reduce_batch(torch.cat([grads[k].reshape(-1) for k in names]), n)
-            sizes = [grads[k].numel() for k in names]
-            grads = {**grads, **{k: g.view(grads[k].shape) for k, g in
-                                 zip(names, torch.split(flat, sizes))}}
-        if cfg.clip_norm > 0:
-            # adam_update's own clip, on the whole gradients rather than the
-            # shards.
-            g_norm = global_norm(grads)
-            clip = torch.clamp(cfg.clip_norm / (g_norm + 1e-9), max=1.0)
-            grads = {k: g * clip for k, g in grads.items()}
-            cfg = dataclasses.replace(cfg, clip_norm=0.0)
-        adam_update({k: self.ctx.shard(k, g) for k, g in grads.items()}, self.opt_state,
-                    self.params, cfg)
+        """Adam, in place, on one step's gradients (``sharded_update``)."""
+        sharded_update(self.ctx, grads, n, self.opt_state, self.params, self.cfg.adam)
 
     def _global(self, loss: torch.Tensor, per_q: torch.Tensor, local_order, n: int,
                 global_order) -> Tuple[torch.Tensor, torch.Tensor]:

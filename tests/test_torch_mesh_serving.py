@@ -15,7 +15,7 @@ test of its own).
 * each rank's entity shard: 1/N of the rows under fsdp, 1/model under 2d;
 * a malformed query among good ones on two ranks: it fails alone, and both
   ranks count the one failure; a follower's error of its own is raised;
-* the CLI with ``--mesh data=2`` on two ranks, and what it refuses.
+* the CLI with ``--mesh data=2`` on two ranks.
 
 The spawns run once for the module (4 ranks beside the reference, then 2
 and 1 together), each with a time limit."""
@@ -347,42 +347,6 @@ def test_a_follower_raises_an_error_of_its_own(tmp_path):
         with pytest.raises(RuntimeError, match="read error"):
             eng._follow("full", [bad, bad])
         assert eng.stats()["failures"] == 3
-        eng.close()
-    finally:
-        dist.destroy_process_group()
-
-
-def test_serve_cli_refuses_live_writes_under_a_mesh(capsys):
-    from repro_torch.launch.serve import main
-
-    for flag in (["--live-writes", "2"], ["--max-staleness", "1"]):
-        with pytest.raises(SystemExit):
-            main(["--reduced", "--device", "cpu", "--mesh", "data=1"] + flag)
-        assert "slice 9c" in capsys.readouterr().err
-
-
-def test_engine_refuses_what_waits_for_slice_9c(tmp_path):
-    """A live graph and a hot swap under a mesh raise, naming slice 9c."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.distributed import make_execution_context
-    from repro_torch.models import ModelConfig, make_model
-    from repro_torch.serving import ServingEngine
-
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0,
-                            world_size=1)
-    try:
-        ctx = make_execution_context("data=1", profile="fsdp", device="cpu")
-        kg = W.graph()
-        model = make_model("gqe", ModelConfig(dim=8, entity_pad=8), device="cpu")
-        params = model.init_params(torch.Generator().manual_seed(0), kg.n_entities,
-                                   kg.n_relations, ctx=ctx)
-        with pytest.raises(NotImplementedError, match="slice 9c"):
-            ServingEngine(model, params, device="cpu", ctx=ctx, kg=kg, started=False)
-        eng = ServingEngine(model, params, device="cpu", ctx=ctx, started=False)
-        with pytest.raises(NotImplementedError, match="slice 9c"):
-            eng.update_params(params)
         eng.close()
     finally:
         dist.destroy_process_group()
