@@ -330,7 +330,31 @@ non-zero (printing no result) on any failed check:
    fine-tune ms a burst, lane hold ms a write, fine-tune and swap,
    collectives and bytes a write (the growth's re-block among them), the
    phase's seconds. The ranks' launches are added to the kernels line.
-15. The last line: ``{"ok": true, "device": {...}}``.
+15. Serving a trained checkpoint, and the example drivers (after 14, before
+   the kernels line of 6), at ``ModelConfig()`` width on the FB15k-shaped
+   graph. (a) ``launch.serve --ckpt-dir --answers`` in this process on
+   phase 8's checkpoints (BetaE at step 28, 12 steps and 16 resumed;
+   GQE+H_sem through phase 4b's store at step 12, served through a
+   2,048-row hot set, not training's budget; a short ``launch.train
+   --ckpt-dir`` writes them where they are missing): every answered micro-batch bitwise ``serve_batch`` on the
+   checkpoint's params read apart from the CLI (``load_checkpoint`` into
+   ``params_from_numpy``), other answers than the same CLI's without
+   ``--ckpt-dir``; BetaE through ``--replicas 2`` the same. (b) ``torchrun
+   --nproc-per-node 1 -m repro_torch.launch.serve --mesh data=1 --profile
+   fsdp --ckpt-dir`` (NCCL): its answers bitwise single-device
+   ``serve_batch``'s; two gloo ranks on the card (``data=2`` fsdp,
+   ``_phase15_rank``) restore both single-device checkpoints with the
+   entity rows padded from 14,951 to 14,952: each rank holds its block of
+   the checkpoint's rows (the padding row its own), the ranks' answers to
+   (a)'s compositions bitwise equal and within phase 14 (b)'s answer
+   tolerance of (a)'s. (c) ``launch.e2e --dim 400`` (crash at step 60,
+   ``resumed at step 60``, evaluate, ``serve_batch``), ``launch.
+   semantic_fusion`` (``kernel == model fusion: True``) and ``launch.lm_zoo
+   --arch qwen2-0.5b`` on the card. (d) ``scoring``, ``intersect`` and
+   ``gather_fuse`` launched in (a) and (b), ``intersect_backward`` and
+   ``gather_fuse_backward`` in (c); the serving CLIs', the gloo ranks' and
+   ``launch.e2e``'s launches are added to the kernels line.
+16. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -955,9 +979,9 @@ def main() -> None:
         shapes = collections.Counter()
         for rec in engine.batch_log:
             if family == "betae":
-                for op, card, pn in executor.prepare(rec.queries).meta:
+                for op, arity, pn in executor.prepare(rec.queries).meta:
                     if op in (int(OpType.INTERSECT), int(OpType.UNION)):
-                        shapes[(pn, card)] += 1
+                        shapes[(pn, arity)] += 1
             elif need:
                 shapes[(len(rec.queries), E)] += 1
         l = latency_summary([res["latency_ms"] for res in results])
@@ -2114,8 +2138,8 @@ def main() -> None:
           f"line | phase 7 in {time.perf_counter() - t7:.1f} s")
 
     # ------------------------------------------------ 8. telemetry on the card
-    kg0 = phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budget,
-                 sem_dir, pipelined_losses)
+    kg0, obs_work = phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store,
+                           budget, sem_dir, pipelined_losses)
 
     # --------------------------------------------- 9. autotuning on the card
     phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store, sem_dir,
@@ -2136,6 +2160,9 @@ def main() -> None:
 
     # ------------------- 14. live writes and hot swaps under a mesh
     phase14(main_path, card)
+
+    # ------------- 15. serving a trained checkpoint, and the example drivers
+    phase15(torch, dev, main_path, obs_work, sem_dir, card)
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f} s")
 
     # ------------------------------------------------- 6. the kernels line
@@ -2613,7 +2640,7 @@ def phase8(torch, dev, kops, main_path, batches, tcfg, cfg, sem_cfg, store, budg
         main_path[key] = (k_n + n, counter)
     print(f"telemetry: launches {dict(added)} added to the kernels line | phase 8 in "
           f"{time.perf_counter() - t8:.1f} s")
-    return kg0
+    return kg0, work
 
 
 def phase9(torch, dev, kops, main_path, kg0, batches, tcfg, cfg, sem_cfg, store, sem_dir,
@@ -4351,6 +4378,9 @@ def _phase13_sweep() -> None:
     # tests' (tests/test_torch_dryrun.py).
     runs = [(a, s, mp, False, False) for mp in (False, True) for a, s in cells]
     runs += [("ngdb", None, False, False, sparse) for sparse in (False, True)]
+    # The prefill_32k cells trace for ~100 s each, the rest for seconds:
+    # starting them first keeps the sweep's wall near the longest cell.
+    runs.sort(key=lambda r: r[1] != "prefill_32k")
     t0 = time.perf_counter()
     jobs = min(8, os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(
@@ -4611,24 +4641,34 @@ def _phase14_script(torch, family, ctx, kg, qs, bursts, dev, pad) -> dict:
     return out
 
 
+def _answers_gap(got, want, d: int) -> tuple:
+    """Answers against the ones they should match: the largest excess of a
+    score over rtol 1e-4, atol 1e-4·d (``d`` the entity rows' width; plus
+    the 3-place rounding), and whether the top-k ids agree wherever the gap
+    after a position exceeds that tolerance."""
+    atol = 1e-4 * d + 1e-3
+    worst, topk = 0.0, True
+    for g, w in zip(got, want):
+        gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
+        worst = max(worst, float(np.max(np.abs(gs - ws) / (atol + 1e-4 * np.abs(ws)))))
+        for j in range(len(ws) - 1):
+            if (ws[j] - ws[j + 1] > atol + 1e-4 * abs(ws[j])
+                    and set(g["top_entities"][:j + 1]) != set(w["top_entities"][:j + 1])):
+                topk = False
+    return worst, topk
+
+
 def _phase14_compare(got, want, rtol: float) -> dict:
     """A mesh script's result against single-device's: answers within rtol
     1e-4, atol 1e-4·d (plus the 3-place rounding), top-k ids by the gap rule,
     the same sheds; each published params set within ``rtol``, atol
     rtol·1e-2·(the Adam steps behind it); the largest excess over the
     tolerance of each (<= 1 holds)."""
-    atol = 1e-4 * want["params"][0]["entity"].shape[1] + 1e-3
-    ans, topk, sheds = 0.0, True, True
-    for g, w in zip(got["answers"], want["answers"]):
-        if g == "stale" or w == "stale":
-            sheds &= g == w
-            continue
-        gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
-        ans = max(ans, float(np.max(np.abs(gs - ws) / (atol + 1e-4 * np.abs(ws)))))
-        for j in range(len(ws) - 1):
-            if (ws[j] - ws[j + 1] > atol + 1e-4 * abs(ws[j])
-                    and set(g["top_entities"][:j + 1]) != set(w["top_entities"][:j + 1])):
-                topk = False
+    pairs = list(zip(got["answers"], want["answers"]))
+    sheds = all(g == w for g, w in pairs if g == "stale" or w == "stale")
+    served = [(g, w) for g, w in pairs if g != "stale" and w != "stale"]
+    ans, topk = _answers_gap([g for g, _ in served], [w for _, w in served],
+                             want["params"][0]["entity"].shape[1])
     # Sets: 0 the initial params, 2 the growth's, the others fine-tunes'.
     par, upd, steps, grown = 0.0, 0.0, 0, True
     gp, wp = got["params"], want["params"]
@@ -5122,6 +5162,335 @@ def phase14(main_path, card) -> None:
         main_path[key] = (k_n + n, counter)
     print(f"live writes under a mesh: launches {dict(added)} of the ranks added to the kernels "
           f"line | phase 14 in {time.perf_counter() - t14:.1f} s")
+
+
+# ------------------------- 15. serving a trained checkpoint, and the drivers
+PHASE15_REQUESTS = 64      # the serving CLI's workload (make_workload, seed 7)
+PHASE15_KERNELS = ("scoring", "intersect", "gather_fuse", "intersect_backward",
+                   "gather_fuse_backward")
+
+
+def _phase15_rank(rank: int, world: int, work: str) -> None:
+    """One of phase 15 (b)'s gloo ranks on the card (spawned): restores each
+    single-device checkpoint onto ``data=2`` fsdp (entity rows padded to
+    the mesh) and serves (a)'s recorded compositions through
+    ``serve_batch(ctx=)``; pickles its answers, its entity block's check
+    and its launches to ``work/p15.r<rank>.pkl``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{work}/pg15", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    from repro_torch.core import PooledExecutor
+    from repro_torch.distributed import make_execution_context
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import read_answers, restore_params, serve_batch
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.semantic import SemanticCache, SemanticStore
+    from repro_torch.training.checkpoint import list_checkpoints
+
+    t0 = time.perf_counter()
+    ctx = make_execution_context(f"data={world}", profile="fsdp", device=dev, backend="gloo")
+    out = {}
+    for family, ck, answers in inp["cases"]:
+        sem = family == "gqe+sem"
+        model = make_model(family.split("+")[0], ModelConfig(
+            semantic_dim=SEM_DIM if sem else 0, entity_pad=world), device=dev)
+        store = SemanticStore(inp["sem_dir"]) if sem else None
+        cache = SemanticCache(store, SEM_BUDGET, device=dev, ctx=ctx) if sem else None
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init_params(gen, FB15K[0], FB15K[1], semantic_cache=cache, ctx=ctx)
+        before = params["entity"].clone()
+        step = restore_params(ck, model, params, ctx=ctx, sem_cache=cache)
+        with np.load(os.path.join(list_checkpoints(ck)[-1], "arrays.npz")) as z:
+            ent = z["params/entity"]
+        n = before.shape[0]
+        axes = ctx.row_axes("entity", model.full_shapes["entity"])
+        lo = ctx.mesh.index(axes) * n if axes else 0
+        real = max(min(FB15K[0] - lo, n), 0)
+        block = params["entity"].cpu().numpy()
+        own_block = bool(np.array_equal(block[:real], ent[lo:lo + real])
+                         and torch.equal(params["entity"][real:], before[real:]))
+        ex = PooledExecutor(model, b_max=256, device=dev, ctx=ctx)
+        for name in PHASE15_KERNELS:
+            getattr(kops, name).launches = 0
+        got = []
+        for rec in read_answers(answers):
+            res, _ = serve_batch(model, params, ex, rec.queries, top_k=TOP_K, sem_cache=cache,
+                                 ctx=ctx, sem_rows_fn=store.read_rows if sem else None)
+            got.append([{k: r[k] for k in ("top_entities", "scores")} for r in res[:rec.n_real]])
+        torch.cuda.synchronize()
+        out[family] = {"step": step, "answers": got, "own_block": own_block,
+                       "block": tuple(params["entity"].shape),
+                       "full": model.full_shapes["entity"], "ckpt_rows": int(ent.shape[0]),
+                       "launches": {k: getattr(kops, k).launches for k in PHASE15_KERNELS}}
+        del model, params, cache, ex
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"p15.r{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _phase15_spawn(world: int, work: str) -> list:
+    import pickle
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    pc = mp.start_processes(_phase15_rank, args=(world, work), nprocs=world, join=False,
+                            start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while not pc.join(timeout=1):
+            if time.monotonic() > deadline:
+                fail(f"phase 15: the {world}-rank gloo spawn ran past {RANK_TIMEOUT_S} s")
+    except ProcessException as e:
+        fail(f"phase 15: a gloo rank failed: {e}")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"p15.r{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase15(torch, dev, main_path, obs_work, sem_dir, card) -> None:
+    """Serving a trained checkpoint, and the example drivers (module
+    docstring, 15). ``obs_work`` holds phase 8's checkpoints (a short
+    training run at the same width writes them where it does not). The
+    launches of the serving and training paths are added to
+    ``main_path``."""
+    import contextlib
+    import io
+    import pickle
+
+    from repro_torch.core import PooledExecutor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import e2e as e2e_cli
+    from repro_torch.launch import lm_zoo as lm_zoo_cli
+    from repro_torch.launch import semantic_fusion as fusion_cli
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.serve import read_answers, serve_batch
+    from repro_torch.models import ModelConfig, make_model, params_from_numpy
+    from repro_torch.semantic import SemanticCache, SemanticStore
+    from repro_torch.serving import check_against_offline
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    t15 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_serve_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    added = collections.Counter()
+
+    def counts() -> dict:
+        return {name: getattr(kops, name).launches for name in PHASE15_KERNELS}
+
+    def zero() -> None:
+        for name in PHASE15_KERNELS:
+            getattr(kops, name).launches = 0
+
+    def run(label: str, fn, argv, show=()) -> tuple:
+        """One CLI's ``main(argv)`` in this process: (its output, the launches
+        it made). Echoes the lines that start with ``show``."""
+        buf = io.StringIO()
+        zero()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn(argv)
+        except (Exception, SystemExit) as e:
+            print(buf.getvalue())
+            fail(f"phase 15 {label}: {fn.__module__} raised {e!r}")
+        torch.cuda.synchronize()
+        launched = counts()
+        print(f"phase 15 {label}: python -m {fn.__module__} {' '.join(argv)} "
+              f"({time.perf_counter() - t0:.1f} s) | launches {launched}")
+        for line in buf.getvalue().splitlines():
+            if line.startswith(show):
+                print(f"  | {line[:300]}")
+        torch.cuda.empty_cache()
+        return buf.getvalue(), launched
+
+    def add(launched, keys) -> None:
+        for name, key in keys.items():
+            added[key] += launched[name]
+
+    # Phase 8's checkpoints at full width, or a short run writing them.
+    ckpts = {}
+    sem_args = ["--semantic-store", sem_dir]
+    for family, argv in (("betae", ["--model", "betae"]),
+                         ("gqe+sem", ["--model", "gqe"] + sem_args + ["--semantic-dim",
+                                                                     str(SEM_DIM)])):
+        name = "ckpt_betae" if family == "betae" else "ckpt_sem"
+        ck = os.path.join(str(obs_work), name) if obs_work else os.path.join(work, name)
+        if load_checkpoint(ck) is None:
+            run(f"checkpoint {family}", train_cli.main,
+                argv + ["--dim", str(ModelConfig().dim), "--steps", "4", "--log-every", "0",
+                        "--eval-queries", "16", "--ckpt-dir", ck], show=("trained",))
+        ckpts[family] = ck
+    store = SemanticStore(sem_dir)
+
+    # (a) Single device: the CLI's answers replayed through serve_batch on
+    # the checkpoint's params, read here apart from the CLI's restore.
+    serve_args = ["--requests", str(PHASE15_REQUESTS), "--top-k", str(TOP_K)]
+    show = ("loaded checkpoint", "[closed]", "engine:", "replica ", "semantic cache")
+    oracle, answers = {}, {}
+    for family in ("betae", "gqe+sem"):
+        sem = family == "gqe+sem"
+        argv = (["--model", "gqe"] + sem_args + ["--semantic-budget-rows", str(SEM_BUDGET)]
+                if sem else ["--model", "betae"]) + serve_args
+        answers[family] = os.path.join(work, f"{family}.jsonl")
+        out, launched = run(f"(a) {family}", serve_cli.main,
+                            argv + ["--ckpt-dir", ckpts[family], "--answers", answers[family]],
+                            show)
+        arrays = load_checkpoint(ckpts[family])
+        if f"loaded checkpoint step={arrays[0]}" not in out:
+            fail(f"phase 15 (a) {family}: the CLI did not load step {arrays[0]}")
+        trained = {k[len("params/"):]: v for k, v in arrays[1].items()
+                   if k.startswith("params/") and k not in ("params/sem_cache",
+                                                            "params/sem_slot")}
+        model = make_model(family.split("+")[0], ModelConfig(semantic_dim=SEM_DIM if sem else 0),
+                           device=dev)
+        cache = None
+        if sem:
+            cache = SemanticCache(store, SEM_BUDGET, device=dev)
+            params = model.init_params(torch.Generator(device=dev).manual_seed(1), FB15K[0],
+                                       FB15K[1], semantic_cache=cache)
+            with torch.no_grad():
+                for k, v in trained.items():
+                    params[k].copy_(torch.from_numpy(v))
+        else:
+            params = params_from_numpy(model, trained, n_entities=FB15K[0])
+        ex = PooledExecutor(model, b_max=256, device=dev)
+
+        def offline(qs, model=model, params=params, ex=ex, cache=cache):
+            return serve_batch(model, params, ex, qs, top_k=TOP_K, device=dev,
+                               sem_cache=cache,
+                               sem_rows_fn=store.read_rows if cache is not None else None)[0]
+
+        oracle[family] = offline
+        log = read_answers(answers[family])
+        try:
+            checked = check_against_offline(log, offline)
+        except AssertionError as e:
+            fail(f"phase 15 (a) {family}: the CLI's answers are not serve_batch's on the "
+                 f"checkpoint's params: {e}")
+        need = ("scoring", "gather_fuse") if sem else ("intersect",)
+        if not all(launched[k] for k in need):
+            fail(f"phase 15 (a) {family}: launches {launched}, want {need} launched")
+        add(launched, {"scoring": "scoring[l1][out-of-core]",
+                       "gather_fuse": "gather_fuse[out-of-core]"} if sem
+            else {"intersect": "intersect"})
+        rand = os.path.join(work, f"{family}.random.jsonl")
+        run(f"(a) {family}, random weights", serve_cli.main, argv + ["--answers", rand])
+        if ([r.results for r in read_answers(rand)] == [r.results for r in log]):
+            fail(f"phase 15 (a) {family}: the checkpoint's answers are the random weights'")
+        print(f"  {checked} answers of {len(log)} micro-batches bitwise serve_batch on the "
+              f"checkpoint (step {arrays[0]}) read apart; other answers than the random "
+              f"weights' | {card}")
+    tier = os.path.join(work, "tier.jsonl")
+    _, launched = run("(a) betae, --replicas 2", serve_cli.main,
+                      ["--model", "betae", "--replicas", "2", "--ckpt-dir", ckpts["betae"],
+                       "--answers", tier] + serve_args, show)
+    try:
+        checked = check_against_offline(read_answers(tier), oracle["betae"])
+    except AssertionError as e:
+        fail(f"phase 15 (a) --replicas 2: not serve_batch's on the checkpoint: {e}")
+    if not launched["intersect"]:
+        fail(f"phase 15 (a) --replicas 2: launches {launched}")
+    add(launched, {"intersect": "intersect"})
+    print(f"  {checked} answers of both replicas bitwise serve_batch on the checkpoint")
+
+    # (b) Under a mesh: one NCCL rank through torchrun, bitwise single-device;
+    # two gloo ranks on the card restoring with the rows padded.
+    nccl = os.path.join(work, "nccl.jsonl")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", "-m", "repro_torch.launch.serve", "--mesh", "data=1", "--profile", "fsdp",
+            "--model", "betae", "--ckpt-dir", ckpts["betae"], "--answers", nccl] + serve_args
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+                          cwd=work, env={**os.environ, "PYTHONPATH": str(SRC)})
+    if proc.returncode != 0 or "loaded checkpoint step=" not in proc.stdout:
+        fail(f"phase 15 (b): torchrun rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    try:
+        checked = check_against_offline(read_answers(nccl), oracle["betae"])
+    except AssertionError as e:
+        fail(f"phase 15 (b) one NCCL rank: not single-device serve_batch's: {e}")
+    print(f"phase 15 (b): {' '.join(argv[1:])} ({time.perf_counter() - t0:.1f} s): {checked} "
+          f"answers bitwise single-device serve_batch on the checkpoint")
+    with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+        pickle.dump({"sem_dir": sem_dir, "cases": [(fam, ckpts[fam], answers[fam])
+                                                   for fam in ("betae", "gqe+sem")]}, f)
+    gloo = _phase15_spawn(2, work)
+    for family in ("betae", "gqe+sem"):
+        r0, r1 = gloo[0][family], gloo[1][family]
+        want = [res for rec in read_answers(answers[family]) for res in rec.results]
+        got = [res for batch in r0["answers"] for res in batch]
+        worst, topk = _answers_gap(got, want, r0["full"][1])
+        if r0["answers"] != r1["answers"] or not (worst <= 1.0 and topk) or len(got) != len(want):
+            fail(f"phase 15 (b) gloo {family}: ranks equal {r0['answers'] == r1['answers']}, "
+                 f"against (a) {worst:.3g} of the tolerance, top-k {topk}")
+        for r, o in enumerate((r0, r1)):
+            if (not o["own_block"] or o["block"][0] * 2 != o["full"][0]
+                    or o["full"][0] != FB15K[0] + 1 or o["ckpt_rows"] != FB15K[0]):
+                fail(f"phase 15 (b) gloo {family}: rank {r} holds {o['block']} of {o['full']} "
+                     f"from {o['ckpt_rows']} checkpoint rows (own block {o['own_block']})")
+        need = ("scoring", "gather_fuse") if family == "gqe+sem" else ("intersect",)
+        if not all(o["launches"][k] for o in (r0, r1) for k in need):
+            fail(f"phase 15 (b) gloo {family}: launches {[o['launches'] for o in (r0, r1)]}")
+        for o in (r0, r1):
+            add(o["launches"], {"scoring": "scoring[l1][out-of-core]",
+                                "gather_fuse": "gather_fuse[out-of-core]"}
+                if family == "gqe+sem" else {"intersect": "intersect"})
+        print(f"phase 15 (b) two gloo ranks on the card, data=2 fsdp, {family}: the "
+              f"{r0['ckpt_rows']}-row checkpoint restored as blocks {r0['block']} of "
+              f"{r0['full']} (the padding row the rank's own), answers bitwise equal on both "
+              f"ranks and within {worst:.3g} of the tolerance of (a)'s, top-k by the gap rule "
+              f"| launches {[o['launches'] for o in (r0, r1)]}")
+    print(f"phase 15 (b) two gloo ranks in {gloo[0]['seconds']:.1f} s")
+
+    # (c) The example drivers on the card.
+    out, launched = run("(c) e2e", e2e_cli.main, ["--dim", "400"],
+                        show=("graph", "---", "resumed", "eval"))
+    if "resumed at step 60" not in out or not all(
+            launched[k] for k in ("intersect", "intersect_backward", "gather_fuse",
+                                  "gather_fuse_backward")):
+        fail(f"phase 15 (c) e2e: launches {launched}\n{out[-2000:]}")
+    add(launched, {"intersect": "intersect[training]", "intersect_backward": "intersect_backward",
+                   "gather_fuse": "gather_fuse[training]",
+                   "gather_fuse_backward": "gather_fuse_backward"})
+    out, launched = run("(c) semantic_fusion", fusion_cli.main, [],
+                        show=("H_sem", "decoupled", "kernel =="))
+    if "kernel == model fusion: True" not in out or not launched["gather_fuse_backward"]:
+        fail(f"phase 15 (c) semantic_fusion: launches {launched}\n{out[-2000:]}")
+    out, _ = run("(c) lm_zoo", lm_zoo_cli.main, ["--arch", "qwen2-0.5b"],
+                 show=("==", "  train step", "  prefill"))
+    if "finite=True" not in out:
+        fail(f"phase 15 (c) lm_zoo: {out[-2000:]}")
+
+    # (d) Every kernel of these paths launched, added to the kernels line.
+    for key, n in added.items():
+        if key in main_path:
+            k_n, counter = main_path[key]
+            main_path[key] = (k_n + n, counter)
+    print(f"checkpoint serving and drivers: launches {dict(added)} added to the kernels line "
+          f"| phase 15 in {time.perf_counter() - t15:.1f} s | {card}")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ cache."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,7 +63,8 @@ class PooledExecutor:
 
     def __init__(self, model, b_max: int = 512, reuse_slots: bool = True,
                  policy: str = "max_fillness", cse: bool = True, cache_size: int = 128,
-                 device=None, mat_cache=None, tile_policy="auto", ctx=None):
+                 device=None, mat_cache=None, tile_policy="auto", ctx=None,
+                 plan_cache: Optional[PlanCache] = None, plan_cache_size: int = 512):
         self.ctx = ctx or ExecutionContext.single_device()
         if device is None:
             device = self.ctx.device
@@ -80,8 +81,9 @@ class PooledExecutor:
         self._encode_cache = CompileCache(cache_size, name="encode")
         # Cross-batch plan cache: persists compiled plans across prepare()
         # calls so a repeated batch is one dict lookup. Plans never go stale
-        # (keyed on query keys + compile config only).
-        self._plan_cache = PlanCache(512)
+        # (keyed on query keys + compile config only). A given ``plan_cache``
+        # is shared with whoever else holds it.
+        self._plan_cache = plan_cache if plan_cache is not None else PlanCache(plan_cache_size)
         # Optional materialized-row cache consulted by encode() (inference
         # paths only: a constant row inside a gradient would detach its
         # subtree).

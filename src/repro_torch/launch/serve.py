@@ -66,6 +66,26 @@ pass.
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh data=2 \
         --model gqe --live-writes 2 --max-staleness 2 --materialize 2048
 
+``--ckpt-dir DIR`` serves a trained model: the newest valid checkpoint in
+DIR (written by either package's ``launch.train --ckpt-dir``) replaces the
+random parameters before any executor, engine, replica or mesh lane
+exists, in every layout above; each mesh rank restores its own shard, the
+entity rows padded or trimmed to this mesh's padding. Two deviations from
+the JAX package's launcher: the frozen semantic buffers (``sem_table``,
+``sem_cache``, ``sem_slot``) always come from the serving side's own store
+and cache, never from the checkpoint, so a model trained through one
+hot-set budget serves through another (the reference restores the
+checkpoint's buffer over the cache's); and a DIR that holds no valid
+checkpoint exits non-zero instead of serving random weights.
+
+    python -m repro_torch.launch.train --model betae --ckpt-dir ck --steps 200
+    python -m repro_torch.launch.serve --model betae --ckpt-dir ck
+
+``--answers PATH`` writes every micro-batch of the timed pass (rank 0's
+under a mesh, every replica's in the tier) as JSON lines: the padded
+composition as executed and one result a real row. ``read_answers`` gives
+them back as ``BatchRecord``s for ``check_against_offline``.
+
 ``serve_batch`` is the one-shot OFFLINE baseline the engine is verified
 against: it shares the engine's encode closures and cached scorer, so the two
 paths produce identical results on identical micro-batch compositions.
@@ -81,7 +101,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import PooledExecutor
+from repro_torch.core import PooledExecutor, QueryInstance
 from repro_torch.data import load_dataset
 from repro_torch.device import resolve_device
 from repro_torch.distributed import (ExecutionContext, init_process_group_from_env,
@@ -91,8 +111,11 @@ from repro_torch.obs import TRACER, MetricsSink, get_registry
 from repro_torch.serving import (ServingConfig, ServingEngine, make_workload,
                                  run_closed_loop, run_open_loop, scorer_for,
                                  topk_desc)
+from repro_torch.serving.engine import BatchRecord
+from repro_torch.training.checkpoint import load_checkpoint
 
-__all__ = ["serve_batch", "topk_desc", "main"]  # topk_desc re-exported
+__all__ = ["serve_batch", "topk_desc", "restore_params", "read_answers",
+           "main"]  # topk_desc re-exported
 
 
 def serve_batch(model, params, executor, queries, top_k: int = 10,
@@ -155,6 +178,58 @@ def serve_batch(model, params, executor, queries, top_k: int = 10,
     ], params
 
 
+def restore_params(directory: str, model, params, ctx=None, sem_cache=None):
+    """Copy the trained parameters of the newest valid checkpoint in
+    ``directory`` into ``params`` (in place; this rank's shards under a mesh
+    ``ctx``, the entity rows padded or trimmed to the model's). The frozen
+    semantic buffers are left as they are: they belong to the serving
+    side's store and ``sem_cache``, whose residency is reset. Returns the
+    checkpoint's step, or None when ``directory`` holds no valid one."""
+    frozen = set(model.frozen_param_names())
+    trained = {k: v for k, v in params.items() if k not in frozen}
+    restored = load_checkpoint(
+        directory, template={"params": trained, "opt": None},
+        ctx=ctx if ctx is not None and ctx.is_sharded else None,
+        shapes={"params": model.full_shapes}, n_entities=model.n_entities)
+    if restored is None:
+        return None
+    step, tree, _ = restored
+    with torch.no_grad():
+        for k, v in tree["params"].items():
+            params[k].copy_(v)
+    if sem_cache is not None:
+        sem_cache.reset()
+    return step
+
+
+def _write_answers(path: str, batch_logs) -> None:
+    """``batch_logs`` ({replica id or None: [BatchRecord]}) as JSON lines."""
+    with open(path, "w") as f:
+        for rid, log in batch_logs.items():
+            for rec in log:
+                row = {"queries": [[q.pattern, q.anchors.tolist(), q.relations.tolist()]
+                                   for q in rec.queries],
+                       "n_real": rec.n_real, "flush": rec.flush, "results": rec.results}
+                if rid is not None:
+                    row["replica"] = rid
+                f.write(json.dumps(row) + "\n")
+    print(f"answers: wrote {sum(len(v) for v in batch_logs.values())} micro-batches "
+          f"to {path}")
+
+
+def read_answers(path: str):
+    """The micro-batches ``--answers`` wrote, as ``BatchRecord``s."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            qs = [QueryInstance(p, np.asarray(a, dtype=np.int64), np.asarray(r, dtype=np.int64))
+                  for p, a, r in row["queries"]]
+            out.append(BatchRecord(queries=qs, n_real=row["n_real"], flush=row["flush"],
+                                   results=row["results"]))
+    return out
+
+
 def _parse_tenants(tenants_spec, mix_spec):
     """``--tenants "gold:high,bronze:low[:quota]"`` and
     ``--priority-mix "gold=0.25,bronze=0.75"`` -> (specs, weights).
@@ -197,7 +272,8 @@ def _serve_tier(args, kg, model, params, device, ctx) -> None:
     cfg = ServingConfig(max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms,
                         queue_depth=args.queue_depth, top_k=args.top_k,
-                        latency_window=args.latency_window)
+                        latency_window=args.latency_window,
+                        record_batches=bool(args.answers))
     pool = ReplicaPool(model, params, n_replicas=args.replicas, cfg=cfg,
                        mat_budget_rows=args.materialize, device=device, ctx=ctx)
     if ctx.rank != 0:
@@ -232,6 +308,9 @@ def _serve_tier(args, kg, model, params, device, ctx) -> None:
         print(run_open_loop(router, workload, qps=args.qps).describe())
     if args.trace:
         _write_trace(_rank_path(args.trace, ctx))
+    if args.answers:
+        _write_answers(args.answers, {rid: rep.engine.batch_log
+                                      for rid, rep in sorted(pool.replicas().items())})
     st = router.stats()
     for rid, rs in sorted(st["pool"]["per_replica"].items()):
         mc = rs.get("mat_cache")
@@ -300,6 +379,13 @@ def main(argv=None) -> None:
                     help="device to serve on (default: cuda; no fallback)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the graph and the random weights")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="serve the newest valid checkpoint in DIR (written by "
+                         "launch.train --ckpt-dir of either package) instead of "
+                         "random weights; exits non-zero if DIR holds none")
+    ap.add_argument("--answers", default=None, metavar="PATH",
+                    help="write the timed pass's micro-batches (composition and "
+                         "results) as JSON lines, for offline replay")
     ap.add_argument("--requests", type=int, default=256,
                     help="total requests in the generated workload")
     ap.add_argument("--top-k", type=int, default=5)
@@ -448,6 +534,11 @@ def _run(args, ctx) -> None:
     params = model.init_params(gen, kg.n_entities, kg.n_relations,
                                semantic_cache=cache,
                                ctx=ctx if ctx.is_sharded else None)
+    if args.ckpt_dir:
+        step = restore_params(args.ckpt_dir, model, params, ctx=ctx, sem_cache=cache)
+        if step is None:
+            raise SystemExit(f"--ckpt-dir {args.ckpt_dir}: no valid checkpoint there")
+        say(f"loaded checkpoint step={step}")
     if ctx.is_sharded:
         shape = model.full_shapes["entity"]
         ent = params["entity"]
@@ -480,7 +571,8 @@ def _run(args, ctx) -> None:
                         max_wait_ms=args.max_wait_ms,
                         queue_depth=args.queue_depth, top_k=args.top_k,
                         latency_window=args.latency_window,
-                        max_staleness_versions=args.max_staleness)
+                        max_staleness_versions=args.max_staleness,
+                        record_batches=bool(args.answers))
     engine = ServingEngine(model, params, executor=executor, cfg=cfg,
                            device=device, sem_cache=cache,
                            sem_rows_fn=store.read_rows if store else None,
@@ -535,6 +627,8 @@ def _run(args, ctx) -> None:
         live_db.flush()
     if args.trace:
         _write_trace(_rank_path(args.trace, ctx))
+    if args.answers:
+        _write_answers(args.answers, {None: engine.batch_log})
     st = engine.stats()
     print(report.describe())
     print(f"engine: {st['batches']} micro-batches "

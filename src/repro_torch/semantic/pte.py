@@ -133,6 +133,10 @@ class StubPTE(nn.Module):
         pooled = x.mean(dim=1)
         return pooled @ p["out_w"] + p["out_b"]
 
+    def encode_entities(self, kg: KnowledgeGraph, ent_ids: np.ndarray) -> torch.Tensor:
+        """[len(ent_ids), d_l] encodings of the entities' descriptions."""
+        return self.encode_tokens(self.descriptions(kg, ent_ids))
+
     def unload(self) -> None:
         """§4.4: 'once H_sem is generated, the PTE is unloaded from memory'."""
         for name in list(self._parameters):

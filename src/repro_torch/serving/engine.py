@@ -477,7 +477,8 @@ class ServingEngine:
     against a live graph, ``cfg.pin_params_on_admit`` the hot-swap contract
     (module docstring). ``name`` labels the batcher thread; ``obs_labels``
     label every registry metric the engine publishes (replicas pass
-    ``replica="0"`` etc.).
+    ``replica="0"`` etc.). ``latency_window`` overrides the config's
+    percentile window (validated as ``>= 1``).
 
     Under a mesh ``ctx`` (``distributed/context.py``) ``params`` are this
     rank's shards (``init_params(ctx=)``) and the engine runs on
@@ -499,11 +500,14 @@ class ServingEngine:
                  cfg: Optional[ServingConfig] = None, device=None,
                  sem_cache=None, sem_rows_fn=None, started: bool = True,
                  mat_cache=None, kg=None, obs_labels: Optional[Dict[str, str]] = None,
-                 name: Optional[str] = None, ctx=None):
+                 name: Optional[str] = None, ctx=None, latency_window: Optional[int] = None):
         self.model = model
         self.params = params
         self.name = name or "serving"
         self.cfg = cfg or ServingConfig()
+        if latency_window is not None:
+            # Overrides the config's, for callers that build no ServingConfig.
+            self.cfg = dataclasses.replace(self.cfg, latency_window=latency_window)
         if self.cfg.max_batch < 1 or self.cfg.queue_depth < 1:
             raise ValueError("max_batch and queue_depth must be >= 1")
         if self.cfg.latency_window < 1:

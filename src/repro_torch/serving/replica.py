@@ -56,7 +56,7 @@ class Replica:
     def __init__(self, rid: int, model, params,
                  cfg: Optional[ServingConfig] = None,
                  mat_budget_rows: int = 0, b_max: int = 256, device=None,
-                 started: bool = True, ctx=None):
+                 started: bool = True, ctx=None, plan_cache_size: int = 512):
         self.rid = int(rid)
         cfg = cfg or ServingConfig()
         # The swap contract is per-replica: requests complete on the params
@@ -66,7 +66,8 @@ class Replica:
         self.mat_cache = (MaterializedSubqueryCache(
             mat_budget_rows, name=f"replica{self.rid}")
             if mat_budget_rows > 0 else None)
-        self.executor = PooledExecutor(model, b_max=b_max, device=device, ctx=ctx)
+        self.executor = PooledExecutor(model, b_max=b_max, device=device, ctx=ctx,
+                                       plan_cache_size=plan_cache_size)
         self.engine = ServingEngine(
             model, params, executor=self.executor, cfg=cfg, device=device,
             mat_cache=self.mat_cache, started=started,
@@ -114,7 +115,7 @@ class ReplicaPool:
     def __init__(self, model, params, n_replicas: int = 1,
                  cfg: Optional[ServingConfig] = None,
                  mat_budget_rows: int = 0, b_max: int = 256, device=None,
-                 started: bool = True, ctx=None):
+                 started: bool = True, ctx=None, plan_cache_size: int = 512):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.model = model
@@ -124,6 +125,7 @@ class ReplicaPool:
         self._b_max = b_max
         self._device = _device(device, ctx)
         self._ctx = ctx
+        self._plan_cache_size = plan_cache_size
         self._lock = threading.Lock()
         self._next_rid = 0
         self._replicas: Dict[int, Replica] = {}
@@ -135,7 +137,8 @@ class ReplicaPool:
         return Replica(rid, self.model, self.params, cfg=self._cfg,
                        mat_budget_rows=self._mat_budget_rows,
                        b_max=self._b_max, device=self._device,
-                       started=started, ctx=self._ctx)
+                       started=started, ctx=self._ctx,
+                       plan_cache_size=self._plan_cache_size)
 
     def add_replica(self, started: bool = True) -> int:
         with self._lock:

@@ -10,8 +10,10 @@
                a checkpoint written by either package loads in the other.
   * mesh-agnostic — arrays are stored whole: under a mesh the trainer
                gathers them, rank 0 writes and the others wait; a restore
-               reads the full arrays and keeps the current mesh's shard of
-               each (``load_checkpoint(ctx=)``), whatever mesh wrote them.
+               reads the full arrays, checks each against its template's
+               whole shape (entity rows may differ by mesh padding alone)
+               and keeps the current mesh's shard of each
+               (``load_checkpoint(ctx=)``), whatever mesh wrote them.
 """
 from __future__ import annotations
 
@@ -91,24 +93,79 @@ def list_checkpoints(directory: str) -> List[str]:
     return [os.path.join(directory, n) for n in names]
 
 
-def _unflatten(template, arrays: Mapping[str, np.ndarray], ctx=None, prefix: str = "",
-               name: str = ""):
+# Leaves whose rows are the graph's entities (a leaf is named by the nearest
+# key that is not ``m`` or ``v``): their rows past the graph's entity count
+# are padding to a multiple of the mesh size, so a checkpoint's row count
+# may differ from the template's by padding alone.
+ENTITY_ROW_NAMES = ("entity", "sem_table")
+
+
+def _unflatten(template, arrays: Mapping[str, np.ndarray], ctx=None, shapes=None,
+               n_entities: Optional[int] = None, prefix: str = "", name: str = ""):
     """``template``'s nested dict of tensors with each leaf replaced by the
     array of its key, as a tensor on that leaf's device and in its dtype —
     under a mesh ``ctx``, this rank's shard of it, by the name of the leaf
     (the nearest key that is not ``m`` or ``v``, so a moment is sharded like
-    its parameter)."""
+    its parameter). A ``None`` leaf stays ``None``."""
+    if template is None:
+        return None
     if isinstance(template, Mapping):
-        return {k: _unflatten(v, arrays, ctx, f"{prefix}{k}/", name if k in ("m", "v") else k)
+        return {k: _unflatten(v, arrays, ctx, None if shapes is None else shapes.get(k),
+                              n_entities, f"{prefix}{k}/", name if k in ("m", "v") else k)
                 for k, v in template.items()}
-    full = torch.from_numpy(np.array(arrays[prefix[:-1]])).to(template.device, template.dtype)
-    return full if ctx is None else ctx.shard(name, full)
+    key = prefix[:-1]
+    arr = arrays[key]
+    sharded = ctx is not None and ctx.is_sharded
+    want = tuple(shapes) if shapes is not None else (None if sharded else tuple(template.shape))
+    ckpt_rows = None   # set where the checkpoint lacks padding rows
+    if want is not None and tuple(arr.shape) != want:
+        have = tuple(arr.shape)
+        if not (name in ENTITY_ROW_NAMES and n_entities is not None
+                and len(have) == len(want) >= 1 and have[1:] == want[1:]
+                and want[0] >= n_entities):
+            raise ValueError(f"checkpoint leaf {key!r} has shape {have}; the template "
+                             f"wants {want}")
+        if have[0] < n_entities:
+            raise ValueError(f"checkpoint leaf {key!r} holds {have[0]} entity rows, fewer "
+                             f"than the graph's {n_entities} entities")
+        if have[0] > want[0]:
+            arr = arr[:want[0]]        # surplus padding rows
+        else:
+            ckpt_rows = have[0]
+            arr = np.concatenate([arr, np.zeros((want[0] - have[0],) + have[1:], arr.dtype)])
+    full = torch.from_numpy(np.array(arr)).to(template.device, template.dtype)
+    out = ctx.shard(name, full) if sharded else full
+    if tuple(out.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf {key!r} of shape {tuple(arr.shape)} gives this "
+                         f"rank {tuple(out.shape)}; the template holds {tuple(template.shape)}")
+    if ckpt_rows is not None:
+        # Padding rows the checkpoint lacks keep the template's own values.
+        axes = ctx.row_axes(name, want) if sharded else ()
+        lo = ctx.mesh.index(axes) * out.shape[0] if axes else 0
+        start = max(ckpt_rows - lo, 0)
+        if start < out.shape[0]:
+            out[start:] = template[start:]
+    return out
 
 
-def load_checkpoint(directory: str, template=None, ctx=None):
+def load_checkpoint(directory: str, template=None, ctx=None, shapes=None,
+                    n_entities: Optional[int] = None):
     """Load the newest VALID checkpoint. Returns (step, tree, metadata) or
     None; ``tree`` is the flat {key: array} dict, or ``template``'s
-    structure of tensors (each this rank's shard under a mesh ``ctx``)."""
+    structure of tensors (each this rank's shard under a mesh ``ctx``; a
+    ``None`` leaf stays ``None``, as the reference's pytree flattening
+    leaves it).
+
+    Every leaf is held to its template's whole shape — ``shapes``, a nested
+    dict like ``template``'s, where the template's leaves are one rank's
+    shards; the leaf's own shape otherwise — and a mismatch raises
+    ``ValueError`` naming the key and both shapes. The one exception, given
+    the graph's ``n_entities``, is the row count of an entity-row table
+    (``ENTITY_ROW_NAMES``): rows past ``n_entities`` are padding and never
+    scored, so surplus padding rows are dropped and missing ones keep the
+    template's values (a checkpoint with fewer rows than ``n_entities``
+    raises). Only then does ``ctx.shard`` cut this rank's block, so a
+    checkpoint restores onto any mesh, whatever mesh (or padding) wrote it."""
     for path in reversed(list_checkpoints(directory)):
         if not _verify(path):
             continue  # corrupted (e.g. node died mid-write pre-rename) — skip
@@ -118,7 +175,8 @@ def load_checkpoint(directory: str, template=None, ctx=None):
             arrays = {k: z[k] for k in z.files}
         if template is None:
             return manifest["step"], arrays, manifest["metadata"]
-        return manifest["step"], _unflatten(template, arrays, ctx), manifest["metadata"]
+        tree = _unflatten(template, arrays, ctx, shapes, n_entities)
+        return manifest["step"], tree, manifest["metadata"]
     return None
 
 
@@ -153,5 +211,5 @@ class CheckpointManager:
         for old in list_checkpoints(self.directory)[: -self.keep]:
             shutil.rmtree(old, ignore_errors=True)
 
-    def restore(self, template=None, ctx=None):
-        return load_checkpoint(self.directory, template, ctx)
+    def restore(self, template=None, ctx=None, shapes=None, n_entities=None):
+        return load_checkpoint(self.directory, template, ctx, shapes, n_entities)

@@ -397,13 +397,21 @@ class NGDBTrainer:
         """A checkpoint's tree ({"params", "opt"}) of whole tensors: under a
         mesh gathered from the shards (collective), the moments of frozen
         names being (1,) tokens."""
-        shapes = self.model.full_shapes
-        frozen = set(self.cfg.adam.frozen)
+        shapes = self._full_shapes()
         gather = self.ctx.gather
-        full = {k: gather(k, params[k], shapes[k]) for k in sorted(params)}
-        moments = {part: {k: gather(k, opt_state[part][k], (1,) if k in frozen else shapes[k])
+        full = {k: gather(k, params[k], shapes["params"][k]) for k in sorted(params)}
+        moments = {part: {k: gather(k, opt_state[part][k], shapes["opt"][part][k])
                           for k in sorted(opt_state[part])} for part in ("m", "v")}
         return {"params": full, "opt": {**moments, "step": opt_state["step"]}}
+
+    def _full_shapes(self) -> Dict:
+        """The whole shape of every leaf of a checkpoint's tree, in its
+        structure (the moments of frozen names are (1,) tokens)."""
+        shapes = self.model.full_shapes
+        frozen = set(self.cfg.adam.frozen)
+        moments = {k: (1,) if k in frozen else shapes[k] for k in self.opt_state["m"]}
+        return {"params": {k: shapes[k] for k in self.params},
+                "opt": {"m": moments, "v": moments, "step": tuple(self.opt_state["step"].shape)}}
 
     def _save(self, step: int, params, opt_state, metadata=None, force=False) -> None:
         """Checkpoint at ``step`` if due (collective under a mesh: every rank
@@ -551,21 +559,24 @@ class NGDBTrainer:
         return loss, per_q, patterns
 
     # ------------------------------------------------------------------ loop
-    def train(self, n_steps: int, log_every: int = 50, batches=None) -> List[Dict]:
+    def train(self, n_steps: int, log_every: int = 50, prefetcher=None,
+              batches=None) -> List[Dict]:
         """Run ``n_steps``. ``batches`` pins the workload — a fixed batch
         list (cycled) or a zero-arg callable yielding batches — so tests can
         feed two trainers (or sync and pipelined mode) the SAME batches;
-        otherwise batches come from the online sampler."""
+        otherwise batches come from ``prefetcher`` (a caller's
+        ``BatchPrefetcher``, drawn from and left open, as in the reference)
+        or from the online sampler. A pipelined run ignores ``prefetcher``."""
         if self.cfg.pipeline and isinstance(self.executor, PooledExecutor):
             return self._train_pipelined(n_steps, log_every, batches=batches)
         TRACER.set_lane("main dispatch")
-        prefetcher = None
+        own = None
         # Under a mesh every rank samples inline from its seeded sampler:
         # the workers' own streams would differ between ranks.
-        if (batches is None and self.cfg.prefetch > 0 and not self.adaptive
-                and not self.ctx.is_sharded):
-            prefetcher = BatchPrefetcher(self.sampler, self.cfg.batch_size,
-                                         depth=self.cfg.prefetch)
+        if (prefetcher is None and batches is None and self.cfg.prefetch > 0
+                and not self.adaptive and not self.ctx.is_sharded):
+            own = prefetcher = BatchPrefetcher(self.sampler, self.cfg.batch_size,
+                                               depth=self.cfg.prefetch)
         try:
             for i in range(n_steps):
                 if callable(batches):
@@ -578,8 +589,8 @@ class NGDBTrainer:
                 if log_every and (i + 1) % log_every == 0:
                     self._log(rec)
         finally:
-            if prefetcher is not None:
-                prefetcher.close()
+            if own is not None:
+                own.close()
         if self.ckpt:
             self._save(self.step, self.params, self.opt_state, force=True)
         return self.history
@@ -752,7 +763,8 @@ class NGDBTrainer:
         if not self.ckpt:
             return False
         restored = self.ckpt.restore(template={"params": self.params, "opt": self.opt_state},
-                                     ctx=self.ctx)
+                                     ctx=self.ctx, shapes=self._full_shapes(),
+                                     n_entities=self.kg.n_entities)
         if restored is None:
             return False
         self.step, tree, _ = restored

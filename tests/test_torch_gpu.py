@@ -1357,3 +1357,78 @@ def test_empty_tuner_lookup_costs_under_2us_on_the_gpu_host(dev, empty_tuner):
         at.tuned_config("intersect", (64, 2, 800, 800), t)
     ns = (time.perf_counter() - t0) / n * 1e9
     assert ns < 2000, f"{ns:.0f} ns an empty-tuner lookup"
+
+
+# ------------------------------------------------------ serving a checkpoint
+def _trained_checkpoint(directory, family, pad=1, kg=None):
+    """A checkpoint of two training steps of ``family`` (dim 32) on ``kg``
+    (the reduced FB15k stand-in unless given), written on the card."""
+    from repro_torch.data import load_dataset
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.training import NGDBTrainer, TrainConfig
+
+    kg = kg or load_dataset("FB15k")[0]
+    tr = NGDBTrainer(make_model(family, ModelConfig(dim=32, entity_pad=pad), device="cuda"), kg,
+                     TrainConfig(batch_size=32, n_negatives=8, b_max=32, prefetch=0,
+                                 checkpoint_dir=str(directory)))
+    tr.train(2, log_every=0)
+    return kg
+
+
+@pytest.mark.parametrize("family", ["betae", "gqe"])
+def test_serve_cli_from_a_checkpoint_is_bitwise_serve_batch(dev, tmp_path, capsys, family):
+    """``launch.serve --ckpt-dir --answers`` on the card: every micro-batch
+    is ``serve_batch``'s on the checkpoint's params, read apart from the
+    CLI, bitwise; the kernel of the family was launched."""
+    from repro_torch.core import PooledExecutor
+    from repro_torch.launch.serve import main, read_answers, serve_batch
+    from repro_torch.models import ModelConfig, make_model, params_from_numpy
+    from repro_torch.serving import check_against_offline
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    kg = _trained_checkpoint(tmp_path / "ck", family)
+    path = str(tmp_path / "answers.jsonl")
+    kernel = kops.intersect if family == "betae" else kops.scoring
+    before = kernel.launches
+    main(["--model", family, "--reduced", "--dim", "32", "--requests", "64",
+          "--ckpt-dir", str(tmp_path / "ck"), "--answers", path])
+    assert "loaded checkpoint step=2" in capsys.readouterr().out
+    assert kernel.launches > before
+    step, arrays, _ = load_checkpoint(str(tmp_path / "ck"))
+    model = make_model(family, ModelConfig(dim=32), device=dev)
+    params = params_from_numpy(model, {k[len("params/"):]: v for k, v in arrays.items()
+                                       if k.startswith("params/")}, n_entities=kg.n_entities)
+    ex = PooledExecutor(model, b_max=256, device=dev)
+    log = read_answers(path)
+    n = check_against_offline(log, lambda qs: serve_batch(model, params, ex, qs, top_k=5,
+                                                          device=dev)[0])
+    assert step == 2 and n == sum(r.n_real for r in log) > 0
+
+
+def test_padded_restore_on_the_card(dev, tmp_path):
+    """A 2,049-row checkpoint restored onto a table padded to 2,052 rows:
+    the real rows the checkpoint's, the padding rows the template's, and
+    the answers bitwise those of the unpadded restore."""
+    from repro_torch.core import PooledExecutor
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.launch.serve import restore_params, serve_batch
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.serving import make_workload, pad_to_bucket
+    from repro_torch.training.checkpoint import load_checkpoint
+
+    kg = _trained_checkpoint(tmp_path, "gqe", kg=generate_synthetic_kg(2049, 10, 9000, seed=0))
+    ent = load_checkpoint(str(tmp_path))[1]["params/entity"]
+    comp = pad_to_bucket(make_workload(kg, 16, seed=7))[0]
+    out = {}
+    for pad in (1, 4):
+        model = make_model("gqe", ModelConfig(dim=32, entity_pad=pad), device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(5), kg.n_entities,
+                                   kg.n_relations)
+        template = params["entity"].clone()
+        assert restore_params(str(tmp_path), model, params) == 2
+        assert params["entity"].shape[0] == model.padded_entities(kg.n_entities)
+        np.testing.assert_array_equal(params["entity"][:2049].cpu().numpy(), ent)
+        assert torch.equal(params["entity"][2049:], template[2049:])
+        ex = PooledExecutor(model, b_max=64, device=dev)
+        out[pad] = serve_batch(model, params, ex, comp, top_k=10, device=dev)[0]
+    assert out[1] == out[4]

@@ -50,4 +50,6 @@ def test_every_module_probed():
     assert "repro_torch.launch.serve" in MODULES
     assert "repro_torch.kernels.build" in MODULES
     assert "repro_torch.kernels.autotune" in MODULES
+    for driver in ("e2e", "semantic_fusion", "lm_zoo"):
+        assert f"repro_torch.launch.{driver}" in MODULES
     assert len(MODULES) >= 25
