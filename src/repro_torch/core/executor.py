@@ -19,7 +19,13 @@ them.
 With a ``mat_cache`` (``core/matcache.py``) ``encode`` serves rows cached at
 the current version, encodes only the misses and inserts them — the
 inference paths only; a training step's encode closure never sees the
-cache."""
+cache.
+
+While ``obs.TRACER`` is on, ``encode``'s ``prepare`` runs in a ``plan`` span
+(``scheduled``: 1 when it missed the schedule cache and ran the scheduler;
+``plan_hit``: the plan cache's ``exact``, ``canonical`` or ``none``), and
+its end is a device mark (``SpanTracer.device_mark``), which counts only
+inside a device window the serving engine opened on the thread."""
 from __future__ import annotations
 
 import threading
@@ -38,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.context import ExecutionContext
 from repro_torch.kernels.autotune import pool_tile_policy
 from repro_torch.obs.registry import get_registry
+from repro_torch.obs.trace import TRACER
 
 
 class PooledExecutor:
@@ -240,9 +247,30 @@ class PooledExecutor:
         out.index_copy_(0, index_tensor(hit, self.device), rows)
         return out
 
+    def _traced_prepare(self, queries: Sequence[QueryInstance],
+                        graph_version: int) -> CompiledPlan:
+        """``prepare`` in a ``plan`` span, its outcome read off the caches'
+        counters around it, then the device mark where the plan ends."""
+        sched, plans = self._sched_cache, self._plan_cache
+        misses, hits, canon = (int(sched.misses), int(plans.hits),
+                               int(plans.canonicalize_calls))
+        with TRACER.span("plan") as span:
+            prepared = self.prepare(queries, graph_version=graph_version)
+            if span is not None:
+                hit = int(plans.hits) > hits
+                span.args = {"scheduled": int(int(sched.misses) > misses),
+                             "plan_hit": ("none" if not hit else "canonical"
+                                          if int(plans.canonicalize_calls) > canon
+                                          else "exact")}
+        TRACER.device_mark("plan")
+        return prepared
+
     def _encode_fresh(self, params, queries: Sequence[QueryInstance],
                       graph_version: int = -1) -> torch.Tensor:
-        prepared = self.prepare(queries, graph_version=graph_version)
+        if TRACER.enabled:
+            prepared = self._traced_prepare(queries, graph_version)
+        else:
+            prepared = self.prepare(queries, graph_version=graph_version)
         steps, ans = prepared.device_args(self.device)
         states = self.encode_fn(prepared)(params, steps, ans)
         inv = np.empty_like(prepared.order)

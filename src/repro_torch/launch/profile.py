@@ -9,9 +9,10 @@ pooled encode, all-entity scoring, host top-k) and prints, per model:
 
 * the wall time of each phase (host clock, ``torch.cuda.synchronize()`` at
   each phase boundary), median over 10 batches;
-* the card's busy time per batch (sum of kernel and copy times from a
-  ``torch.profiler`` trace of the same batches) and its share of the wall
-  time — how far the host holds the card back;
+* the card's busy time per batch (the union of the kernels' and copies'
+  intervals in a ``torch.profiler`` trace of the same batches, so work on
+  overlapping streams counts once) and its share of the wall time — how far
+  the host holds the card back;
 * the kernels that take the most device time;
 * out of core, what the chunked scorer's host side costs alone: reading
   every row from the store, and copying them to the card from pageable
@@ -80,6 +81,28 @@ def _on_device(evt) -> bool:
     return evt.device_type != torch.autograd.DeviceType.CPU
 
 
+def busy_ns(intervals) -> int:
+    """The length of the union of ``(start, end)`` intervals: time in which
+    anything ran, work on overlapping streams counted once."""
+    total, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _busy_ms(prof) -> float:
+    """The card's busy ms in a ``torch.profiler`` trace: the union of every
+    kernel's, copy's and set's interval."""
+    return busy_ns((int(e.start_ns()), int(e.end_ns()))
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+
+
 def profile_family(family: str, kg, device, store=None,
                    layout: str = "") -> dict:
     """One model's warm micro-batches. With ``store``, GQE carries H_sem
@@ -136,7 +159,7 @@ def profile_family(family: str, kg, device, store=None,
         for q in batches:
             serve(q)
     events = [e for e in prof.key_averages() if _on_device(e)]
-    device_ms = sum(_device_us(e) for e in events) / 1e3 / len(batches)
+    device_ms = _busy_ms(prof) / len(batches)
     wall_ms = statistics.median(walls)
     print(f"{family} on {torch.cuda.get_device_name(device)}: "
           f"{BATCH} queries per batch, {len(batches)} batches")
@@ -239,7 +262,7 @@ def profile_training(family: str, mode: str, kg, device, store=None,
         for b in traced:
             trainer.train_step(b)
     events = [e for e in prof.key_averages() if _on_device(e)]
-    device_ms = sum(_device_us(e) for e in events) / 1e3 / len(traced)
+    device_ms = _busy_ms(prof) / len(traced)
     # The gather_fuse backward's own launches (csrc/gather_fuse_backward.cu),
     # without the id sort and the zeroed dh_str its wrapper adds.
     fuse_bwd_ms = sum(_device_us(e) for e in events
@@ -297,7 +320,7 @@ def profile_pipelined(family: str, kg, device, store=None, layout: str = "") -> 
         trainer.train(REPS, log_every=0, batches=batches[3 + REPS:])
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if _on_device(e)]
-    device_ms = sum(_device_us(e) for e in events) / 1e3 / REPS
+    device_ms = _busy_ms(prof) / REPS
     print(f"train {label} [pooled, pipelined] on {torch.cuda.get_device_name(device)}: "
           f"{cfg.batch_size} queries per step, {REPS} steps; wall {wall_ms:.3f} ms/step "
           f"(median between retires); scheduler thread "

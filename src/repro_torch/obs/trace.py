@@ -20,6 +20,23 @@ accepts):
   at completion, so coalesced duplicates keep distinct request spans while
   sharing one batch/compute span.
 * ``ph:"i"`` instants and ``ph:"C"`` counters — flush triggers, queue depth.
+* one ``ph:"M"`` event ``clock_sync`` — a ``perf_counter_ns`` reading and a
+  ``time.time_ns()`` reading taken back to back at ``enable()`` (the
+  tightest of a few pairs). ``ts`` 0 is that ``perf_counter_ns`` reading,
+  so a span's Unix time in ns is ``unix_ns + ts * 1e3``: the clock
+  ``torch.profiler`` stamps its events in, so the file lines up with a
+  profiler export.
+
+The card's time a phase: a caller that launches on a CUDA device opens a
+device window on its thread (``device_open``), marks the ends of its phases
+on the device's current stream (``device_mark``: one CUDA event each) and
+closes the window once a copy to the host has returned (``device_close``),
+when the stream is idle, so an event recorded then reaches the card at its
+host time. Each pair of consecutive marks becomes a complete span
+``<phase>.device`` on a lane of its own, placed on the tracer's clock
+backwards from that anchor by ``elapsed_time``. Spans are emitted once the
+card has passed the anchor (checked with ``Event.query``, never by
+waiting); a mark made on a thread with no open window is dropped.
 
 Spans optionally bridge into ``torch.profiler.record_function`` so the same
 names appear as user annotations in a ``torch.profiler`` trace, above the
@@ -41,8 +58,9 @@ import itertools
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import torch
 from torch.profiler import record_function
 
 __all__ = ["SpanTracer", "TRACER", "validate_trace"]
@@ -85,6 +103,36 @@ class _Span:
         return False
 
 
+def _clock_pair(reads: int = 5) -> Tuple[int, int]:
+    """``(perf_counter_ns, time_ns)`` read back to back: of ``reads`` tries,
+    the one whose two ``perf_counter_ns`` reads around ``time_ns`` lie
+    closest, with their midpoint."""
+    best = None
+    for _ in range(reads):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, unix)
+    return best[1], best[2]
+
+
+class _DeviceWindow:
+    """One device window: the stream its device launches on, the CUDA events
+    marking the ends of its phases there, in order, and the anchor recorded
+    at its close."""
+
+    __slots__ = ("tid", "gen", "stream", "marks", "anchor", "t_anchor")
+
+    def __init__(self, tid: int, gen: int, stream):
+        self.tid = tid
+        self.gen = gen
+        self.stream = stream
+        self.marks: List[Tuple[str, Any]] = []
+        self.anchor = None
+        self.t_anchor = 0.0
+
+
 class SpanTracer:
     """Process-wide span recorder. ``enable()`` before the run, ``write()``
     after; everything between is near-free when disabled."""
@@ -100,15 +148,28 @@ class SpanTracer:
         self._lock = threading.Lock()
         self._lanes: Dict[int, int] = {}  # thread ident -> tid
         self._lane_names: Dict[int, str] = {}  # thread ident -> lane name
+        self._named_lanes: Dict[str, int] = {}  # lanes no thread owns -> tid
         self._next_tid = itertools.count(1)
         self._next_async = itertools.count(1)
+        self.clock_sync: Optional[Tuple[int, int]] = None
+        # Device windows: each thread's open one, and the closed ones whose
+        # anchor the card has not passed yet. ``enable()`` bumps the
+        # generation, so a window from before it is dropped.
+        self._local = threading.local()
+        self._gen = 0
+        self._device_pending: List[_DeviceWindow] = []
 
     # ------------------------------------------------------------ lifecycle
     def enable(self, *, profiler_annotations: bool = True,
                max_events: Optional[int] = None) -> None:
-        self.epoch = time.perf_counter()
+        self.clock_sync = _clock_pair()
+        self.epoch = self.clock_sync[0] * 1e-9
         self.truncated = False
         self._events = []
+        with self._lock:
+            self._gen += 1
+            self._device_pending = []
+            self._named_lanes = {}   # named again by the windows of this trace
         if max_events is not None:
             self.max_events = max_events
         self.profiler_annotations = profiler_annotations
@@ -143,6 +204,17 @@ class SpanTracer:
                     self._lanes[ident] = tid
         return tid
 
+    def named_lane(self, name: str) -> int:
+        """The tid of a lane that no thread owns (the card's phases), named
+        ``name``; the same tid for the same name."""
+        tid = self._named_lanes.get(name)
+        if tid is None:
+            with self._lock:
+                tid = self._named_lanes.get(name)
+                if tid is None:
+                    tid = self._named_lanes[name] = next(self._next_tid)
+        return tid
+
     # ---------------------------------------------------------------- events
     def _emit(self, ev: dict) -> None:
         if len(self._events) >= self.max_events:
@@ -156,6 +228,17 @@ class SpanTracer:
         if not self.enabled:
             return _NULL
         return _Span(self, name, args or None)
+
+    def complete(self, name: str, t0: float, t1: float, **args) -> None:
+        """A ph:"X" span from two ``perf_counter()`` readings, on the calling
+        thread's lane (for a span whose ends are not one block's)."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "X", "pid": self.pid, "tid": self.lane_tid(),
+              "ts": (t0 - self.epoch) * 1e6, "dur": (t1 - t0) * 1e6, "cat": "repro"}
+        if args:
+            ev["args"] = args
+        self._emit(ev)
 
     def instant(self, name: str, **args) -> None:
         if not self.enabled:
@@ -202,14 +285,81 @@ class SpanTracer:
             ev["args"] = args
         self._emit(ev)
 
+    # ----------------------------------------------------- the card's phases
+    def device_open(self, lane: str, device) -> None:
+        """Open this thread's device window (module docstring) when the
+        tracer is on and ``device`` is a CUDA device; its spans go on the
+        lane named ``lane``. Replaces a window left open."""
+        if not self.enabled or torch.device(device).type != "cuda":
+            self._local.window = None
+            return
+        device = torch.device(device)
+        self._local.window = _DeviceWindow(self.named_lane(lane), self._gen,
+                                           torch.cuda.current_stream(device))
+
+    def device_mark(self, phase: str) -> None:
+        """A CUDA event where ``phase`` ends, on the stream of this thread's
+        open window; dropped where none is open."""
+        if not self.enabled:
+            return
+        w = getattr(self._local, "window", None)
+        if w is None or w.gen != self._gen:
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(w.stream)
+        w.marks.append((phase, ev))
+
+    def device_close(self) -> None:
+        """Close this thread's window once a copy to the host has returned:
+        record the anchor, then emit the spans of every closed window the
+        card has passed."""
+        w = getattr(self._local, "window", None)
+        self._local.window = None
+        if w is None or w.gen != self._gen or not self.enabled or len(w.marks) < 2:
+            return
+        w.anchor = torch.cuda.Event(enable_timing=True)
+        # Read before the record: a delay after it (the thread preempted, a
+        # profiler's callbacks) would place every phase late.
+        w.t_anchor = time.perf_counter()
+        w.anchor.record(w.stream)
+        with self._lock:
+            self._device_pending.append(w)
+        self._emit_device()
+
+    _PENDING_MAX = 64
+
+    def _emit_device(self) -> None:
+        with self._lock:
+            if not self._device_pending:
+                return
+            ready = [w for w in self._device_pending if w.anchor.query()]
+            # An anchor not passed after this many later windows never will be.
+            self._device_pending = [w for w in self._device_pending
+                                    if w not in ready][-self._PENDING_MAX:]
+            gen = self._gen
+        for w in ready:
+            if w.gen != gen:
+                continue
+            at = [(phase, w.t_anchor - ev.elapsed_time(w.anchor) * 1e-3)
+                  for phase, ev in w.marks]
+            for (_, a), (phase, b) in zip(at, at[1:]):
+                self._emit({"name": f"{phase}.device", "ph": "X", "pid": self.pid,
+                            "tid": w.tid, "ts": (a - self.epoch) * 1e6,
+                            "dur": max(b - a, 0.0) * 1e6, "cat": "device"})
+
     # ---------------------------------------------------------------- output
     def events(self) -> List[dict]:
+        self._emit_device()
         with self._lock:
-            meta = [{"name": "thread_name", "ph": "M", "pid": self.pid,
-                     "tid": tid, "args": {"name": self._lane_names[ident]}}
-                    for ident, tid in sorted(self._lanes.items(),
-                                             key=lambda kv: kv[1])
-                    if ident in self._lane_names]
+            lanes = [(tid, self._lane_names[ident]) for ident, tid in self._lanes.items()
+                     if ident in self._lane_names]
+            lanes += [(tid, name) for name, tid in self._named_lanes.items()]
+        meta = [{"name": "thread_name", "ph": "M", "pid": self.pid,
+                 "tid": tid, "args": {"name": name}} for tid, name in sorted(lanes)]
+        if self.clock_sync is not None:
+            meta.append({"name": "clock_sync", "ph": "M", "pid": self.pid, "tid": 0,
+                         "args": {"perf_counter_ns": self.clock_sync[0],
+                                  "unix_ns": self.clock_sync[1]}})
         return meta + self._events
 
     def to_json(self) -> Dict[str, Any]:

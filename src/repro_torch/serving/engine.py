@@ -66,15 +66,23 @@ and, while ``obs.TRACER`` is enabled, one async ``request`` span a request,
 opened at admission and closed on whatever thread ends it (served, with
 ``latency_ms``; shed; rejected at a full queue; failed), so coalesced
 duplicates keep distinct spans; the batcher's lane "<name> batcher" with the
-spans ``batch`` (its requests' ``trace_ids``), ``sem_prefetch``, ``encode``,
-``score`` and ``select``, and the ``serving_queue_depth`` counter. A
-registry-wide ``reset()`` re-baselines the engine's derived deltas
-(``_rebaseline``).
+spans ``batch`` (its requests' ``trace_ids``), ``sem_prefetch``, ``encode``
+(the executor's ``plan`` inside it), ``score``, ``select``, ``respond`` (the
+futures resolved, callers' done-callbacks included) and ``gc`` (each
+collection the batcher thread runs: ``generation``, ``collected``), and the
+``serving_queue_depth`` counter. On a CUDA device a batch is one device
+window (``SpanTracer.device_open``): the card's time from the plan's end to
+the encode's (``encode.device``) and from there to the score's last launch
+(``score.device``), on the lane "<name> device". Always on, like the latency
+histogram: ``serving_queue_wait_ms``, submit to the batch's close, one
+observation a request (``stats()["queue_wait_ms"]``). A registry-wide
+``reset()`` re-baselines the engine's derived deltas (``_rebaseline``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import pickle
 import queue
 import sys
@@ -429,6 +437,28 @@ class ServingConfig:
     pin_params_on_admit: bool = False
 
 
+class _GcSpans:
+    """A ``gc.callbacks`` hook: while the tracer is on, one ``gc`` span for
+    each collection that the thread ``ident`` runs, on that thread's lane.
+    Collections on any other thread record nothing."""
+
+    __slots__ = ("ident", "t0")
+
+    def __init__(self, ident: int):
+        self.ident = ident
+        self.t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if not TRACER.enabled or threading.get_ident() != self.ident:
+            return
+        if phase == "start":
+            self.t0 = time.perf_counter()
+        elif self.t0:
+            TRACER.complete("gc", self.t0, time.perf_counter(),
+                            generation=info["generation"], collected=info["collected"])
+            self.t0 = 0.0
+
+
 # Errors a request's own query raises (a malformed pattern is a KeyError):
 # every rank of a mesh meets them on the same batch.
 _QUERY_ERRORS = (KeyError, ValueError)
@@ -582,6 +612,8 @@ class ServingEngine:
         self._metrics = get_registry().group("serving", **(obs_labels or {}))
         self._latency = self._metrics.histogram(
             "latency_ms", window=self.cfg.latency_window)
+        self._queue_wait = self._metrics.histogram(
+            "queue_wait_ms", window=self.cfg.latency_window)
         self._submitted = self._metrics.counter("submitted")
         self._completed = self._metrics.counter("completed")
         self._batches = self._metrics.counter("batches")
@@ -592,7 +624,6 @@ class ServingEngine:
         self._flushes = {k: self._metrics.counter("flushes", kind=k)
                          for k in ("size", "age", "drain", "retry")}
         self._queue_depth = self._metrics.gauge("queue_depth")
-        self._occupancy = self._metrics.gauge("batch_occupancy")
         # Requests shed for staleness (typed error, NOT failures) and served
         # counts by version lag (0 = current).
         self._stale_sheds = self._metrics.counter("stale_sheds")
@@ -605,6 +636,7 @@ class ServingEngine:
         get_registry().on_reset(self._rebaseline)
         self.batch_log: List[BatchRecord] = []
         self._thread: Optional[threading.Thread] = None
+        self._gc_hook: Optional[_GcSpans] = None
         self._mesh = self._scorer.mesh
         self._lane = MeshLane.of(self.ctx) if sharded else None
         self._lane_id = self._lane.register(self) if sharded else -1
@@ -663,6 +695,14 @@ class ServingEngine:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"{self.name}-batcher")
         self._thread.start()
+        self._remove_gc_hook()
+        self._gc_hook = _GcSpans(self._thread.ident)
+        gc.callbacks.append(self._gc_hook)
+
+    def _remove_gc_hook(self) -> None:
+        if self._gc_hook is not None and self._gc_hook in gc.callbacks:
+            gc.callbacks.remove(self._gc_hook)
+        self._gc_hook = None
 
     def close(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop accepting requests; by default serve everything already
@@ -680,6 +720,7 @@ class ServingEngine:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+        self._remove_gc_hook()
         # Anything still queued (drain=False or timeout) fails loudly rather
         # than leaving callers blocked on forever-pending futures.
         self._fail_queued()
@@ -956,6 +997,10 @@ class ServingEngine:
                     batch.append(self._next_request(min(remaining, 0.05)))
                 except queue.Empty:
                     continue
+            now = time.perf_counter()
+            with self._lock:
+                for r in batch:
+                    self._queue_wait.observe((now - r.t_submit) * 1e3)
             self._queue_depth.set(self._q.qsize())
             if TRACER.enabled:
                 TRACER.counter("serving_queue_depth", depth=self._q.qsize())
@@ -1064,10 +1109,11 @@ class ServingEngine:
             for lat_ms in lats:
                 self._latency.observe(lat_ms)
             self._completed += n
-        for r, res, lat_ms in zip(batch, results, lats):
-            if r.trace_id:
-                TRACER.async_end("request", r.trace_id, latency_ms=lat_ms)
-            r.future.set_result(res)
+        with TRACER.span("respond", n=n):
+            for r, res, lat_ms in zip(batch, results, lats):
+                if r.trace_id:
+                    TRACER.async_end("request", r.trace_id, latency_ms=lat_ms)
+                r.future.set_result(res)
 
     def update_params(self, params) -> None:
         """Hot-swap the serving params (e.g. after an incremental
@@ -1143,6 +1189,8 @@ class ServingEngine:
         return states
 
     def _serve(self, batch: List[_Request], flush: str) -> List[Dict]:
+        if TRACER.enabled:
+            TRACER.device_open(f"{self.name} device", self.device)
         # Exact-duplicate coalescing: in-flight requests whose query keys
         # match share ONE computed row; only the final selection differs.
         row_of: List[int] = []
@@ -1206,13 +1254,23 @@ class ServingEngine:
         with TRACER.span("encode", n=len(padded), graph_version=gv):
             states = self._states_for(enc, uniq, padded, n_real, mat_ver, gv,
                                       use_cache=use_mat)
+        if TRACER.enabled:
+            TRACER.device_mark("encode")
         # The scores' copy to the host waits for the card: ``score`` ends only
         # once every launch before it has run.
         with TRACER.span("score", n=len(padded)):
             if self.sem_cache is not None:
+                # Out of core the copies are inside the call: marked after it.
                 scores = self._scorer.chunked(params, states, self.sem_rows_fn)
+                if TRACER.enabled:
+                    TRACER.device_mark("score")
             else:
-                scores = self._scorer(params, states, n_ent).cpu().numpy()
+                scores = self._scorer(params, states, n_ent)
+                if TRACER.enabled:
+                    TRACER.device_mark("score")
+                scores = scores.cpu().numpy()
+        if TRACER.enabled:
+            TRACER.device_close()
         # Select per DISTINCT (row, k) group, not one k_max selection sliced
         # per request: argpartition at k_max can arrange boundary-tied ids
         # differently than argpartition at k, and the contract is exact
@@ -1259,7 +1317,6 @@ class ServingEngine:
             self._batch_rows += len(padded)
             self._padded_rows += len(padded) - n_real
             self._coalesced += len(batch) - len(uniq)
-            self._occupancy.set(n_real / len(padded))
             self._flushes[flush].inc()
             if self.kg is not None:
                 # Served counts by version lag (0 = current graph version).
@@ -1296,6 +1353,7 @@ class ServingEngine:
         self._sharing0 = dict(self.executor.sharing_stats())
         with self._lock:
             self._latency.reset()
+            self._queue_wait.reset()
             self._metrics.reset(only=[
                 self._batches, self._batch_rows, self._padded_rows,
                 self._coalesced, self._failures, self._stale_sheds,
@@ -1306,6 +1364,7 @@ class ServingEngine:
     def stats(self) -> Dict:
         with self._lock:
             lat = np.asarray(self._latency.window_values(), dtype=np.float64)
+            wait = np.asarray(self._queue_wait.window_values(), dtype=np.float64)
             out = {
                 "submitted": int(self._submitted),
                 "completed": int(self._completed),
@@ -1329,11 +1388,11 @@ class ServingEngine:
                 out["stale_sheds"] = int(self._stale_sheds)
                 out["version_lag_served"] = {
                     lag: int(c) for lag, c in self._version_served.items()}
-        if len(lat):
-            out["latency_ms"] = {**latency_summary(lat),
-                                 "max": float(lat.max()),
-                                 "window_n": int(len(lat)),
-                                 "window": int(self._latency.window)}
+        for key, vals, hist in (("latency_ms", lat, self._latency),
+                                ("queue_wait_ms", wait, self._queue_wait)):
+            if len(vals):
+                out[key] = {**latency_summary(vals), "max": float(vals.max()),
+                            "window_n": int(len(vals)), "window": int(hist.window)}
         out["retraces"] = self.retraces()
         out["caches"] = self.executor.cache_stats()
         # Same window as the engine's own counters: delta since the last

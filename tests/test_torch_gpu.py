@@ -1432,3 +1432,68 @@ def test_padded_restore_on_the_card(dev, tmp_path):
         ex = PooledExecutor(model, b_max=64, device=dev)
         out[pad] = serve_batch(model, params, ex, comp, top_k=10, device=dev)[0]
     assert out[1] == out[4]
+
+
+def test_engine_device_spans_line_up_with_the_profiler(dev):
+    """With the tracer and ``torch.profiler`` both on over served BetaE
+    batches, each ``score.device`` span, moved onto the profiler's clock by
+    the trace's ``clock_sync`` alone, ends within 50 us of the last kernel the
+    profiler shows before that batch's copy of its scores to the host; the
+    ``encode.device`` span ends where it starts; the trace validates with a
+    "serving device" lane."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import PooledExecutor
+    from repro_torch.data import generate_synthetic_kg
+    from repro_torch.models import ModelConfig, make_model
+    from repro_torch.obs import TRACER, validate_trace
+    from repro_torch.serving import ServingConfig, ServingEngine, make_workload
+
+    kg = generate_synthetic_kg(3000, 20, 30000, seed=0)
+    model = make_model("betae", ModelConfig(dim=128), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0), kg.n_entities,
+                               kg.n_relations)
+    queries = make_workload(kg, 96, seed=5)
+    with ServingEngine(model, params, executor=PooledExecutor(model, b_max=64, device=dev),
+                       cfg=ServingConfig(max_batch=8), device=dev) as eng:
+        for f in eng.submit_many(queries):          # warm: plans, closures, allocator
+            f.result(timeout=120)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            TRACER.enable(profiler_annotations=False)
+            for f in eng.submit_many(queries):
+                f.result(timeout=120)
+            TRACER.disable()
+            torch.cuda.synchronize()
+    obj = TRACER.to_json()
+    validate_trace(obj)
+    lanes = {e["tid"]: e["args"]["name"] for e in obj["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    sync = next(e["args"] for e in obj["traceEvents"]
+                if e["ph"] == "M" and e["name"] == "clock_sync")
+    spans = {n: sorted((e for e in obj["traceEvents"] if e["ph"] == "X" and e["name"] == n),
+                       key=lambda e: e["ts"]) for n in ("encode.device", "score.device")}
+    assert {lanes[e["tid"]] for s in spans.values() for e in s} == {"serving device"}
+    assert len(spans["score.device"]) >= 96 // 8 - 1
+    for enc, score in zip(spans["encode.device"], spans["score.device"]):
+        assert abs(enc["ts"] + enc["dur"] - score["ts"]) < 1.0
+    kernels, copies = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if "DtoH" in e.name() or "Device -> Host" in e.name():
+            copies.append(int(e.start_ns()))
+        elif not e.name().startswith(("Memcpy", "Memset")):
+            kernels.append(int(e.end_ns()))
+    kernels.sort()
+    copies.sort()
+    gaps = []
+    for e in spans["score.device"]:
+        end_ns = sync["unix_ns"] + (e["ts"] + e["dur"]) * 1e3
+        copy = next(c for c in copies if c >= end_ns - 50_000)
+        last = max(k for k in kernels if k <= copy)
+        gaps.append(end_ns - last)
+    q = np.percentile(gaps, [0, 25, 50, 75, 100])
+    print(f"score.device end less the last kernel's, ns: min {q[0]:.0f} quartiles "
+          f"{q[1]:.0f} {q[2]:.0f} {q[3]:.0f} max {q[4]:.0f} over {len(gaps)} batches")
+    assert max(abs(g) for g in gaps) <= 50_000, q
