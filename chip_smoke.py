@@ -53,7 +53,15 @@ non-zero (printing no result) on any failed check:
    zp recomputed, repeats bitwise across two calls, and is timed both ways
    beside its 3xTF32 and CUDA-core bounds (and the 3xTF32 bound of a
    backward that recomputes zp) and the composition (autograd through the
-   plain version, cuBLAS in full fp32).
+   plain version, cuBLAS in full fp32). ``betae_kl`` (``csrc/betae_kl.cu``,
+   fp32) runs one query, the micro-batch of 16 and evaluation's 64 against
+   all 14,951 entities, a 4,096-row chunk and a ragged d = 33 (also off
+   16-byte boundaries), held to the fp64 KL no further than twice the fp32 plain
+   version's own gap, one launch a call, timed beside its bound (the
+   entity table's bytes against the KL's 4 FLOPs a query-entity element on
+   the CUDA cores) and the plain version; a 4,096-row chunk (either load
+   variant), a query alone and a batch of 16 inside one of 64 score bitwise
+   as the all-entity batch of 16.
 4. Serve: all six families (BetaE, GQE, ComplEx, Q2B, Q2P, FuzzQE) at full
    width (dim 400) on a synthetic graph with FB15k's Table 4 shape, through
    ``ServingEngine.submit``: one warm-up window, then five timed closed-loop
@@ -127,7 +135,9 @@ non-zero (printing no result) on any failed check:
    GQE's ``evaluate``), ``gather_fuse`` one for each semantic serving
    layout and one for training, ``intersect`` one for serving and one for
    training, beside ``intersect_backward`` and ``gather_fuse_backward`` for
-   training, each with its own launches.
+   training, each with its own launches; ``betae_kl`` one for BetaE's
+   serving (phase 4: one launch a micro-batch) and one for its ``evaluate``
+   (phase 5: one a batch of 64).
 7. The live serving tier (runs after 5c; the kernels line of 6 is printed
    after it), at ``ModelConfig()`` on phase 4's graph, which it writes to.
    (a) GQE behind ``ServingEngine(kg=, mat_cache=MaterializedSubqueryCache
@@ -546,6 +556,73 @@ def main() -> None:
             fail(f"scoring[{mode}] {dtype}: a query scored alone differs from its "
                  f"row in a batch of 16")
 
+    def kl_inputs(B: int, N: int, d: int, misaligned: bool = False):
+        """Query states in the operators' range, entity rows of unit norm (as
+        serving's weights draw them) with every fifth row scaled to reach
+        both clip ends. ``misaligned``: ``ev`` is ``table[1:]``."""
+        q = torch.rand((B, 2 * d), generator=gen, device=dev) * 3.0 + 0.05
+        ev = torch.randn((N + misaligned, d), generator=gen, device=dev)
+        ev = ev / ev.norm(dim=1, keepdim=True)
+        ev[::5] *= 80.0
+        return q, (ev[1:] if misaligned else ev)
+
+    def measure_betae_kl(B: int, N: int, d: int, misaligned: bool = False) -> dict:
+        """``betae_kl`` against the plain version in fp32 and in fp64 (over
+        row chunks), one launch a call; the bound is the entity table's
+        bytes against the KL's query-entity FLOPs on the CUDA cores."""
+        q, ev = kl_inputs(B, N, d, misaligned)
+        before = kops.betae_kl.launches
+        got = kops.betae_kl(q, ev, 12.0)
+        torch.cuda.synchronize()
+        if kops.betae_kl.launches != before + 1:
+            fail(f"betae_kl {(B, N, d)}: {kops.betae_kl.launches - before} launches for a call")
+        rows = 2048
+        plain = torch.cat([kops.betae_kl_ref(q, ev[a:a + rows], 12.0)
+                           for a in range(0, N, rows)], dim=1)
+        exact = torch.cat([kops.betae_kl_ref(q.double(), ev[a:a + rows].double(), 12.0)
+                           for a in range(0, N, rows)], dim=1)
+        gap = float((got.double() - exact).abs().max())
+        plain_gap = float((plain.double() - exact).abs().max())
+        scale = float(exact.abs().max())
+        if not torch.isfinite(got).all() or gap > 2 * plain_gap + 4 * scale * 2.0 ** -24:
+            fail(f"betae_kl {(B, N, d)}: {gap:.3g} from fp64, the plain version {plain_gap:.3g}")
+        b_ms, b_by = bound((B * 2 * d + N * d) * 4 + B * N * 4, 4 * B * N * d, "float32")
+        return {
+            "max_abs_err": float((got - plain).abs().max()), "gap_fp64": gap,
+            "plain_gap_fp64": plain_gap,
+            "ms": time_ms(lambda: kops.betae_kl(q, ev, 12.0), flush),
+            "plain_ms": time_ms(lambda: kops.betae_kl_ref(q, ev, 12.0), flush, reps=5),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"B": B, "N": N, "d": d, **({"ev": "table[1:]"} if misaligned else {})},
+            "dtype": "float32",
+        }
+
+    def check_betae_kl_bitwise() -> None:
+        """A score's bits depend only on its query row, its entity row and d:
+        a 4,096-row chunk (also off 16-byte boundaries) equals those columns of
+        the all-entity launch, a query alone its row in a batch of 16, and a
+        batch of 16 its rows in a batch of 64."""
+        q, ev = kl_inputs(16, E, 400)
+        full = kops.betae_kl(q, ev, 12.0)
+        flat = torch.empty(CHUNK * 400 + 1, device=dev)
+        off = flat[1:].view(CHUNK, 400)  # one element past a 16-byte boundary
+        off.copy_(ev[CHUNK:2 * CHUNK])
+        chunks = {"aligned": kops.betae_kl(q, ev[CHUNK:2 * CHUNK], 12.0),
+                  "off 16-byte boundaries": kops.betae_kl(q, off, 12.0)}
+        alone = kops.betae_kl(q[5:6].contiguous(), ev, 12.0)
+        q64 = torch.cat([kl_inputs(48, 1, 400)[0], q]).contiguous()
+        in64 = kops.betae_kl(q64, ev, 12.0)
+        torch.cuda.synchronize()
+        for how, chunk in chunks.items():
+            if not torch.equal(chunk, full[:, CHUNK:2 * CHUNK]):
+                fail(f"betae_kl: a {CHUNK}-row chunk ({how}) differs from the all-entity "
+                     f"launch's columns")
+        if not torch.equal(alone, full[5:6]):
+            fail("betae_kl: a query scored alone differs from its row in a batch of 16")
+        if not torch.equal(in64[48:], full):
+            fail("betae_kl: a batch of 16 differs from its rows in a batch of 64")
+
     def check_intersect(args, dtype: str) -> float:
         got = kops.intersect(*args)
         want = kops.intersect_ref(*args)
@@ -874,6 +951,14 @@ def main() -> None:
         print(f"  scoring {dtype}: {CHUNK}-row chunks (either tiling, either "
               f"variant) and single queries bitwise equal to the all-entity "
               f"batch of 16")
+        if dtype == "float32":  # BetaE's states and entity rows are fp32
+            for B, N, d, mis in ((1, E, 400, False), (16, E, 400, False),
+                                 (16, CHUNK, 400, False), (64, E, 400, False),
+                                 (5, 333, 33, False), (16, 333, 33, True)):
+                show("betae_kl", measure_betae_kl(B, N, d, mis))
+            check_betae_kl_bitwise()
+            print(f"  betae_kl: {CHUNK}-row chunks (either variant), single queries and "
+                  f"batches of 16 in 64 bitwise equal to the all-entity launch")
         for n, k, d, hd in ((8, 2, 800, 800), (16, 2, 800, 800), (16, 3, 800, 800),
                             (256, 2, 800, 800), (256, 3, 800, 800),
                             (512, 3, 800, 800), (100, 3, 64, 128)):
@@ -930,12 +1015,12 @@ def main() -> None:
         with engine:
             run_closed_loop(engine, warmup, concurrency=32)
             engine.reset_counters()
-            kops.scoring.launches = 0
-            kops.intersect.launches = 0
+            kops.scoring.launches = kops.intersect.launches = kops.betae_kl.launches = 0
             reports = [run_closed_loop(engine, w, concurrency=32) for w in windows]
             torch.cuda.synchronize()
             launches = {"scoring": kops.scoring.launches,
-                        "intersect": kops.intersect.launches}
+                        "intersect": kops.intersect.launches,
+                        "betae_kl": kops.betae_kl.launches}
         st = engine.stats()
         results = [res for rep in reports for res in rep.results]
         for res in results:
@@ -976,12 +1061,13 @@ def main() -> None:
             states = executor.encode(params, engine.batch_log[-1].queries)
             score_ms = time_ms(lambda: model.score_all(params, states), flush)  # noqa: B023
         need = {"betae": "intersect", "gqe": "scoring", "complex": "scoring"}.get(family)
-        shapes = collections.Counter()
+        shapes, scored = collections.Counter(), collections.Counter()
         for rec in engine.batch_log:
             if family == "betae":
                 for op, arity, pn in executor.prepare(rec.queries).meta:
                     if op in (int(OpType.INTERSECT), int(OpType.UNION)):
                         shapes[(pn, arity)] += 1
+                scored[(len(rec.queries), E)] += 1
             elif need:
                 shapes[(len(rec.queries), E)] += 1
         l = latency_summary([res["latency_ms"] for res in results])
@@ -1011,6 +1097,13 @@ def main() -> None:
                      f"{sum(shapes.values())} calls in the recorded batches")
             key = "intersect" if family == "betae" else f"scoring[{model.score_mode}]"
             main_path[key] = (launches[need], shapes)
+        # BetaE scores each micro-batch in one betae_kl launch; no other family
+        # reaches it.
+        if launches["betae_kl"] != sum(scored.values()):
+            fail(f"{family}: {launches['betae_kl']} betae_kl launches for "
+                 f"{sum(scored.values())} scored micro-batches")
+        if scored:
+            main_path["betae_kl"] = (launches["betae_kl"], scored)
         del engine, executor, model, params, states
         torch.cuda.empty_cache()
 
@@ -1337,7 +1430,7 @@ def main() -> None:
                       f"[{mode}] step ({sum(pools.values())} calls over {TRAIN_STEPS} steps, "
                       f"each at its pool's time in phase 3)")
             if mode == "pooled":
-                kops.scoring.launches = kops.intersect.launches = 0
+                kops.scoring.launches = kops.intersect.launches = kops.betae_kl.launches = 0
                 t0 = time.perf_counter()
                 metrics = evaluate(trainer.model, trainer.params, trainer.executor, kg,
                                    eval_queries, batch_size=64)
@@ -1352,10 +1445,16 @@ def main() -> None:
                              f"{n_batches} eval batches")
                     main_path["scoring[l1][evaluate]"] = (
                         kops.scoring.launches, collections.Counter({(64, E): n_batches}))
+                elif kops.betae_kl.launches != n_batches:
+                    fail(f"evaluate betae: {kops.betae_kl.launches} betae_kl launches for "
+                         f"{n_batches} eval batches")
+                else:
+                    main_path["betae_kl[evaluate]"] = (
+                        kops.betae_kl.launches, collections.Counter({(64, E): n_batches}))
                 print(f"evaluate {family}: {EVAL_QUERIES} queries in {wall:.3f} s, mrr "
                       f"{metrics['mrr']:.5f}, hits@1 {metrics['hits@1']:.5f}, hits@10 "
                       f"{metrics['hits@10']:.5f} | launches scoring {kops.scoring.launches}, "
-                      f"intersect {kops.intersect.launches}")
+                      f"intersect {kops.intersect.launches}, betae_kl {kops.betae_kl.launches}")
             del trainer
             torch.cuda.empty_cache()
     main_path["intersect[training]"] = tuple(train_path["intersect"])
@@ -2187,6 +2286,11 @@ def main() -> None:
             r = measure_intersect(n, k, 2 * cfg.dim, cfg.dim * cfg.hidden_mult,
                                   "float32", detail=True)
             src, replaces = "intersect.cu", "src/repro/kernels/intersect.py:50"
+        elif key.startswith("betae_kl"):
+            B, N = shape
+            r = measure_betae_kl(B, N, cfg.dim)
+            # No Pallas counterpart: the JAX package computes the KL in jnp.
+            src, replaces = "betae_kl.cu", "none (src/repro/models/betae.py:71, jnp)"
         elif key == "intersect_backward":
             n, k = shape
             r = measure_intersect_backward(n, k, 2 * cfg.dim, cfg.dim * cfg.hidden_mult)

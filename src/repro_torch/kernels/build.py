@@ -131,6 +131,8 @@ def load_library() -> ctypes.CDLL:
             lib.repro_gather_fuse_backward.restype = i
             lib.repro_gather_fuse_backward_scratch.argtypes = [i, i, i, i]
             lib.repro_gather_fuse_backward_scratch.restype = ll
+            lib.repro_betae_kl.argtypes = [p, p, p, i, i, i, f, p]
+            lib.repro_betae_kl.restype = i
             lib.repro_stream_read.argtypes = [p, ll, p, i, p]
             lib.repro_stream_read.restype = i
             lib.repro_intersect_tiles.argtypes = [i]

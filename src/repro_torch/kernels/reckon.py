@@ -38,6 +38,15 @@ def scoring(q, e, mode: str) -> torch.Tensor:
     return torch.empty((B, N), dtype=torch.float32, device="meta")
 
 
+def betae_kl(q, ev) -> torch.Tensor:
+    B, N, d = q.shape[0], ev.shape[0], ev.shape[1]
+    # The KL's query-entity terms: 4 FLOPs an element of a pair, as the
+    # benchmark's query_flops counts them (the terms of one side alone, such
+    # as digamma of the entity's, are not counted per pair).
+    _record("betae_kl", 4 * B * N * d, (B * 2 * d + N * d) * 4 + B * N * 4)
+    return torch.empty((B, N), dtype=torch.float32, device="meta")
+
+
 def intersect(x, w1) -> torch.Tensor:
     n, k, d = x.shape
     hd = w1.shape[1]

@@ -77,6 +77,13 @@ class BetaE(QueryEncoder):
     def negate(self, params, x):
         return _clip(1.0 / maximum(x, _EPS))
 
+    def _score(self, params, q, ev):
+        # The all-entity KL as one launch of the forward-only ``betae_kl``
+        # kernel; a score that needs a gradient keeps ``distance``.
+        if torch.is_grad_enabled() and (q.requires_grad or ev.requires_grad):
+            return super()._score(params, q, ev)
+        return kops.betae_kl(q, ev, gamma=self.cfg.gamma)
+
     def distance(self, params, q, ent_vec):
         ae, be = self._split(self.entity_state(params, ent_vec))
         aq, bq = self._split(q)

@@ -259,6 +259,88 @@ def test_kernels_reject_what_they_do_not_take(dev):
         kops.intersect(torch.randn(3, 0, 8, device=dev), w1, b1, w2, b2)
 
 
+# ------------------------------------------------------------- betae_kl
+def _kl_inputs(dev, B, N, d, seed=0):
+    """Query states in the operators' range and entity rows of unit norm (as
+    the benchmark draws them), with every fifth row scaled so that its
+    (alpha, beta) reach both clip ends, and query columns past both."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ev = torch.randn((N, d), generator=g, device=dev)
+    ev = ev / ev.norm(dim=1, keepdim=True)
+    ev[::5] *= 80.0
+    q = torch.rand((B, 2 * d), generator=g, device=dev) * 3.0 + 0.05
+    q[:, ::7] = 45.0
+    q[:, 3::7] = 0.01
+    return q.contiguous(), ev.contiguous()
+
+
+def _kl_chunked(q, ev, gamma, dtype, rows=2048):
+    """The plain version in ``dtype``, over row chunks (its [B, N, d]
+    intermediates stay small)."""
+    return torch.cat([kops.betae_kl_ref(q.to(dtype), ev[a:a + rows].to(dtype), gamma)
+                      for a in range(0, ev.shape[0], rows)], dim=1)
+
+
+@pytest.mark.parametrize("d", [32, 33, 400])
+@pytest.mark.parametrize("N", [1, 100, 4096, 14951])
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+def test_betae_kl_kernel_matches_plain_and_float64(dev, B, N, d):
+    """One launch; within fp32 rounding of the float64 KL, and no further
+    from it than twice the eager plain version's own gap (plus a few units
+    of the last place of the scores)."""
+    q, ev = _kl_inputs(dev, B, N, d)
+    before = kops.betae_kl.launches
+    got = kops.betae_kl(q, ev, gamma=12.0)
+    torch.cuda.synchronize()
+    assert kops.betae_kl.launches == before + 1
+    want64 = _kl_chunked(q, ev, 12.0, torch.float64)
+    plain = _kl_chunked(q, ev, 12.0, torch.float32)
+    scale = float(want64.abs().max())
+    gap = float((got.double() - want64).abs().max())
+    plain_gap = float((plain.double() - want64).abs().max())
+    assert torch.isfinite(got).all()
+    assert gap <= 2 * plain_gap + 4 * scale * 2.0 ** -24, (gap, plain_gap, scale)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5 * max(scale, 1.0))
+
+
+def test_betae_kl_rows_and_queries_do_not_depend_on_their_launch(dev):
+    """A score's bits depend on its query row, its entity row and d alone:
+    a 4,096-row chunk equals those columns of the all-entity launch (also
+    from a table off 16-byte boundaries), a query alone its row in a batch of
+    16, and a batch of 16 its rows in a batch of 64."""
+    q, ev = _kl_inputs(dev, 16, 14951, 400)
+    full = kops.betae_kl(q, ev, gamma=12.0)
+    chunk = kops.betae_kl(q, ev[4096:8192], gamma=12.0)
+    off = _misaligned(ev[4096:8192])
+    chunk_off = kops.betae_kl(q, off, gamma=12.0)
+    alone = kops.betae_kl(q[5:6].contiguous(), ev, gamma=12.0)
+    q64 = torch.cat([_kl_inputs(dev, 48, 1, 400, seed=1)[0], q]).contiguous()
+    in64 = kops.betae_kl(q64, ev, gamma=12.0)
+    torch.cuda.synchronize()
+    assert torch.equal(chunk, full[:, 4096:8192])
+    assert torch.equal(chunk_off, full[:, 4096:8192])
+    assert torch.equal(alone, full[5:6])
+    assert torch.equal(in64[48:], full)
+
+
+def test_betae_kl_rejects_what_it_does_not_take(dev):
+    q, ev = _kl_inputs(dev, 4, 10, 8)
+    before = kops.betae_kl.launches
+    with pytest.raises(TypeError):
+        kops.betae_kl(q.double(), ev.double())
+    with pytest.raises(TypeError):
+        kops.betae_kl(q.to(torch.bfloat16), ev.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.betae_kl(q, torch.randn(8, 10, device=dev).T)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        kops.betae_kl(q, ev.cpu())
+    with pytest.raises(ValueError, match="q \\[B, 2d\\]"):
+        kops.betae_kl(q[:, :8].contiguous(), ev)
+    assert kops.betae_kl(q[:0], ev).shape == (0, 10)
+    assert kops.betae_kl(q, ev[:0]).shape == (4, 0)
+    assert kops.betae_kl.launches == before
+
+
 # The backward's shapes: the pools BetaE training gives it (n = 32 to 512;
 # k = 2, 3; d = hd = 800), a ragged n, k = 1 and k = 12, a pool row wider than
 # a 64-row group (k = 70), and widths that end inside a tile (d = 33: no
@@ -828,10 +910,13 @@ def test_engine_on_gpu_matches_cpu_plain_path(dev, name):
                                kg.n_entities, kg.n_relations)
     ex = PooledExecutor(model, b_max=16, device=dev)
     queries = make_workload(kg, 40, seed=3)
-    kops.scoring.launches = kops.intersect.launches = 0
+    kops.scoring.launches = kops.intersect.launches = kops.betae_kl.launches = 0
     with ServingEngine(model, params, executor=ex, device=dev,
                        cfg=ServingConfig(max_batch=8, record_batches=True)) as eng:
         results = [f.result(timeout=120) for f in eng.submit_many(queries)]
+    # BetaE scores each micro-batch in one betae_kl launch; no other family
+    # reaches it.
+    assert kops.betae_kl.launches == (eng.stats()["batches"] if name == "betae" else 0)
     if name in ("betae", "gqe", "complex"):
         # BetaE's set operators run intersect; GQE and ComplEx score with
         # scoring; the other families reach no kernel.

@@ -396,12 +396,16 @@ def _gather_fuse_args(device):
             torch.empty(12, 8, device=device), torch.empty(8, device=device))
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse"])
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse",
+                                    "betae_kl"])
 def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
     meta = torch.empty((4, 2, 8), device="meta")
     if kernel == "scoring":
         with pytest.raises(ValueError):
             tops.scoring(meta[:, 0], torch.zeros(5, 8))
+    elif kernel == "betae_kl":
+        with pytest.raises(ValueError):
+            tops.betae_kl(meta[:, 0], torch.zeros(5, 4))
     elif kernel == "gather_fuse":
         ids, *rest = _gather_fuse_args("cpu")
         with pytest.raises(ValueError):
@@ -416,7 +420,8 @@ def test_wrapper_rejects_tensors_off_cpu_and_cuda(kernel):
                 tops.intersect_backward(meta, w1, b1, w2, b2, torch.zeros(4, 8))
 
 
-@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse"])
+@pytest.mark.parametrize("kernel", ["scoring", "intersect", "intersect_backward", "gather_fuse",
+                                    "betae_kl"])
 def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
     """A wrapper handed CUDA tensors (fake ones: this machine has no card)
     asks for its kernel and raises; it never takes the plain version."""
@@ -425,10 +430,13 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     before = (tops.scoring.launches, tops.intersect.launches,
-              tops.intersect_backward.launches, tops.gather_fuse.launches)
+              tops.intersect_backward.launches, tops.gather_fuse.launches,
+              tops.betae_kl.launches)
     with FakeTensorMode(), pytest.raises(RuntimeError, match="CUDA is not available"):
         if kernel == "gather_fuse":
             tops.gather_fuse(*_gather_fuse_args("cuda"))
+        elif kernel == "betae_kl":
+            tops.betae_kl(torch.empty(4, 16, device="cuda"), torch.empty(5, 8, device="cuda"))
         elif kernel == "scoring":
             tops.scoring(torch.empty(4, 8, device="cuda"),
                          torch.empty(5, 8, device="cuda"), 1.0, "l1")
@@ -441,7 +449,8 @@ def test_wrapper_on_cuda_tensors_raises_without_cuda(kernel):
             else:
                 tops.intersect_backward(*args, torch.empty(3, 8, device="cuda"))
     assert (tops.scoring.launches, tops.intersect.launches,
-            tops.intersect_backward.launches, tops.gather_fuse.launches) == before
+            tops.intersect_backward.launches, tops.gather_fuse.launches,
+            tops.betae_kl.launches) == before
 
 
 def test_kernel_library_needs_cuda():
@@ -467,7 +476,7 @@ def test_library_path_keyed_by_sources():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("librepro_kernels_") and path.suffix == ".so"
     assert {s.name for s in build.sources()} >= {
-        "scoring.cu", "intersect.cu", "gather_fuse.cu", "common.cuh"}
+        "scoring.cu", "intersect.cu", "gather_fuse.cu", "betae_kl.cu", "common.cuh"}
 
 
 
